@@ -1,0 +1,17 @@
+"""dune_transformercvn_torch — the PyTorch/CUDA port of TransformerCVN.
+
+A second package beside :mod:`dune_transformercvn_tpu` (the JAX reference):
+the same modules, file for file, written as ``torch.nn.Module``s, with each
+Pallas kernel of the JAX package replaced by a hand-written CUDA kernel for
+NVIDIA Hopper (``csrc/``, built with ``nvcc`` at first use by
+:mod:`.utils.build`).  Nothing here builds or loads CUDA at import time.
+
+The framework-free modules of the JAX package (``config.Options`` and the
+``data`` package: schema, dataset, batcher) are imported, not copied.
+"""
+
+from dune_transformercvn_tpu.config import Options
+
+__version__ = "0.1.0"
+
+__all__ = ["Options"]
