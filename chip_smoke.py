@@ -7,23 +7,34 @@ Phases, each of which raises on failure:
 
 1. Device and build: the card's name and power limit from ``nvidia-smi``;
    every kernel under ``dune_transformercvn_torch/csrc`` is built with
-   ``nvcc``; TF32 is switched off so the float32 comparisons below are
-   float32.
+   ``nvcc``, one compiler process per source, all at once; TF32 is switched
+   off so the float32 comparisons below are float32.
 2. Kernel K1 (COO -> dense densify) against its plain PyTorch version on the
    card, at the serving path's shapes, float32 and bfloat16, plain and
    space-to-depth layout, with duplicate pixels, an empty image, coordinates
    out of range (negative too) and padding rows past ``starts[-1]``; the
-   median time of both.
-3. Serving at full width: the production option file, bfloat16, random
-   weights from a seed, events made in memory from a seed; ``predict_split``
-   at batch 16 and at batch 64, one warm-up pass over the same events (so
-   every prong-slot shape is seen), then timed passes with K1's launch
-   count reset before each and read after it; probabilities finite, rows
-   summing to 1, shapes right.
-4. Kernel path against plain path: with float32 compute, ``model.forward``
-   (through K1) against ``model.forward_from_images`` on plainly densified
-   images; and the card against the CPU on a small batch.
-5. A JSON line of every ported kernel, then, as the last line,
+   median time of the kernel, the plain version and one ``index_put_`` call.
+3. Kernel K2 (the coo stem's scatter) against its plain version on the
+   card, at the coo path's shapes (event banks of 16 and 64 images, prong
+   banks of 128 and 384, production stem weights), float32 and bfloat16
+   output, the same edge cases; gradients through ``ScatterPatches``
+   against autograd of the plain version; the median time of the kernel,
+   the plain version and one ``zeros().index_add_`` call.
+4. Dense serving at full width: the production option file, bfloat16,
+   random weights from a seed, events made in memory from a seed;
+   ``predict_split`` at batch 16 and at batch 64, one warm-up pass over the
+   same events, then timed passes; K1 launched twice a batch, K2 never.
+5. Coo serving: the same with the coo family; K2 twice a batch, K1 never.
+6. Coo training at full width: the option file's AdamW, schedule, clip 43,
+   dropout 0.1, pixel noise 0.001, bfloat16, batch 16: 3 warm-up steps and
+   20 timed ones; finite loss and grad_norm, every parameter that got a
+   gradient changed, BatchNorm statistics moved, K2 twice a step; then one
+   eval pass over 64 events with finite AUCs.
+7. Paths, float32: dense through K1 against the plain densify; coo logits
+   against dense logits with the same weights; each coo embedder through K2
+   against the plain stem; the card against the CPU at batch 4, both
+   families.
+8. A JSON line of every ported kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -31,6 +42,7 @@ Exits non-zero, printing no result, when CUDA is unavailable.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -38,19 +50,28 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from dune_transformercvn_torch import Options
 from dune_transformercvn_torch.data import Batcher, InMemoryEvents
 from dune_transformercvn_torch.models import TransformerCVN
+from dune_transformercvn_torch.models.densenet import densenet_post_stem
+from dune_transformercvn_torch.ops import coo_stem
+from dune_transformercvn_torch.ops.coo_conv import coo_stem_conv_plain
 from dune_transformercvn_torch.ops.densify import (
     densify_images_cuda, densify_images_plain)
 from dune_transformercvn_torch.predict import predict_split, to_device
 from dune_transformercvn_torch.profile_serving import OPTION_FILE, production_config
+from dune_transformercvn_torch.train import (
+    create_train_state, finalize_metrics, init_metric_state, make_eval_step,
+    make_train_step)
 from dune_transformercvn_torch.utils.build import build, sources
 
 SEED = 0
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 
 H, W, C = 400, 280, 3
 # K1 tolerances against the plain version (torch's index_put_).  float32:
@@ -60,14 +81,25 @@ H, W, C = 400, 280, 3
 # few bf16 ulps of 2^-6.
 K1_TOL = {torch.float32: dict(rtol=1e-6, atol=1e-5),
           torch.bfloat16: dict(rtol=2 ** -7, atol=2 ** -5)}
-# Logits through K1 against logits through the plain densify, float32 with
-# TF32 off: the images agree to float32 rounding and the rest runs the same
-# ops, so only cuDNN/cuBLAS summation order separates them.
+# K2 against its plain version: float32 sums in bank order against
+# index_add_'s atomics in any order; a bfloat16 output rounds sums that agree
+# to float32 rounding once, so they differ by at most one bf16 ulp.
+K2_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+          torch.bfloat16: dict(rtol=2 ** -7, atol=2 ** -7)}
+K2_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+# Logits through a kernel against logits through its plain version, float32
+# with TF32 off: only cuDNN/cuBLAS summation order separates them.
 PATH_TOL = dict(rtol=1e-4, atol=1e-4)
-# Serving: (batch size, events) -- a few seconds a pass at the rates of
-# PERF.md -- and the timed passes after the warm-up.
+# coo against dense logits: the stem's float32 sums in another order,
+# amplified by the BatchNorm divides (tests/test_coo_embedder.py's bound).
+FAMILY_TOL = dict(rtol=1e-3, atol=1e-4)
+# Serving: (batch size, events) -- a few seconds a pass -- and the timed
+# passes after the warm-up.
 SERVE_EVENTS = ((16, 512), (64, 1024))
 SERVE_PASSES = 3
+# Training: the option file's batch size, warm-up and timed steps, and the
+# events of the eval pass.
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, EVAL_EVENTS = 16, 3, 20, 64
 # The card against the CPU, float32: cuDNN and oneDNN sum in other orders
 # through ~30 conv layers.
 CPU_TOL = dict(rtol=1e-3, atol=1e-3)
@@ -75,6 +107,15 @@ CPU_TOL = dict(rtol=1e-3, atol=1e-3)
 
 def log(msg: str = ""):
     print(msg, flush=True)
+
+
+def reset_counts():
+    densify_images_cuda.launches = 0
+    coo_stem.scatter_patches_cuda.launches = 0
+
+
+def read_counts():
+    return densify_images_cuda.launches, coo_stem.scatter_patches_cuda.launches
 
 
 # ---------------------------------------------------------------------------
@@ -91,7 +132,9 @@ def device_and_build():
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    outputs = {name: build(name) for name in sources()}
+    names = sources()
+    with ThreadPoolExecutor(len(names)) as pool:
+        outputs = dict(zip(names, pool.map(build, names)))
     log(f"[build] {sorted(outputs)} built in {time.perf_counter() - t0:.2f} s")
     for name, text in outputs.items():
         for line in text.splitlines():
@@ -102,10 +145,11 @@ def device_and_build():
     torch.backends.cuda.matmul.allow_tf32 = False
     log(f"[build] cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    return smi
 
 
 # ---------------------------------------------------------------------------
-# phase 2
+# phases 2 and 3
 # ---------------------------------------------------------------------------
 
 def make_bank(rng, num_images, hits_per_image, bucket=8192):
@@ -150,22 +194,28 @@ def cuda_time_ms(fn, warmup=3, bursts=5, per_burst=20):
     return statistics.median(times)
 
 
+# (label, images, hits per image): the event and packed prong banks at batch
+# 16 and 64 (prong slots from the batcher's capacity ladder)
+BANKS = [("event b16", 16, 160.0), ("prong b16", 128, 160.0 / 3),
+         ("event b64", 64, 160.0), ("prong b64", 384, 160.0 / 3)]
+
+
 def check_k1():
     """K1 against the plain version; returns (max abs err, kernel ms, plain
-    ms) with the times summed over the two banks of one batch-16 forward
-    in bfloat16, plain layout (the serving path's calls)."""
+    ms, library ms, bound ms), the times summed over the two banks of one
+    batch-16 forward in bfloat16, plain layout (the serving path's calls)."""
     rng = np.random.default_rng(SEED)
-    # (label, images, hits per image): the event and packed prong banks at
-    # batch 16 and 64 (prong slots from the batcher's capacity ladder)
-    banks = [("event b16", 16, 160.0), ("prong b16", 128, 160.0 / 3),
-             ("event b64", 64, 160.0), ("prong b64", 384, 160.0 / 3)]
     max_err = 0.0
-    forward_ms = {"kernel": 0.0, "plain": 0.0}
-    log("[K1] case                          max_abs_err   kernel_ms   plain_ms")
-    for label, n, hits in banks:
+    forward = dict(kernel=0.0, plain=0.0, library=0.0, bytes=0)
+    log("[K1] case                          max_abs_err   kernel_ms   plain_ms   index_put_ms")
+    for label, n, hits in BANKS:
         xy, values, owner, starts = make_bank(rng, n, hits)
         xy_t, owner_t = torch.from_numpy(xy).cuda(), torch.from_numpy(owner).cuda()
         starts_t = torch.from_numpy(starts).cuda()
+        x, y = xy_t[:, 0].long(), xy_t[:, 1].long()
+        keep = (owner_t < n) & (x >= 0) & (x < H) & (y >= 0) & (y < W)
+        flat = torch.where(keep, (owner_t.long() * H + x) * W + y, n * H * W)
+        used = int(starts[-1])
         for dtype in (torch.float32, torch.bfloat16):
             vals_t = torch.from_numpy(values).to("cuda", dtype)
             for s2d in (False, True):
@@ -180,31 +230,127 @@ def check_k1():
                     lambda: densify_images_cuda(xy_t, vals_t, starts_t, n, H, W, s2d))
                 p_ms = cuda_time_ms(
                     lambda: densify_images_plain(xy_t, vals_t, owner_t, n, H, W, s2d))
+                lib_ms = cuda_time_ms(lambda: vals_t.new_zeros((n * H * W + 1, C)).index_put_(
+                    (flat,), vals_t, accumulate=True))
                 name = f"{label} {str(dtype)[6:]} {'s2d' if s2d else 'nhwc'}"
-                log(f"[K1] {name:<30} {err:<13.3g} {k_ms:<11.4f} {p_ms:.4f}")
+                log(f"[K1] {name:<30} {err:<13.3g} {k_ms:<11.4f} {p_ms:<10.4f} {lib_ms:.4f}")
                 if dtype == torch.bfloat16 and not s2d and label.endswith("b16"):
-                    forward_ms["kernel"] += k_ms
-                    forward_ms["plain"] += p_ms
-    log(f"[K1] per b16 forward (2 banks, bf16): kernel {forward_ms['kernel']:.4f} ms, "
-        f"plain {forward_ms['plain']:.4f} ms")
-    return max_err, forward_ms["kernel"], forward_ms["plain"]
+                    forward["kernel"] += k_ms
+                    forward["plain"] += p_ms
+                    forward["library"] += lib_ms
+                    # the output written once, the used hits and offsets read once
+                    forward["bytes"] += (out.numel() * out.element_size()
+                                         + used * (2 * 4 + C * 2) + (n + 1) * 4)
+    bound_ms = 1e3 * forward["bytes"] / HBM_BYTES_PER_S
+    log(f"[K1] per b16 forward (2 banks, bf16): kernel {forward['kernel']:.4f} ms, "
+        f"plain {forward['plain']:.4f} ms, index_put_ {forward['library']:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({forward['bytes'] / 1e6:.1f} MB)")
+    return max_err, forward["kernel"], forward["plain"], forward["library"], bound_ms
+
+
+def check_k2(stem_weight, stem_bias):
+    """K2 against its plain version with the production stem (C_out 64);
+    returns (max abs err, kernel ms, plain ms, library ms, bound ms), the
+    times summed over the two banks of one batch-16 forward with bfloat16
+    output (the coo path's calls)."""
+    rng = np.random.default_rng(SEED + 1)
+    kernel = stem_weight.permute(2, 3, 1, 0).contiguous()          # HWIO
+    bias = stem_bias.float().contiguous()
+    out_h, out_w = coo_stem.out_shape(H, W)
+    c_out = kernel.shape[-1]
+    max_err = 0.0
+    forward = dict(kernel=0.0, plain=0.0, library=0.0, bytes=0)
+    log("[K2] case                          max_abs_err   kernel_ms   plain_ms   index_add_ms")
+    for label, n, hits in BANKS:
+        xy, values, owner, starts = make_bank(rng, n, hits)
+        xy_t, starts_t = torch.from_numpy(xy).cuda(), torch.from_numpy(starts).cuda()
+        vals_t = torch.from_numpy(values).cuda()
+        patches = coo_stem.stem_patches(xy_t, vals_t, kernel, H, W).contiguous()
+        flat, _ = coo_stem.tap_index(xy_t, starts_t, n, H, W)
+        flat, rows = flat.reshape(-1), patches.reshape(-1, c_out)
+        used = int(starts[-1])
+        for dtype in (torch.float32, torch.bfloat16):
+            def run_kernel():
+                return coo_stem.scatter_patches_cuda(patches, xy_t, starts_t, bias, n, H, W,
+                                                     dtype)
+
+            def run_plain():
+                return coo_stem.scatter_patches_plain(patches, xy_t, starts_t, bias, n, H,
+                                                      W, dtype)
+
+            out, ref = run_kernel(), run_plain()
+            torch.cuda.synchronize()
+            assert out.shape == ref.shape == (n, out_h, out_w, c_out) and out.dtype == dtype
+            torch.testing.assert_close(out.float(), ref.float(), **K2_TOL[dtype])
+            err = (out.float() - ref.float()).abs().max().item()
+            max_err = max(max_err, err)
+            del out, ref
+            k_ms = cuda_time_ms(run_kernel)
+            p_ms = cuda_time_ms(run_plain, bursts=3, per_burst=5)
+            lib_ms = cuda_time_ms(lambda: rows.new_zeros((n * out_h * out_w + 1, c_out))
+                                  .index_add_(0, flat, rows), bursts=3, per_burst=5)
+            name = f"{label} out {str(dtype)[6:]}"
+            log(f"[K2] {name:<30} {err:<13.3g} {k_ms:<11.4f} {p_ms:<10.4f} {lib_ms:.4f}")
+            if dtype == torch.bfloat16 and label.endswith("b16"):
+                forward["kernel"] += k_ms
+                forward["plain"] += p_ms
+                forward["library"] += lib_ms
+                # the output written once; the used hits' patches, coordinates
+                # and the offsets and bias read once
+                forward["bytes"] += (n * out_h * out_w * c_out * 2
+                                     + used * (16 * c_out * 4 + 2 * 4)
+                                     + (n + 1) * 4 + c_out * 4)
+        if label.endswith("b16"):
+            check_k2_gradients(patches, xy_t, starts_t, bias, n)
+        del patches, flat, rows
+        torch.cuda.empty_cache()
+    bound_ms = 1e3 * forward["bytes"] / HBM_BYTES_PER_S
+    log(f"[K2] per b16 forward (2 banks, bf16 out): kernel {forward['kernel']:.4f} ms, "
+        f"plain {forward['plain']:.4f} ms, index_add_ {forward['library']:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({forward['bytes'] / 1e6:.1f} MB)")
+    return max_err, forward["kernel"], forward["plain"], forward["library"], bound_ms
+
+
+def check_k2_gradients(patches, xy, starts, bias, n):
+    """Gradients wrt patches and bias: ``ScatterPatches`` (K2 forward, the
+    hand-written gather backward) against autograd of the plain version."""
+    cot = torch.randn((n,) + coo_stem.out_shape(H, W) + (patches.shape[-1],),
+                      device="cuda", generator=torch.Generator("cuda").manual_seed(SEED))
+
+    def grads(fn):
+        p, b = patches.clone().requires_grad_(), bias.clone().requires_grad_()
+        (fn(p, b) * cot).sum().backward()
+        return p.grad, b.grad
+
+    got = grads(lambda p, b: coo_stem.ScatterPatches.apply(p, b, xy, starts, n, H, W,
+                                                           torch.float32))
+    want = grads(lambda p, b: coo_stem.scatter_patches_plain(p, xy, starts, b, n, H, W,
+                                                             torch.float32))
+    for g, w, name in zip(got, want, ("patches", "bias")):
+        torch.testing.assert_close(g, w, **K2_GRAD_TOL, msg=f"K2 gradient wrt {name}")
+    log(f"[K2] gradients, {n} images: patches max diff "
+        f"{(got[0] - want[0]).abs().max().item():.3g}, bias "
+        f"{(got[1] - want[1]).abs().max().item():.3g} (tol {K2_GRAD_TOL})")
 
 
 # ---------------------------------------------------------------------------
-# phase 3
+# phases 4 and 5
 # ---------------------------------------------------------------------------
 
 def serve(model, ds, batch_size):
-    """One timed ``predict_split`` pass, with K1's count read around it."""
+    """One timed ``predict_split`` pass, with the kernels' counts reset
+    just before it and read just after."""
     torch.cuda.synchronize()
-    densify_images_cuda.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     out = predict_split(model, ds, ds.norm(), batch_size, "cuda")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = densify_images_cuda.launches
+    counts = read_counts()
     num_batches = math.ceil(len(ds) / batch_size)
-    assert launches == 2 * num_batches, (launches, num_batches)
+    want = ((2 * num_batches, 0) if model.cfg.embedder == "dense"
+            else (0, 2 * num_batches))
+    assert counts == want, (model.cfg.embedder, counts, want)
 
     n = len(ds)
     real_prongs = int((ds.prong_targets >= 0).sum())
@@ -215,17 +361,19 @@ def serve(model, ds, batch_size):
     np.testing.assert_allclose(ev.sum(-1), 1.0, atol=1e-3)
     np.testing.assert_allclose(pr.sum(-1), 1.0, atol=1e-3)
     np.testing.assert_array_equal(out["event_targets"], ds.event_targets)
-    return seconds, launches
+    return seconds, counts
 
 
-def check_serving():
-    cfg = production_config("bfloat16")
+def check_serving(embedder):
+    """Returns the model and the kernels' launches over the timed passes."""
+    cfg = dataclasses.replace(production_config("bfloat16"), embedder=embedder)
     model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED))
     model = model.to("cuda").eval()
-    log(f"[serve] {os.path.basename(OPTION_FILE)}: densenet {list(cfg.densenet_structure)} "
-        f"growth {cfg.densenet_growth_rate}, {cfg.num_encoder_layers} encoder layers, "
-        f"{cfg.compute_dtype}, {sum(p.numel() for p in model.parameters())} parameters")
-    total = 0
+    log(f"[serve {embedder}] {os.path.basename(OPTION_FILE)}: densenet "
+        f"{list(cfg.densenet_structure)} growth {cfg.densenet_growth_rate}, "
+        f"{cfg.num_encoder_layers} encoder layers, {cfg.compute_dtype}, "
+        f"{sum(p.numel() for p in model.parameters())} parameters")
+    total = np.zeros(2, np.int64)
     for batch_size, num_events in SERVE_EVENTS:
         ds = InMemoryEvents(num_events, SEED + batch_size)
         # warm-up over the same events: the batcher's slot ladder gives the
@@ -234,56 +382,157 @@ def check_serving():
         torch.cuda.reset_peak_memory_stats()
         rates = []
         for _ in range(SERVE_PASSES):
-            seconds, launches = serve(model, ds, batch_size)
-            total += launches
+            seconds, counts = serve(model, ds, batch_size)
+            total += counts
             rates.append(num_events / seconds)
-        log(f"[serve] b{batch_size}: {num_events} events x {SERVE_PASSES} passes, "
-            f"median {statistics.median(rates):.1f} events/s, min {min(rates):.1f}, "
-            f"max {max(rates):.1f} (predict_split, host batching included); "
-            f"K1 launches {launches} per pass; peak memory "
+        log(f"[serve {embedder}] b{batch_size}: {num_events} events x {SERVE_PASSES} "
+            f"passes, median {statistics.median(rates):.1f} events/s, min "
+            f"{min(rates):.1f}, max {max(rates):.1f} (predict_split, host batching "
+            f"included); launches per pass K1 {counts[0]}, K2 {counts[1]}; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return model, total
 
 
 # ---------------------------------------------------------------------------
-# phase 4
+# phase 6
 # ---------------------------------------------------------------------------
+
+def check_training():
+    """The coo family's train step at full width; returns K2's launches."""
+    options = Options.load(OPTION_FILE)
+    cfg = dataclasses.replace(production_config("bfloat16"), embedder="coo")
+    assert (cfg.dropout, cfg.pixel_noise_std, options.gradient_clip) == (0.1, 0.001, 43)
+    assert options.batch_size == TRAIN_BATCH and options.optimizer == "AdamW"
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    ds = InMemoryEvents(TRAIN_BATCH * steps, SEED + 3)
+    batcher = Batcher(ds, batch_size=TRAIN_BATCH, shuffle=True, seed=SEED)
+    batches = [to_device(b, "cuda") for b in batcher.epoch(0)]
+    model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED)).to("cuda")
+    state = create_train_state(model, options, ds.norm(), len(batcher), seed=SEED)
+    step = make_train_step(model, options)
+    log(f"[train] coo, {os.path.basename(OPTION_FILE)}: AdamW lr {options.learning_rate:g}, "
+        f"warmup {options.learning_rate_warmup_epochs} epoch of {len(batcher)} steps, "
+        f"clip {options.gradient_clip}, dropout {cfg.dropout}, pixel noise "
+        f"{cfg.pixel_noise_std}, {cfg.compute_dtype}, batch {TRAIN_BATCH}")
+
+    params_before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats_before = {n: b.clone() for n, b in model.named_buffers()}
+    got_grad = set()
+    torch.cuda.synchronize()
+    reset_counts()
+    for batch in batches[:TRAIN_WARMUP]:
+        metrics = step(state, batch)
+        got_grad |= {n for n, p in model.named_parameters() if bool(p.grad.any())}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for batch in batches[TRAIN_WARMUP:steps]:
+        metrics = step(state, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    assert counts == (0, 2 * steps), (counts, steps)
+    loss, grad_norm = float(metrics["train_loss"]), float(metrics["grad_norm"])
+    assert math.isfinite(loss) and math.isfinite(grad_norm), (loss, grad_norm)
+    unchanged = [n for n, p in model.named_parameters()
+                 if n in got_grad and torch.equal(p.detach(), params_before[n])]
+    assert not unchanged, f"parameters with a gradient that did not change: {unchanged}"
+    moved = [n for n in stats_before if n.endswith("running_mean")
+             and not torch.equal(dict(model.named_buffers())[n], stats_before[n])]
+    num_bn = sum(n.endswith("running_mean") for n in stats_before)
+    assert len(moved) == num_bn, (len(moved), num_bn)
+    log(f"[train] coo b{TRAIN_BATCH}: {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up, "
+        f"{1e3 * seconds / TRAIN_STEPS:.2f} ms/step, "
+        f"{TRAIN_BATCH * TRAIN_STEPS / seconds:.1f} events/s; last loss {loss:.5f}, "
+        f"grad_norm {grad_norm:.4f}; {len(got_grad)} of {len(params_before)} parameters "
+        f"got a gradient, all changed; {num_bn} BatchNorm means moved; launches K1 "
+        f"{counts[0]}, K2 {counts[1]} ({steps} steps); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    eval_ds = InMemoryEvents(EVAL_EVENTS, SEED + 4)
+    eval_step = make_eval_step(model, options)
+    totals = init_metric_state(4, 8, options.auc_bins, "cuda")
+    reset_counts()
+    for batch in Batcher(eval_ds, batch_size=TRAIN_BATCH, drop_last=False).epoch(0):
+        totals = eval_step(state, to_device(batch, "cuda"), totals)
+    eval_counts = read_counts()
+    assert eval_counts == (0, 2 * EVAL_EVENTS // TRAIN_BATCH), eval_counts
+    result = finalize_metrics(totals)
+    for key in ("event_epoch_AUC", "prong_epoch_AUC", "val_loss"):
+        assert math.isfinite(result[key]), (key, result[key])
+    log(f"[train] eval over {EVAL_EVENTS} events: event AUC "
+        f"{result['event_epoch_AUC']:.4f}, prong AUC {result['prong_epoch_AUC']:.4f}, "
+        f"val_loss {result['val_loss']:.5f}; K2 launches {eval_counts[1]}")
+    return counts[1] + eval_counts[1]
+
+
+# ---------------------------------------------------------------------------
+# phase 7
+# ---------------------------------------------------------------------------
+
+def max_diff(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
 
 def check_paths(bf16_model):
     cfg = production_config("float32")
-    model = TransformerCVN(cfg).eval()
-    model.load_state_dict(bf16_model.state_dict())
-    model = model.to("cuda")
+    dense = TransformerCVN(cfg).eval()
+    dense.load_state_dict(bf16_model.state_dict())
+    dense = dense.to("cuda")
+    coo = TransformerCVN(dataclasses.replace(cfg, embedder="coo")).eval()
+    coo.load_state_dict(bf16_model.state_dict())
+    coo = coo.to("cuda")
     ds = InMemoryEvents(16, SEED + 2)
     batch = Batcher(ds, batch_size=16).build_batch(np.arange(16))
     b = to_device(batch, "cuda")
     norm = to_device(ds.norm(), "cuda")
+    P = b["slot_batch"].shape[0]
     with torch.inference_mode():
-        ev_k, pr_k = model(b, norm)
+        ev_k, pr_k = dense(b, norm)
         images = [
-            densify_images_plain(b[f"{k}_xy"], model.preprocess_values(b[f"{k}_vals"]),
+            densify_images_plain(b[f"{k}_xy"], dense.preprocess_values(b[f"{k}_vals"]),
                                  b[f"{k}_owner"], n, H, W)
-            for k, n in (("event", 16), ("prong", b["slot_batch"].shape[0]))
+            for k, n in (("event", 16), ("prong", P))
         ]
-        ev_p, pr_p, _, _ = model.forward_from_images(
+        ev_p, pr_p, _, _ = dense.forward_from_images(
             *images, b["features"], b["extra"], b["prong_mask"],
             b["slot_batch"], b["slot_pos"], b["slot_mask"], norm)
+        ev_c, pr_c = coo(b, norm)
     torch.testing.assert_close(ev_k, ev_p, **PATH_TOL)
     torch.testing.assert_close(pr_k, pr_p, **PATH_TOL)
     log(f"[paths] K1 vs plain densify, fp32 logits: event max diff "
-        f"{(ev_k - ev_p).abs().max().item():.3g}, prong "
-        f"{(pr_k - pr_p).abs().max().item():.3g} (tol {PATH_TOL})")
+        f"{max_diff(ev_k, ev_p):.3g}, prong {max_diff(pr_k, pr_p):.3g} (tol {PATH_TOL})")
+    torch.testing.assert_close(ev_c, ev_k, **FAMILY_TOL)
+    torch.testing.assert_close(pr_c, pr_k, **FAMILY_TOL)
+    log(f"[paths] coo vs dense logits, same weights, fp32: event max diff "
+        f"{max_diff(ev_c, ev_k):.3g}, prong {max_diff(pr_c, pr_k):.3g} (tol {FAMILY_TOL})")
+
+    pe = coo.prong_embedding
+    with torch.inference_mode():
+        for key, n, net, mask in (("event", 16, pe.event_pixel_embedding, None),
+                                  ("prong", P, pe.prong_pixel_embedding, b["slot_mask"])):
+            values = coo.preprocess_values(b[f"{key}_vals"])
+            via_k2 = net((b[f"{key}_xy"], values, b[f"{key}_owner"], n, b[f"{key}_starts"]),
+                         mask)
+            conv0 = net.features.conv0
+            stem = coo_stem_conv_plain(b[f"{key}_xy"], values, b[f"{key}_owner"],
+                                       conv0.weight.permute(2, 3, 1, 0), conv0.bias, n, H, W)
+            via_plain = densenet_post_stem(net, stem, mask)
+            torch.testing.assert_close(via_k2, via_plain, **PATH_TOL)
+            log(f"[paths] coo {key} embedder through K2 vs the plain stem, fp32: max diff "
+                f"{max_diff(via_k2, via_plain):.3g} (tol {PATH_TOL})")
 
     small = Batcher(ds, batch_size=4).build_batch(np.arange(4))
-    with torch.inference_mode():
-        ev_g, pr_g = model(to_device(small, "cuda"), norm)
-        cpu_model = model.to("cpu")
-        ev_c, pr_c = cpu_model(to_device(small, "cpu"), to_device(ds.norm(), "cpu"))
-    torch.testing.assert_close(ev_g.cpu(), ev_c, **CPU_TOL)
-    torch.testing.assert_close(pr_g.cpu(), pr_c, **CPU_TOL)
-    log(f"[paths] card vs CPU, fp32 logits (batch 4): event max diff "
-        f"{(ev_g.cpu() - ev_c).abs().max().item():.3g}, prong "
-        f"{(pr_g.cpu() - pr_c).abs().max().item():.3g} (tol {CPU_TOL})")
+    for name, model in (("dense", dense), ("coo", coo)):
+        with torch.inference_mode():
+            ev_g, pr_g = model(to_device(small, "cuda"), norm)
+            cpu_model = model.to("cpu")
+            ev_cpu, pr_cpu = cpu_model(to_device(small, "cpu"), to_device(ds.norm(), "cpu"))
+        torch.testing.assert_close(ev_g.cpu(), ev_cpu, **CPU_TOL)
+        torch.testing.assert_close(pr_g.cpu(), pr_cpu, **CPU_TOL)
+        log(f"[paths] {name}: card vs CPU, fp32 logits (batch 4): event max diff "
+            f"{max_diff(ev_g.cpu(), ev_cpu):.3g}, prong {max_diff(pr_g.cpu(), pr_cpu):.3g} "
+            f"(tol {CPU_TOL})")
 
 
 def main():
@@ -291,19 +540,26 @@ def main():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this smoke "
                  "test needs an NVIDIA GPU")
     device_and_build()
-    max_err, k1_ms, plain_ms = check_k1()
-    model, launches = check_serving()
-    check_paths(model)
-    log(json.dumps({"kernels": [{
-        "name": "densify",
-        "route": "cuda",
-        "source": "dune_transformercvn_torch/csrc/densify.cu",
-        "replaces": "dune_transformercvn_tpu/ops/pallas_densify.py:61",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k1_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    k1 = check_k1()
+    dense_model, dense_counts = check_serving("dense")
+    conv0 = dense_model.prong_embedding.event_pixel_embedding.features.conv0
+    k2 = check_k2(conv0.weight.detach().float(), conv0.bias.detach().float())
+    _, coo_counts = check_serving("coo")
+    train_launches = check_training()
+    check_paths(dense_model)
+    kernels = []
+    for (err, ms, plain_ms, lib_ms, bound_ms), name, source, replaces, launches in (
+            (k1, "densify", "dune_transformercvn_torch/csrc/densify.cu",
+             "dune_transformercvn_tpu/ops/pallas_densify.py:61", int(dense_counts[0])),
+            (k2, "coo_stem_scatter", "dune_transformercvn_torch/csrc/coo_stem.cu",
+             "dune_transformercvn_tpu/ops/pallas_coo_stem.py:146",
+             int(coo_counts[1]) + train_launches)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+        })
+    log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -6,11 +6,12 @@ Pallas kernel of the JAX package replaced by a hand-written CUDA kernel for
 NVIDIA Hopper (``csrc/``, built with ``nvcc`` at first use by
 :mod:`.utils.build`).  Nothing here builds or loads CUDA at import time.
 
-The framework-free modules of the JAX package (``config.Options`` and the
-``data`` package: schema, dataset, batcher) are imported, not copied.
+The port stands alone: it imports nothing of the JAX package and keeps its
+own copies of the framework-free modules it needs (:mod:`.config`, and the
+``data`` package's schema, dataset and batcher).
 """
 
-from dune_transformercvn_tpu.config import Options
+from .config import Options
 
 __version__ = "0.1.0"
 

@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from dune_transformercvn_tpu.data.dataset import EventDataset
-from dune_transformercvn_tpu.data.schema import MAX_PRONGS
+from .dataset import EventDataset
+from .schema import MAX_PRONGS
 
 
 class InMemoryEvents(EventDataset):

@@ -2,23 +2,34 @@
 
 ``state_dict_from_jax`` is the inverse of
 ``dune_transformercvn_tpu/torch_import.py::transplant_dense_network``: it
-turns a JAX ``{"params", "batch_stats"}`` tree of a dense-family
+turns a JAX ``{"params", "batch_stats"}`` tree of a dense- or coo-family
 ``TransformerCVN`` into the port's ``state_dict``, whose keys are the
-reference network's.  Conv kernels go HWIO -> OIHW, Dense kernels
-``[in, out]`` -> ``[out, in]``, attention q/k/v ``[D, h, hd]`` kernels and
+reference network's (the coo stem's ``stem_kernel`` / ``stem_bias`` land in
+``features.conv0`` as the dense stem's ``Conv_0`` does).  Conv kernels go
+HWIO -> OIHW, Dense kernels ``[in, out]`` -> ``[out, in]``, attention q/k/v ``[D, h, hd]`` kernels and
 ``[h, hd]`` biases pack into ``in_proj_weight [3D, D]`` / ``in_proj_bias``,
 and ``out [h, hd, D]`` becomes ``out_proj``; BatchNorm scale/bias/mean/var
-and PReLU alpha are copied.  :class:`WeightMapper` does the same per module.
+and PReLU alpha are copied.  :class:`WeightMapper` does the same per module
+and records which JAX leaves each tensor came from.
+
+:func:`jax_leaf_names` gives, for each parameter of a port model, the name
+of the JAX leaf it is carried from (``kernel``, ``bias``, ``scale``,
+``stem_bias``, ...); the optimizer's weight-decay rule reads it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
+from .models.coo_densenet import CooStemDenseNet
+from .models.densenet import SpaceToDepthStem
+from .models.encoder import SelfAttention
 from .models.heads import linear_block_layers
+from .ops.masked import MaskedBatchNorm, PReLU
 
 
 def _join(sep: str, *parts: str) -> str:
@@ -28,13 +39,17 @@ def _join(sep: str, *parts: str) -> str:
 class WeightMapper:
     """Moves the leaves of a JAX variable tree into a torch ``state_dict``,
     each leaf exactly once.  Methods take the port's module name (``.``
-    separated, "" for the root) and the JAX module path (``/`` separated)."""
+    separated, "" for the root) and the JAX module path (``/`` separated).
+    ``sources`` maps each port tensor to the JAX leaf paths it was built
+    from (``params/.../kernel``; three for a packed q/k/v projection)."""
 
     def __init__(self, variables: Mapping):
         self.leaves: Dict[str, np.ndarray] = {}
         for collection in ("params", "batch_stats"):
             self._flatten(variables.get(collection, {}), collection)
         self.sd: Dict[str, np.ndarray] = {}
+        self.sources: Dict[str, List[str]] = {}
+        self._taken: List[str] = []
 
     def _flatten(self, tree, prefix):
         for key, value in tree.items():
@@ -50,12 +65,16 @@ class WeightMapper:
     def take(self, path: str, collection: str = "params") -> np.ndarray:
         key = _join("/", collection, path)
         try:
-            return self.leaves.pop(key)
+            value = self.leaves.pop(key)
         except KeyError:
             raise KeyError(f"JAX variables lack {key} (or it was used twice)") from None
+        self._taken.append(key)
+        return value
 
     def put(self, name: str, value: np.ndarray):
+        """Store ``value`` (made from the leaves taken since the last put)."""
         self.sd[name] = value
+        self.sources[name], self._taken = self._taken, []
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
         """The mapped tensors; raises if a JAX leaf was left unused."""
@@ -66,10 +85,10 @@ class WeightMapper:
 
     # ---- layers -----------------------------------------------------------
 
-    def conv(self, name, path):
+    def conv(self, name, path, kernel="kernel", bias="bias"):
         self.put(_join(".", name, "weight"),
-                 self.take(_join("/", path, "kernel")).transpose(3, 2, 0, 1))
-        self.put(_join(".", name, "bias"), self.take(_join("/", path, "bias")))
+                 self.take(_join("/", path, kernel)).transpose(3, 2, 0, 1))
+        self.put(_join(".", name, "bias"), self.take(_join("/", path, bias)))
 
     def linear(self, name, path):
         self.put(_join(".", name, "weight"), self.take(_join("/", path, "kernel")).T)
@@ -114,7 +133,10 @@ class WeightMapper:
         def sub(p):
             return _join("/", path, p)
 
-        self.conv(f"{f}.conv0", sub("Conv_0"))
+        if self.has(sub("stem_kernel")):     # the coo family's sparse stem
+            self.conv(f"{f}.conv0", path, "stem_kernel", "stem_bias")
+        else:
+            self.conv(f"{f}.conv0", sub("Conv_0"))
         self.batch_norm(f"{f}.norm0", sub("MaskedBatchNorm_0"))
         self.prelu(f"{f}.relu0", sub("PReLU_0"))
         k = 0
@@ -183,9 +205,15 @@ class WeightMapper:
 
 
 def state_dict_from_jax(variables: Mapping, cfg) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for a JAX dense-family ``TransformerCVN``
-    built from the same :class:`ModelConfig` fields.  Raises if a JAX leaf
-    is missing or left unused."""
+    """The port's ``state_dict`` for a JAX dense- or coo-family
+    ``TransformerCVN`` built from the same :class:`ModelConfig` fields.
+    Raises if a JAX leaf is missing or left unused."""
+    return map_jax_variables(variables, cfg).state_dict()
+
+
+def map_jax_variables(variables: Mapping, cfg) -> WeightMapper:
+    """The :class:`WeightMapper` with every leaf of a JAX ``TransformerCVN``
+    moved into its ``sd`` (and ``sources`` filled)."""
     m = WeightMapper(variables)
     pe = "prong_embedding"
     m.densenet(f"{pe}.event_pixel_embedding", "event_pixel_embedding",
@@ -201,7 +229,36 @@ def state_dict_from_jax(variables: Mapping, cfg) -> Dict[str, torch.Tensor]:
     m.transformer_encoder("encoder", "encoder", cfg.hidden_dim)
     m.linear("event_decoder.hidden_layer", "event_decoder/Dense_0")
     m.prong_decoder("prong_decoder", "prong_decoder", cfg.linear_batch_norm, cfg.dropout)
-    return m.state_dict()
+    return m
+
+
+# JAX leaf name of each parameter, by the port module that holds it
+_LEAF_NAMES = (
+    ((nn.Conv2d, nn.Linear, SpaceToDepthStem), {"weight": "kernel", "bias": "bias"}),
+    ((MaskedBatchNorm, nn.LayerNorm), {"weight": "scale", "bias": "bias"}),
+    ((PReLU,), {"weight": "alpha"}),
+    ((SelfAttention,), {"in_proj_weight": "kernel", "in_proj_bias": "bias"}),
+)
+
+
+def jax_leaf_names(model: nn.Module) -> Dict[str, str]:
+    """For each parameter of ``model``, the name of the JAX leaf it is
+    carried from by :func:`state_dict_from_jax`: ``kernel`` / ``bias`` of a
+    conv or dense layer, ``scale`` / ``bias`` of a norm, ``alpha`` of a
+    PReLU, ``stem_kernel`` / ``stem_bias`` of the coo family's stem, and a
+    position or classifier vector's own name."""
+    coo_stems = {f"{name}.features.conv0" for name, module in model.named_modules()
+                 if isinstance(module, CooStemDenseNet)}
+    names = {}
+    for mod_name, module in model.named_modules():
+        for p_name, _ in module.named_parameters(recurse=False):
+            full = _join(".", mod_name, p_name)
+            if mod_name in coo_stems:
+                names[full] = {"weight": "stem_kernel", "bias": "stem_bias"}[p_name]
+                continue
+            table = next((t for types, t in _LEAF_NAMES if isinstance(module, types)), {})
+            names[full] = table.get(p_name, p_name)
+    return names
 
 
 def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> torch.nn.Module:

@@ -1,7 +1,8 @@
 """TransformerCVN: the full event + prong classification network.
 
-Port of ``dune_transformercvn_tpu/models/network.py`` for the dense embedder
-family: two DenseNet pixel embedders (event and packed prong images), the
+Port of ``dune_transformercvn_tpu/models/network.py`` for the dense and coo
+embedder families: two DenseNet pixel embedders (event and packed prong
+images; the coo family's run their stem sparsely on the hit banks), the
 prong feature embedding, learned type position embeddings, the shared
 combined LinearBlock, the masked transformer encoder and the two heads.
 
@@ -25,6 +26,7 @@ from torch import nn
 
 from ..ops.scatter import densify_images, pack_rows, pad_rows
 from .blocks import FeatureEmbedding, LinearBlock, make_divisible
+from .coo_densenet import CooStemDenseNet
 from .densenet import DenseNet, SpaceToDepthStem
 from .encoder import SelfAttention, TransformerEncoder
 from .heads import EventDecoder, ProngDecoder
@@ -69,6 +71,7 @@ class ModelConfig:
     # ClassifierProng variant: decode the event class from a learned token
     # placed ahead of the event-image token
     learned_classifier_token: bool = False
+    # embedder family; the port runs 'dense' and 'coo'
     embedder: str = "dense"
     compute_dtype: str = "bfloat16"
     # dense family: the 7x7/2 stem as a 4x4/1 conv over 2x2 space-to-depth
@@ -164,12 +167,17 @@ class ProngEmbedding(nn.Module):
             batch_norm_size=cfg.densenet_batch_norm_size,
             block_config=cfg.densenet_structure,
             dropout=cfg.dropout,
-            stem_space_to_depth=cfg.stem_space_to_depth,
             transition_pool_first=cfg.transition_pool_first,
             compute_dtype=dt,
         )
-        self.event_pixel_embedding = DenseNet(output_dim=event_pixel_dim, **cnn)
-        self.prong_pixel_embedding = DenseNet(output_dim=cfg.pixel_embedding_dim, **cnn)
+        if cfg.embedder == "coo":
+            family = CooStemDenseNet
+            cnn.update(image_height=cfg.image_height, image_width=cfg.image_width)
+        else:
+            family = DenseNet
+            cnn.update(stem_space_to_depth=cfg.stem_space_to_depth)
+        self.event_pixel_embedding = family(output_dim=event_pixel_dim, **cnn)
+        self.prong_pixel_embedding = family(output_dim=cfg.pixel_embedding_dim, **cnn)
         self.feature_embedding = FeatureEmbedding(
             cfg.features_dim + cfg.extra_dim,
             output_dim=cfg.feature_embedding_dim,
@@ -196,7 +204,7 @@ class ProngEmbedding(nn.Module):
 
 
 class TransformerCVN(nn.Module):
-    """Full network, dense embedder family.
+    """Full network, dense or coo embedder family.
 
     Weights are drawn from ``generator`` (flax's initialisers: LeCun-normal
     kernels, zero biases, unit-normal position vectors), so a seed fixes them.
@@ -205,10 +213,10 @@ class TransformerCVN(nn.Module):
     def __init__(self, cfg: ModelConfig,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.embedder != "dense":
+        if cfg.embedder not in ("dense", "coo"):
             raise NotImplementedError(
                 f"embedder {cfg.embedder!r} is not ported yet (ROADMAP.md, "
-                "open items 13-16); the port runs the dense family only")
+                "open items 14-16); the port runs the dense and coo families")
         self.cfg = cfg
         dt = cfg.dtype
         self.prong_embedding = ProngEmbedding(cfg)
@@ -252,30 +260,31 @@ class TransformerCVN(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor], norm: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None):
-        """Forward over one batch of the JAX package's ``Batcher`` (as
+        """Forward over one batch of the :class:`..data.Batcher` (as
         tensors).  ``norm``: 'mean', 'std', 'extra_mean', 'extra_std'.
         Returns float32 ``(event_logits [B, Kev], prong_logits [B, P, Kpr])``.
+
+        The coo family feeds the hit banks straight to its sparse stem
+        (kernel K2 on the card); the dense family densifies them first
+        (kernel K1 on the card).
         """
         cfg = self.cfg
-        B = batch["features"].shape[0]
-        P = batch["slot_batch"].shape[0]
         H, W = cfg.image_height, cfg.image_width
         # the s2d stem takes images that kernel K1 emits in s2d layout
-        s2d = cfg.stem_space_to_depth and H % 2 == 0 and W % 2 == 0
-        event_images = densify_images(
-            batch["event_xy"],
-            self.preprocess_values(batch["event_vals"], generator),
-            batch["event_owner"], B, H, W,
-            starts=batch.get("event_starts"),
-            space_to_depth=s2d,
-        )
-        prong_images = densify_images(
-            batch["prong_xy"],
-            self.preprocess_values(batch["prong_vals"], generator),
-            batch["prong_owner"], P, H, W,
-            starts=batch.get("prong_starts"),
-            space_to_depth=s2d,
-        )
+        s2d = (cfg.embedder == "dense" and cfg.stem_space_to_depth
+               and H % 2 == 0 and W % 2 == 0)
+        banks = []
+        for key, n in (("event", batch["features"].shape[0]),
+                       ("prong", batch["slot_batch"].shape[0])):
+            xy, owner, starts = (batch[f"{key}_xy"], batch[f"{key}_owner"],
+                                 batch.get(f"{key}_starts"))
+            values = self.preprocess_values(batch[f"{key}_vals"], generator)
+            if cfg.embedder == "coo":
+                banks.append((xy, values, owner, n, starts))
+            else:
+                banks.append(densify_images(xy, values, owner, n, H, W, starts=starts,
+                                            space_to_depth=s2d))
+        event_images, prong_images = banks
         event_logits, prong_logits, _, _ = self.forward_from_images(
             event_images, prong_images,
             batch["features"], batch["extra"], batch["prong_mask"],
@@ -285,8 +294,8 @@ class TransformerCVN(nn.Module):
 
     def forward_from_images(
         self,
-        event_images,   # [B, H, W, C] preprocessed NHWC (or s2d)
-        prong_images,   # [P, H, W, C] preprocessed NHWC (packed slots)
+        event_images,   # [B, H, W, C] preprocessed NHWC (or s2d; coo: a hit bank)
+        prong_images,   # [P, H, W, C] preprocessed NHWC (packed slots; coo: a hit bank)
         features,       # [B, max_prongs, F]
         extra,          # [B, E]
         prong_mask,     # [B, max_prongs] bool

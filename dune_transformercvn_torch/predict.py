@@ -2,8 +2,7 @@
 
 Port of ``make_predict_step`` (``dune_transformercvn_tpu/train/step.py``) and
 ``Trainer.predict_split`` (``dune_transformercvn_tpu/train/loop.py``) for one
-device.  Batches come from the JAX package's own :class:`Batcher`, which is
-numpy only (re-exported by :mod:`.data`).
+device.  Batches come from the port's :class:`.data.Batcher`.
 """
 
 from __future__ import annotations

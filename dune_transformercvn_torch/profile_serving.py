@@ -51,6 +51,7 @@ BATCH_SIZES, EVENTS, PASSES, PROFILED, SEED = (16, 64), 1024, 3, 4, 0
 # kernel kinds, matched in this order against the lower-cased kernel name
 KINDS = (
     ("densify (K1)", ("densify",)),
+    ("coo stem scatter (K2)", ("coo_stem",)),
     ("pooling", ("pool",)),
     ("softmax / attention", ("softmax", "attention", "fmha", "flash")),
     ("convolution", ("conv", "fprop", "implicit", "xmma", "winograd", "nhwc", "nchw")),
