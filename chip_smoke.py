@@ -11,15 +11,22 @@ Phases, each of which raises on failure:
    off so the float32 comparisons below are float32.
 2. Kernel K1 (COO -> dense densify) against its plain PyTorch version on the
    card, at the serving path's shapes, float32 and bfloat16, plain and
-   space-to-depth layout, with duplicate pixels, an empty image, coordinates
-   out of range (negative too) and padding rows past ``starts[-1]``; the
-   median time of the kernel, the plain version and one ``index_put_`` call.
+   space-to-depth layout, on uniform banks with duplicate pixels, an empty
+   image, coordinates out of range (negative too) and padding rows past
+   ``starts[-1]``, and on the event and prong banks of one real batch of
+   16 events (track-shaped hits); the median time of the kernel, the plain
+   version and one ``index_put_`` call, the kernel's device time (calls
+   queued behind a device sleep, so no host time between them), its share
+   of its bound, and its time on the same bank with every CSR range empty
+   (the zero fill alone).
 3. Kernel K2 (the coo stem's scatter) against its plain version on the
    card, at the coo path's shapes (event banks of 16 and 64 images, prong
-   banks of 128 and 384, production stem weights), float32 and bfloat16
-   output, the same edge cases; gradients through ``ScatterPatches``
-   against autograd of the plain version; the median time of the kernel,
-   the plain version and one ``zeros().index_add_`` call.
+   banks of 128 and 384, the real batch's two banks, production stem
+   weights), float32 and bfloat16 output, the same edge cases; its binning
+   pass against the plain binning; gradients through ``ScatterPatches``
+   against autograd of the plain version; the same times as K1 (library
+   call: ``zeros().index_add_``, the bias, the cast), and the device time
+   of its binning pass alone.
 4. Dense serving at full width: the production option file, bfloat16,
    random weights from a seed, events made in memory from a seed;
    ``predict_split`` at batch 16 and at batch 64, one warm-up pass over the
@@ -72,6 +79,7 @@ from dune_transformercvn_torch.utils.build import build, sources
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
+QUEUE_CYCLES = 10_000_000      # ~5 ms of device sleep ahead of a queued burst
 
 H, W, C = 400, 280, 3
 # K1 tolerances against the plain version (torch's index_put_).  float32:
@@ -177,14 +185,19 @@ def make_bank(rng, num_images, hits_per_image, bucket=8192):
     return xy_full, values, owner_full, starts
 
 
-def cuda_time_ms(fn, warmup=3, bursts=5, per_burst=20):
-    """Median over bursts of the mean time of one call, by CUDA events."""
+def cuda_time_ms(fn, warmup=3, bursts=5, per_burst=20, queued=False):
+    """Median over bursts of the mean time of one call, by CUDA events.
+    ``queued``: the device first sleeps ~5 ms, so the host enqueues the whole
+    burst ahead of it and the calls run back to back: the device's time,
+    with no host time between calls."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(bursts):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         for _ in range(per_burst):
             fn()
@@ -198,20 +211,46 @@ def cuda_time_ms(fn, warmup=3, bursts=5, per_burst=20):
 # 16 and 64 (prong slots from the batcher's capacity ladder)
 BANKS = [("event b16", 16, 160.0), ("prong b16", 128, 160.0 / 3),
          ("event b64", 64, 160.0), ("prong b64", 384, 160.0 / 3)]
+# the b16 forward's two banks, uniform (PR 2 and 3's row) and from a real batch
+FORWARDS = {"uniform": ("event b16", "prong b16"),
+            "serving": ("serving event b16", "serving prong b16")}
+
+
+def bench_banks(seed):
+    """Numpy banks ``(label, images, xy, values, owner, starts)``: the uniform
+    banks of BANKS, then the event and prong banks of one ``Batcher`` batch of
+    16 in-memory events (track-shaped hits, values scaled by 1/255 as
+    ``preprocess_values`` does without noise)."""
+    rng = np.random.default_rng(seed)
+    for label, n, hits in BANKS:
+        yield (label, n) + make_bank(rng, n, hits)
+    batch = Batcher(InMemoryEvents(16, seed), batch_size=16).build_batch(np.arange(16))
+    for key, n in (("event", 16), ("prong", batch["slot_batch"].shape[0])):
+        yield (f"serving {key} b16", n, batch[f"{key}_xy"],
+               batch[f"{key}_vals"] / np.float32(255.0), batch[f"{key}_owner"],
+               batch[f"{key}_starts"])
+
+
+def forward_totals(cases):
+    """Sums of each timing over the two banks of each b16 forward in ``FORWARDS``."""
+    return {name: {k: sum(cases[label][k] for label in labels)
+                   for k in cases[labels[0]]}
+            for name, labels in FORWARDS.items()}
 
 
 def check_k1():
     """K1 against the plain version; returns (max abs err, kernel ms, plain
-    ms, library ms, bound ms), the times summed over the two banks of one
-    batch-16 forward in bfloat16, plain layout (the serving path's calls)."""
-    rng = np.random.default_rng(SEED)
+    ms, library ms, bound ms), the times summed over the two uniform banks
+    of one batch-16 forward in bfloat16, plain layout (the serving path's
+    calls)."""
     max_err = 0.0
-    forward = dict(kernel=0.0, plain=0.0, library=0.0, bytes=0)
-    log("[K1] case                          max_abs_err   kernel_ms   plain_ms   index_put_ms")
-    for label, n, hits in BANKS:
-        xy, values, owner, starts = make_bank(rng, n, hits)
+    cases = {}
+    log("[K1] case                                 max_abs_err  kernel_ms  device_ms  "
+        "plain_ms   index_put_ms bound_ms  share  no_hit_ms")
+    for label, n, xy, values, owner, starts in bench_banks(SEED):
         xy_t, owner_t = torch.from_numpy(xy).cuda(), torch.from_numpy(owner).cuda()
         starts_t = torch.from_numpy(starts).cuda()
+        no_hits = torch.zeros_like(starts_t)
         x, y = xy_t[:, 0].long(), xy_t[:, 1].long()
         keep = (owner_t < n) & (x >= 0) & (x < H) & (y >= 0) & (y < W)
         flat = torch.where(keep, (owner_t.long() * H + x) * W + y, n * H * W)
@@ -226,57 +265,80 @@ def check_k1():
                 torch.testing.assert_close(out.float(), ref.float(), **K1_TOL[dtype])
                 err = (out.float() - ref.float()).abs().max().item()
                 max_err = max(max_err, err)
+                # the output written once, the used hits and offsets read once
+                nbytes = (out.numel() * out.element_size()
+                          + used * (2 * 4 + C * vals_t.element_size()) + (n + 1) * 4)
+                del out, ref
+                bound = 1e3 * nbytes / HBM_BYTES_PER_S
                 k_ms = cuda_time_ms(
                     lambda: densify_images_cuda(xy_t, vals_t, starts_t, n, H, W, s2d))
+                d_ms = cuda_time_ms(
+                    lambda: densify_images_cuda(xy_t, vals_t, starts_t, n, H, W, s2d),
+                    queued=True)
                 p_ms = cuda_time_ms(
                     lambda: densify_images_plain(xy_t, vals_t, owner_t, n, H, W, s2d))
                 lib_ms = cuda_time_ms(lambda: vals_t.new_zeros((n * H * W + 1, C)).index_put_(
                     (flat,), vals_t, accumulate=True))
+                empty_ms = cuda_time_ms(
+                    lambda: densify_images_cuda(xy_t, vals_t, no_hits, n, H, W, s2d))
                 name = f"{label} {str(dtype)[6:]} {'s2d' if s2d else 'nhwc'}"
-                log(f"[K1] {name:<30} {err:<13.3g} {k_ms:<11.4f} {p_ms:<10.4f} {lib_ms:.4f}")
-                if dtype == torch.bfloat16 and not s2d and label.endswith("b16"):
-                    forward["kernel"] += k_ms
-                    forward["plain"] += p_ms
-                    forward["library"] += lib_ms
-                    # the output written once, the used hits and offsets read once
-                    forward["bytes"] += (out.numel() * out.element_size()
-                                         + used * (2 * 4 + C * 2) + (n + 1) * 4)
-    bound_ms = 1e3 * forward["bytes"] / HBM_BYTES_PER_S
-    log(f"[K1] per b16 forward (2 banks, bf16): kernel {forward['kernel']:.4f} ms, "
-        f"plain {forward['plain']:.4f} ms, index_put_ {forward['library']:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({forward['bytes'] / 1e6:.1f} MB)")
-    return max_err, forward["kernel"], forward["plain"], forward["library"], bound_ms
+                log(f"[K1] {name:<36} {err:<12.3g} {k_ms:<10.4f} {d_ms:<10.4f} "
+                    f"{p_ms:<10.4f} {lib_ms:<12.4f} {bound:<9.4f} {bound / k_ms:<6.1%} "
+                    f"{empty_ms:.4f}")
+                if dtype == torch.bfloat16 and not s2d:
+                    cases[label] = dict(kernel=k_ms, device=d_ms, plain=p_ms,
+                                        library=lib_ms, bound=bound, no_hit=empty_ms)
+    totals = forward_totals(cases)
+    for name, t in totals.items():
+        log(f"[K1] per b16 forward, {name} banks (2 banks, bf16): kernel "
+            f"{t['kernel']:.4f} ms (device {t['device']:.4f}, no hits "
+            f"{t['no_hit']:.4f}), plain {t['plain']:.4f} ms, index_put_ "
+            f"{t['library']:.4f} ms, bound {t['bound']:.4f} ms, share of bound "
+            f"{t['bound'] / t['kernel']:.1%} ({t['bound'] / t['device']:.1%} of device time)")
+    t = totals["uniform"]
+    return max_err, t["kernel"], t["plain"], t["library"], t["bound"]
 
 
 def check_k2(stem_weight, stem_bias):
     """K2 against its plain version with the production stem (C_out 64);
     returns (max abs err, kernel ms, plain ms, library ms, bound ms), the
-    times summed over the two banks of one batch-16 forward with bfloat16
-    output (the coo path's calls)."""
-    rng = np.random.default_rng(SEED + 1)
+    times summed over the two uniform banks of one batch-16 forward with
+    bfloat16 output (the coo path's calls)."""
     kernel = stem_weight.permute(2, 3, 1, 0).contiguous()          # HWIO
     bias = stem_bias.float().contiguous()
     out_h, out_w = coo_stem.out_shape(H, W)
     c_out = kernel.shape[-1]
     max_err = 0.0
-    forward = dict(kernel=0.0, plain=0.0, library=0.0, bytes=0)
-    log("[K2] case                          max_abs_err   kernel_ms   plain_ms   index_add_ms")
-    for label, n, hits in BANKS:
-        xy, values, owner, starts = make_bank(rng, n, hits)
+    cases = {}
+    log("[K2] case                                 max_abs_err  kernel_ms  device_ms  "
+        "plain_ms   library_ms bound_ms  share  no_hit_ms")
+    for label, n, xy, values, owner, starts in bench_banks(SEED + 1):
         xy_t, starts_t = torch.from_numpy(xy).cuda(), torch.from_numpy(starts).cuda()
+        no_hits = torch.zeros_like(starts_t)
         vals_t = torch.from_numpy(values).cuda()
         patches = coo_stem.stem_patches(xy_t, vals_t, kernel, H, W).contiguous()
         flat, _ = coo_stem.tap_index(xy_t, starts_t, n, H, W)
         flat, rows = flat.reshape(-1), patches.reshape(-1, c_out)
         used = int(starts[-1])
+        bins, entries = coo_stem.bin_hits_cuda(xy_t, starts_t, n, H, W, c_out)
+        want_bins, want_entries = coo_stem.bin_hits_plain(xy_t, starts_t, n, H, W, c_out)
+        listed = want_entries >= 0
+        assert torch.equal(bins, want_bins), f"K2 binning, {label}: bins differ"
+        assert torch.equal(entries[listed], want_entries[listed]), (
+            f"K2 binning, {label}: hit lists differ")
+        del bins, entries, want_bins, want_entries, listed
         for dtype in (torch.float32, torch.bfloat16):
-            def run_kernel():
-                return coo_stem.scatter_patches_cuda(patches, xy_t, starts_t, bias, n, H, W,
+            def run_kernel(starts=starts_t):
+                return coo_stem.scatter_patches_cuda(patches, xy_t, starts, bias, n, H, W,
                                                      dtype)
 
             def run_plain():
                 return coo_stem.scatter_patches_plain(patches, xy_t, starts_t, bias, n, H,
                                                       W, dtype)
+
+            def run_library():
+                grid = rows.new_zeros((n * out_h * out_w + 1, c_out)).index_add_(0, flat, rows)
+                return (grid[:-1] + bias).to(dtype)
 
             out, ref = run_kernel(), run_plain()
             torch.cuda.synchronize()
@@ -285,30 +347,41 @@ def check_k2(stem_weight, stem_bias):
             err = (out.float() - ref.float()).abs().max().item()
             max_err = max(max_err, err)
             del out, ref
+            # the output written once; the used hits' patches, coordinates
+            # and the offsets and bias read once
+            nbytes = (n * out_h * out_w * c_out * dtype.itemsize
+                      + used * (16 * c_out * 4 + 2 * 4) + (n + 1) * 4 + c_out * 4)
+            bound = 1e3 * nbytes / HBM_BYTES_PER_S
             k_ms = cuda_time_ms(run_kernel)
+            d_ms = cuda_time_ms(run_kernel, queued=True)
             p_ms = cuda_time_ms(run_plain, bursts=3, per_burst=5)
-            lib_ms = cuda_time_ms(lambda: rows.new_zeros((n * out_h * out_w + 1, c_out))
-                                  .index_add_(0, flat, rows), bursts=3, per_burst=5)
+            lib_ms = cuda_time_ms(run_library, bursts=3, per_burst=5)
+            empty_ms = cuda_time_ms(lambda: run_kernel(starts=no_hits))
             name = f"{label} out {str(dtype)[6:]}"
-            log(f"[K2] {name:<30} {err:<13.3g} {k_ms:<11.4f} {p_ms:<10.4f} {lib_ms:.4f}")
-            if dtype == torch.bfloat16 and label.endswith("b16"):
-                forward["kernel"] += k_ms
-                forward["plain"] += p_ms
-                forward["library"] += lib_ms
-                # the output written once; the used hits' patches, coordinates
-                # and the offsets and bias read once
-                forward["bytes"] += (n * out_h * out_w * c_out * 2
-                                     + used * (16 * c_out * 4 + 2 * 4)
-                                     + (n + 1) * 4 + c_out * 4)
-        if label.endswith("b16"):
+            log(f"[K2] {name:<36} {err:<12.3g} {k_ms:<10.4f} {d_ms:<10.4f} "
+                f"{p_ms:<10.4f} {lib_ms:<10.4f} {bound:<9.4f} {bound / k_ms:<6.1%} "
+                f"{empty_ms:.4f}")
+            if dtype == torch.bfloat16:
+                bin_ms = cuda_time_ms(
+                    lambda: coo_stem.bin_hits_cuda(xy_t, starts_t, n, H, W, c_out),
+                    queued=True)
+                log(f"[K2]   {label}: the binning pass alone {bin_ms:.4f} ms of the "
+                    f"device's {d_ms:.4f}")
+                cases[label] = dict(kernel=k_ms, device=d_ms, plain=p_ms,
+                                    library=lib_ms, bound=bound, no_hit=empty_ms)
+        if label.endswith("b16") and not label.startswith("serving"):
             check_k2_gradients(patches, xy_t, starts_t, bias, n)
         del patches, flat, rows
         torch.cuda.empty_cache()
-    bound_ms = 1e3 * forward["bytes"] / HBM_BYTES_PER_S
-    log(f"[K2] per b16 forward (2 banks, bf16 out): kernel {forward['kernel']:.4f} ms, "
-        f"plain {forward['plain']:.4f} ms, index_add_ {forward['library']:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({forward['bytes'] / 1e6:.1f} MB)")
-    return max_err, forward["kernel"], forward["plain"], forward["library"], bound_ms
+    totals = forward_totals(cases)
+    for name, t in totals.items():
+        log(f"[K2] per b16 forward, {name} banks (2 banks, bf16 out): kernel "
+            f"{t['kernel']:.4f} ms (device {t['device']:.4f}, no hits "
+            f"{t['no_hit']:.4f}), plain {t['plain']:.4f} ms, index_add_ + bias + cast "
+            f"{t['library']:.4f} ms, bound {t['bound']:.4f} ms, share of bound "
+            f"{t['bound'] / t['kernel']:.1%} ({t['bound'] / t['device']:.1%} of device time)")
+    t = totals["uniform"]
+    return max_err, t["kernel"], t["plain"], t["library"], t["bound"]
 
 
 def check_k2_gradients(patches, xy, starts, bias, n):

@@ -12,7 +12,9 @@ only on the parity of the coordinate.  So the stem is
   output and hits off the input grid zeroed;
 * the scatter of the patches into the ``[N, out_h, out_w, C_out]`` grid, with
   the bias added and the cast to the compute dtype fused: kernel K2
-  (:func:`scatter_patches_cuda`, ``csrc/coo_stem.cu``) on the card, or
+  (:func:`scatter_patches_cuda`, ``csrc/coo_stem.cu``: a binning pass,
+  :func:`bin_hits_cuda`, whose plain version is :func:`bin_hits_plain`, then
+  the scatter over the output tiles of :func:`tile_plan`) on the card, or
   :func:`scatter_patches_plain` (``index_add_``) on the CPU;
 * :class:`ScatterPatches`, the ``autograd.Function`` around the scatter.  Its
   backward is the per-(hit, tap) row gather of the output cotangent that the
@@ -32,12 +34,12 @@ from typing import Tuple
 import torch
 
 KERNEL, STRIDE, PADDING = 7, 2, 3
-# K2's threads and shared memory: a block owns `band_rows` output rows of one
-# image; see csrc/coo_stem.cu.
-MAX_THREADS = 1024
-MAX_BAND_ROWS = 4
-SMEM_BYTES = 232448          # a block's shared-memory limit on sm_90
-HIT_CHUNK = 1024             # hits staged in shared memory at a time
+# K2's tiles (csrc/coo_stem.cu): a thread keeps TILE_ROWS x CHANNEL_GROUP
+# float32 sums in registers; a scatter block has at most THREADS threads.
+TILE_ROWS = 4
+CHANNEL_GROUP = 8
+THREADS = 256
+MAX_TILES_PER_IMAGE = 8192   # the binning's per-tile counts in shared memory
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -150,31 +152,127 @@ def _kernel():
     from ..utils.build import load_library
 
     lib = load_library("coo_stem")
-    fn = lib.tcvn_coo_stem_scatter
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.tcvn_coo_stem_bin.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                                      + [ctypes.c_void_p])
+    lib.tcvn_coo_stem_bin.restype = ctypes.c_int
+    lib.tcvn_coo_stem_scatter.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                                          + [ctypes.c_void_p])
+    lib.tcvn_coo_stem_scatter.restype = ctypes.c_int
     lib.tcvn_error_string.argtypes = [ctypes.c_int]
     lib.tcvn_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def band_rows(out_h: int, out_w: int, channels: int) -> int:
-    """Output rows one K2 block owns: up to 4, as many as its threads (4 per
-    row and channel) and its shared-memory tile allow."""
-    rows = min(MAX_BAND_ROWS, out_h, MAX_THREADS // (4 * channels))
-    while rows > 0 and rows * out_w * channels * 4 + 2 * HIT_CHUNK * 4 > SMEM_BYTES:
-        rows -= 1
-    if rows == 0:
+def tile_plan(out_h: int, out_w: int, channels: int) -> Tuple[int, int]:
+    """K2's output tile: ``(tile_rows, tile_cols)``.
+
+    Thread (column, group of 8 channels) keeps ``TILE_ROWS`` x 8 float32
+    sums in registers, so a tile is ``TILE_ROWS`` rows by as many columns as
+    ``THREADS`` threads cover with all channels (32 at C 64, 16 at C 128),
+    at least 4 (a hit's 4 x 4 window then reaches at most 2 x 2 tiles)
+    unless the tile spans the image's width.  The binning keeps a count per
+    tile of an image in shared memory, so an image has at most
+    ``MAX_TILES_PER_IMAGE``.
+    """
+    groups = -(-channels // CHANNEL_GROUP)
+    cols = min(THREADS // groups, out_w)
+    if cols < min(4, out_w):
         raise ValueError(
-            f"coo stem kernel: one output row of {out_w} x {channels} float32 "
-            "values does not fit a block")
-    return rows
+            f"coo stem kernel: {channels} channels exceed a block of {THREADS} "
+            f"threads ({CHANNEL_GROUP} channels a thread, 4 columns)")
+    tiles = -(-out_h // TILE_ROWS) * -(-out_w // cols)
+    if tiles > MAX_TILES_PER_IMAGE:
+        raise ValueError(
+            f"coo stem kernel: {out_h}x{out_w} outputs make {tiles} tiles an image, "
+            f"more than the binning holds ({MAX_TILES_PER_IMAGE})")
+    return TILE_ROWS, cols
+
+
+def _tiles(height, width, channels):
+    """``(out_h, out_w, tile_cols, tiles per image)`` of :func:`tile_plan`."""
+    out_h, out_w = out_shape(height, width)
+    _, cols = tile_plan(out_h, out_w, channels)
+    return out_h, out_w, cols, -(-out_h // TILE_ROWS) * -(-out_w // cols)
+
+
+def _window_tiles(xy, out_h, out_w, height, width, tile_cols):
+    """Tile (within the image) of each (hit, slot) pair, ``[R, 4]``, -1 where
+    the hit is off the grid or its window reaches fewer tiles (slot ``s``:
+    tile row ``+ s // 2``, tile column ``+ s % 2`` of the window's first)."""
+    x, y = xy[:, 0].long(), xy[:, 1].long()
+    ox0, oy0 = _window_origin(x), _window_origin(y)
+    tiles_w = -(-out_w // tile_cols)
+    tr_lo, tc_lo = ox0.clamp(min=0) // TILE_ROWS, oy0.clamp(min=0) // tile_cols
+    tr_hi = (ox0 + 3).clamp(max=out_h - 1) // TILE_ROWS
+    tc_hi = (oy0 + 3).clamp(max=out_w - 1) // tile_cols
+    slot = torch.arange(4, device=xy.device)
+    tr = tr_lo[:, None] + slot // 2
+    tc = tc_lo[:, None] + slot % 2
+    in_grid = (x >= 0) & (x < height) & (y >= 0) & (y < width)
+    keep = (tr <= tr_hi[:, None]) & (tc <= tc_hi[:, None]) & in_grid[:, None]
+    return torch.where(keep, tr * tiles_w + tc, -1)
+
+
+def bin_hits_plain(
+    xy: torch.Tensor,        # [R, 2] int
+    starts: torch.Tensor,    # [N + 1] int CSR offsets, non-decreasing
+    num_images: int,
+    height: int,
+    width: int,
+    channels: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's binning pass in plain torch: ``bins [N * tiles, 2]`` int32 (first
+    entry, count) for each output tile of :func:`tile_plan`, and ``entries
+    [4 R, 2]`` int32, each tile's list of (hit, window origin packed as
+    ``(ox0 + 1) << 16 | (oy0 + 1)``) in bank order.  Image ``i``'s lists
+    fill entries from ``4 * starts[i]`` on, in tile order; entries no list
+    uses hold -1."""
+    out_h, out_w, tile_cols, tiles = _tiles(height, width, channels)
+    r = xy.shape[0]
+    bounds = starts.long().clamp(0, r)
+    row = torch.arange(r, device=xy.device)
+    image = torch.searchsorted(bounds, row, right=True) - 1
+    key = _window_tiles(xy, out_h, out_w, height, width, tile_cols)        # [R, 4]
+    keep = (key >= 0) & ((image >= 0) & (image < num_images))[:, None]
+    tile = (image[:, None] * tiles + key)[keep]                              # pairs in bank order
+    hit = row[:, None].expand(r, 4)[keep]
+    counts = torch.bincount(tile, minlength=num_images * tiles)
+    first = (counts.reshape(num_images, tiles).cumsum(1) - counts.reshape(num_images, tiles)
+             + 4 * bounds[:num_images, None]).reshape(-1)
+    order = torch.sort(tile, stable=True).indices
+    rank = torch.arange(tile.numel(), device=xy.device) - (counts.cumsum(0) - counts)[tile[order]]
+    origin = ((_window_origin(xy[:, 0]) + 1) * 65536 + _window_origin(xy[:, 1]) + 1)
+    entries = torch.full((4 * r, 2), -1, dtype=torch.int32, device=xy.device)
+    hit = hit[order]
+    entries[first[tile[order]] + rank] = torch.stack([hit, origin[hit]], 1).int()
+    return torch.stack([first, counts], 1).int(), entries
+
+
+def bin_hits_cuda(xy, starts, num_images, height, width, channels):
+    """K2's binning pass alone on the card (:func:`bin_hits_plain`'s
+    function; entries no list uses are left unwritten), for checking it.
+    Takes the wrapper's checked inputs."""
+    if xy.device.type != "cuda":
+        raise ValueError(f"coo stem binning needs CUDA tensors, got {xy.device}")
+    _, _, tile_cols, tiles = _tiles(height, width, channels)
+    bins = torch.empty((num_images * tiles, 2), dtype=torch.int32, device=xy.device)
+    entries = torch.empty((4 * xy.shape[0], 2), dtype=torch.int32, device=xy.device)
+    lib = _kernel()
+    with torch.cuda.device(xy.device):
+        err = lib.tcvn_coo_stem_bin(
+            xy.data_ptr(), starts.data_ptr(), bins.data_ptr(), entries.data_ptr(),
+            xy.shape[0], num_images, height, width, channels, tile_cols,
+            torch.cuda.current_stream(xy.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"coo stem binning launch failed: {lib.tcvn_error_string(err).decode()}")
+    return bins, entries
 
 
 def scatter_patches_cuda(
     patches: torch.Tensor,   # [R, 4, 4, C] float32, contiguous
     xy: torch.Tensor,        # [R, 2] int32, owner-sorted
-    starts: torch.Tensor,    # [N + 1] int32 CSR offsets
+    starts: torch.Tensor,    # [N + 1] int32 CSR offsets, non-decreasing
     bias: torch.Tensor,      # [C] float32
     num_images: int,
     height: int,
@@ -183,7 +281,7 @@ def scatter_patches_cuda(
 ) -> torch.Tensor:
     """K2 on the card: the stem output ``[N, out_h, out_w, C]`` in
     ``out_dtype``, summed in float32 in bank order, bias added, cast once.
-    Launches on the current stream and does not synchronise."""
+    Two launches (binning, scatter) on the current stream; no synchronise."""
     device = patches.device
     if device.type != "cuda":
         raise ValueError(f"coo stem kernel needs CUDA tensors, got {device}")
@@ -207,20 +305,27 @@ def scatter_patches_cuda(
     if starts.shape != (num_images + 1,):
         raise ValueError(
             f"coo stem kernel: starts must be [{num_images + 1}], got {tuple(starts.shape)}")
-    if num_images > 65535:
-        raise ValueError(f"coo stem kernel: {num_images} images exceed the grid")
+    if c % CHANNEL_GROUP == 0:        # the kernel's 16-byte loads
+        for name, t in (("patches", patches), ("bias", bias)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"coo stem kernel: {name} must be 16-byte aligned")
 
     out_h, out_w = out_shape(height, width)
     out = torch.empty((num_images, out_h, out_w, c), dtype=out_dtype, device=device)
     if out.numel() == 0:
         return out
-    rows = band_rows(out_h, out_w, c)
+    _, _, tile_cols, tiles = _tiles(height, width, c)
+    # the binning's output: bins [N * tiles] and entries [4 R], pairs of int32
+    scratch = torch.empty(2 * (num_images * tiles + 4 * r), dtype=torch.int32,
+                          device=device)
     lib = _kernel()
     with torch.cuda.device(device):
         err = lib.tcvn_coo_stem_scatter(
             patches.data_ptr(), xy.data_ptr(), starts.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), _DTYPE_CODES[out_dtype], r, num_images, height, width,
-            c, rows, HIT_CHUNK, torch.cuda.current_stream(device).cuda_stream,
+            out.data_ptr(), scratch.data_ptr(),
+            scratch.data_ptr() + 8 * num_images * tiles, _DTYPE_CODES[out_dtype], r,
+            num_images, height, width, c, tile_cols,
+            torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(

@@ -3,7 +3,8 @@
 :func:`densify_images_cuda` launches ``csrc/densify.cu``, the port of the
 Pallas TPU kernel ``dune_transformercvn_tpu/ops/pallas_densify.py``: it reads
 the owner-sorted hit bank through its CSR ``starts``.  The source's header
-says what bounds it on the card and how its tiles are laid out.
+says what bounds it on the card; :func:`region_shape` gives the part of an
+image one block writes.
 
 :func:`densify_images_plain` is the accumulating ``index_put_`` form of the
 XLA scatter in ``dune_transformercvn_tpu/ops/scatter.py``: it reads the
@@ -19,25 +20,24 @@ from typing import Tuple
 
 import torch
 
-# fp32 accumulators in one block's shared-memory tile (48 KB); the kernel
-# refuses larger tiles.
-TILE_FLOATS = 12288
+# Output elements one K1 block zero-fills and adds hits into, about: 32 KB of
+# bfloat16.  Each block walks its image's hits once, so the budget trades
+# blocks in flight against walks.
+REGION_ELEMS = 16384
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def tile_shape(out_h: int, out_w: int, out_c: int) -> Tuple[int, int]:
-    """(rows, columns) of output one block owns: whole rows where a row
-    fits in the tile, else a band of columns of a single row."""
-    if out_c > TILE_FLOATS:
-        raise ValueError(
-            f"densify kernel: {out_c} output channels exceed one tile "
-            f"({TILE_FLOATS} fp32 values)"
-        )
+def region_shape(out_h: int, out_w: int, out_c: int) -> Tuple[int, int]:
+    """(rows, columns) of output one K1 block owns, contiguous in memory:
+    whole rows, as many as split the image evenly into regions of about
+    ``REGION_ELEMS`` elements; where one row is over that, a band of columns
+    of a single row."""
     row = out_w * out_c
-    if row <= TILE_FLOATS:
-        return min(out_h, TILE_FLOATS // row), out_w
-    return 1, TILE_FLOATS // out_c
+    if row > REGION_ELEMS:
+        return 1, max(1, REGION_ELEMS // out_c)
+    regions = -(-out_h * row // REGION_ELEMS)
+    return -(-out_h // regions), out_w
 
 
 def densify_images_plain(
@@ -123,10 +123,10 @@ def densify_images_cuda(
             f"{tuple(starts.shape)}")
     if not (xy.is_contiguous() and values.is_contiguous() and starts.is_contiguous()):
         raise ValueError("densify kernel: inputs must be contiguous")
+    if xy.data_ptr() % 8:
+        raise ValueError("densify kernel: xy must be 8-byte aligned (read as int2)")
     if space_to_depth and (height % 2 or width % 2):
         raise ValueError(f"space_to_depth needs even H, W; got {height}x{width}")
-    if num_images > 65535:
-        raise ValueError(f"densify kernel: {num_images} images exceed the grid")
 
     c = values.shape[1]
     shape = ((num_images, height // 2, width // 2, 4 * c) if space_to_depth
@@ -134,13 +134,13 @@ def densify_images_cuda(
     out = torch.empty(shape, dtype=values.dtype, device=device)
     if out.numel() == 0:
         return out
-    tile_rows, tile_cols = tile_shape(*shape[1:])
+    rows, cols = region_shape(*shape[1:])
     lib = _kernel()
     with torch.cuda.device(device):
         err = lib.tcvn_densify(
             xy.data_ptr(), values.data_ptr(), starts.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[values.dtype], xy.shape[0], num_images, height, width,
-            c, int(space_to_depth), tile_rows, tile_cols,
+            c, int(space_to_depth), rows, cols,
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:

@@ -152,16 +152,149 @@ def test_coo_stem_gradients_match_jax():
     assert np.abs(routed[0][real + 3:real + 5]).min() > 0
 
 
-def test_kernel_band_rows():
-    """K2's blocks own 4 output rows at the production stem (143 KB of
-    float32 in shared memory, 1024 threads), fewer where threads run out."""
+@pytest.mark.parametrize("out_h,out_w,c_out,want", [
+    (200, 140, 64, (4, 32)),          # production stem: 140 = 4 x 32 + 12
+    (200, 140, 128, (4, 16)),         # 140 = 8 x 16 + 12
+    (24, 20, 16, (4, 20)),            # one tile spans the width
+    (19, 15, 12, (4, 15)),            # channels not a multiple of 8
+    (3, 2, 64, (4, 2)),               # narrower than 4 columns
+])
+def test_kernel_tile_plan(out_h, out_w, c_out, want):
+    """K2's tiles cover every output element exactly once; a block fits its
+    thread limit, a thread's sums its registers (4 x 8 float32), an image's
+    tile counts the binning's shared memory; a window reaches at most 2 x 2
+    tiles."""
+    rows, cols = coo_stem.tile_plan(out_h, out_w, c_out)
+    assert (rows, cols) == want
+    assert cols * -(-c_out // coo_stem.CHANNEL_GROUP) <= coo_stem.THREADS
+    assert rows * coo_stem.CHANNEL_GROUP == 32
+    assert rows >= 4 and (cols >= 4 or cols == out_w)
+    cover = np.zeros((out_h, out_w, c_out), np.int32)
+    tiles = 0
+    for r0 in range(0, out_h, rows):
+        for c0 in range(0, out_w, cols):
+            cover[r0:r0 + rows, c0:c0 + cols] += 1
+            tiles += 1
+    assert (cover == 1).all()
+    assert tiles <= coo_stem.MAX_TILES_PER_IMAGE
+    # the binning's shared memory: a count per tile and 4 x 1024 staged keys
+    assert 4 * (coo_stem.MAX_TILES_PER_IMAGE + 4 * 1024) <= 48 * 1024
+
+
+def test_kernel_tile_plan_rejects_what_does_not_fit():
     assert coo_stem.out_shape(400, 280) == (200, 140)
-    assert coo_stem.band_rows(200, 140, 64) == 4
-    assert coo_stem.band_rows(200, 140, 128) == 2
-    assert coo_stem.band_rows(2, 140, 16) == 2
-    assert coo_stem.band_rows(200, 140, 256) == 1
-    with pytest.raises(ValueError, match="does not fit"):
-        coo_stem.band_rows(200, 1000, 64)
+    with pytest.raises(ValueError, match="channels"):
+        coo_stem.tile_plan(200, 140, 520)          # 65 groups of 8: 3 columns
+    assert coo_stem.tile_plan(200, 140, 512) == (4, 4)      # 4 x 64 threads
+    with pytest.raises(ValueError, match="tiles"):
+        coo_stem.tile_plan(2000, 1000, 64)         # 500 x 32 tiles an image
+
+
+def numpy_bins(xy, starts, num_images, height, width, c_out):
+    """A numpy counting sort of the (hit, tile) pairs: per image, count per
+    tile, exclusive scan from ``4 * starts[i]``, then place each hit with its
+    packed window origin in bank order."""
+    out_h, out_w = coo_stem.out_shape(height, width)
+    rows, cols = coo_stem.tile_plan(out_h, out_w, c_out)
+    tiles_w = -(-out_w // cols)
+    tiles = -(-out_h // rows) * tiles_w
+    r = len(xy)
+    bins = np.zeros((num_images * tiles, 2), np.int32)
+    entries = np.full((4 * r, 2), -1, np.int32)
+    for i in range(num_images):
+        lo = min(max(int(starts[i]), 0), r)
+        hi = min(max(int(starts[i + 1]), lo), r)
+        lists = [[] for _ in range(tiles)]
+        for g in range(lo, hi):
+            x, y = int(xy[g, 0]), int(xy[g, 1])
+            if not (0 <= x < height and 0 <= y < width):
+                continue
+            ox0, oy0 = (x - 2) // 2, (y - 2) // 2
+            touched = {(max(ox0 + a, 0) // rows) * tiles_w + max(oy0 + b, 0) // cols
+                       for a in range(4) for b in range(4)
+                       if ox0 + a < out_h and oy0 + b < out_w}
+            for t in sorted(touched):
+                lists[t].append((g, (ox0 + 1) << 16 | (oy0 + 1)))
+        pos = 4 * lo
+        for t, hits in enumerate(lists):
+            bins[i * tiles + t] = (pos, len(hits))
+            entries[pos:pos + len(hits)] = np.array(hits, np.int32).reshape(-1, 2)
+            pos += len(hits)
+    return bins, entries
+
+
+def track_bank(seed):
+    """Hits on tile borders, duplicated on a tile corner, all of one image in
+    one tile, and an image every tile of which stays untouched."""
+    rng = np.random.default_rng(seed)
+    xy = np.array([[14, 62], [14, 62], [14, 63], [15, 10], [3, 62], [0, 0],   # image 0
+                   [18, 20], [19, 21], [18, 20],                              # image 1
+                   [-1, 5], [H + 2, 5],                                       # image 2
+                   [47, 99], [1, 1]], np.int32)                               # image 3
+    xy = np.concatenate([xy, rng.integers(0, 48, (5, 2)).astype(np.int32)])   # padding
+    starts = np.array([0, 6, 9, 11, 13], np.int32)
+    return xy, starts
+
+
+@pytest.mark.parametrize("bank,c_out", [("hits", 64), ("hits", 128), ("tracks", 64),
+                                        ("tracks", 12)])
+def test_bin_hits_plain_matches_a_numpy_counting_sort(bank, c_out):
+    """K2's binning, in its plain version, against a numpy counting sort:
+    the same tiles, counts, first entries and bank-ordered lists."""
+    if bank == "hits":
+        xy, _, _, starts = hit_bank(13, counts=(40, 0, 25))
+        height, width = H, W
+    else:
+        xy, starts = track_bank(14)
+        height, width = 48, 100
+    n = len(starts) - 1
+    bins, entries = coo_stem.bin_hits_plain(t(xy), t(starts), n, height, width, c_out)
+    want_bins, want_entries = numpy_bins(xy, starts, n, height, width, c_out)
+    np.testing.assert_array_equal(bins.numpy(), want_bins)
+    np.testing.assert_array_equal(entries.numpy(), want_entries)
+    if bank == "tracks":
+        per_image = bins.numpy()[:, 1].reshape(n, -1)
+        assert (per_image[1] > 0).sum() == 1 and per_image[1].max() == 3   # one tile
+        assert not per_image[2].any()                                       # untouched
+        # (14, 62) reaches 2 x 2 tiles of 4 rows x 32 columns at C_out 64
+        assert (per_image[0] > 0).sum() >= (4 if c_out == 64 else 2)
+
+
+@pytest.mark.parametrize("c_out", [12, 64])
+def test_binned_tile_walk_reproduces_the_plain_scatter(c_out):
+    """The scatter kernel's arithmetic in numpy: each tile adds its binned
+    hits' taps (at their packed window origins) in list order over
+    bias-free float32 sums, then the bias;
+    equal to ``scatter_patches_plain`` up to float32 rounding."""
+    xy, starts = track_bank(15)
+    height, width = 48, 100
+    n = len(starts) - 1
+    rng = np.random.default_rng(16)
+    values = rng.normal(size=(len(xy), C_IN)).astype(np.float32)
+    kernel = 0.1 * rng.normal(size=(7, 7, C_IN, c_out)).astype(np.float32)
+    bias = rng.normal(size=c_out).astype(np.float32)
+    patches = coo_stem.stem_patches(t(xy), t(values), t(kernel), height, width)
+    want = coo_stem.scatter_patches_plain(patches, t(xy), t(starts), t(bias), n, height,
+                                          width, torch.float32).numpy()
+    out_h, out_w = coo_stem.out_shape(height, width)
+    rows, cols = coo_stem.tile_plan(out_h, out_w, c_out)
+    bins, entries = coo_stem.bin_hits_plain(t(xy), t(starts), n, height, width, c_out)
+    p = patches.numpy()
+    got = np.zeros((n, out_h, out_w, c_out), np.float32)
+    tiles_w = -(-out_w // cols)
+    tiles = -(-out_h // rows) * tiles_w
+    for tile, (first, count) in enumerate(bins.numpy()):
+        i, k = divmod(tile, tiles)
+        r0, c0 = (k // tiles_w) * rows, (k % tiles_w) * cols
+        for g, origin in entries.numpy()[first:first + count]:
+            ox0, oy0 = (origin >> 16) - 1, (origin & 0xFFFF) - 1
+            for a in range(4):
+                for b in range(4):
+                    r, c = ox0 + a, oy0 + b
+                    if r0 <= r < min(r0 + rows, out_h) and c0 <= c < min(c0 + cols, out_w):
+                        got[i, r, c] += p[g, a, b]
+    np.testing.assert_allclose(got + bias, want, **STEM_TOL)
+    assert np.abs(want[2] - bias).max() == 0.0     # every tile of image 2 untouched
 
 
 # ---------------------------------------------------------------------------

@@ -7,10 +7,11 @@ They skip without one.  On the card, run them with
 (``--noconftest``: the test suite's ``conftest.py`` sets up JAX, which the
 GPU host does not have; this file imports no JAX).  Kernel K1 against its
 plain version at small shapes with every edge case, in every dtype and
-layout, the column-tiled path for wide rows, input checks, dispatch, and
-the tiny network on the card against the CPU; kernel K2 (the coo stem's
-scatter) against its plain version forward and backward, its input checks,
-and the coo network on the card against the CPU.
+layout, the column-tiled path for wide rows, region borders at production
+width, input checks, dispatch, and the tiny network on the card against the
+CPU; kernel K2 (the coo stem's scatter) against its plain version forward
+and backward, where tiles meet, its binning pass against the plain binning,
+its input checks, and the coo network on the card against the CPU.
 """
 
 import numpy as np
@@ -74,14 +75,49 @@ def test_kernel_matches_plain(cuda, C, space_to_depth, dtype):
 
 
 def test_kernel_tiles_columns_of_wide_rows(cuda):
-    """768 channels (one-hot pixels): one row does not fit a tile, so
+    """768 channels (one-hot pixels): one row is over a block's region, so
     blocks own bands of columns."""
     N, H, W, C = 2, 6, 40, 768
-    assert k1.tile_shape(H, W, C) == (1, 16)
+    assert k1.region_shape(H, W, C) == (1, 21)
     xy, vals, owner, starts = bank(C, H, W, [30, 20], 64, 1, cuda)
     out = k1.densify_images_cuda(xy, vals, starts, N, H, W)
     ref = k1.densify_images_plain(xy, vals, owner, N, H, W)
     torch.testing.assert_close(out, ref, **TOL[torch.float32])
+
+
+def edge_bank(H, W, region_rows, C, device):
+    """Hits on region borders (the last row of one region, the first of the
+    next), duplicates on a region corner, an image whose hits all fall in
+    one region, an empty image, then padding rows."""
+    r = region_rows
+    xy = np.array([[r - 1, 5], [r, 5], [r - 1, W - 1], [r, 0],     # image 0: borders
+                   [r - 1, 0], [r - 1, 0], [r, 1], [r - 1, 0],     # corner duplicates
+                   [1, 2], [2, 3], [1, 2], [0, 0],                 # image 1: one region
+                   [H - 1, W - 1], [H - 2, W - 2], [-1, 3]],       # image 3; image 2 empty
+                  np.int32)
+    xy = np.concatenate([xy, np.zeros((5, 2), np.int32)])         # padding rows
+    owner = np.array([0] * 8 + [1] * 4 + [3] * 3 + [4] * 5, np.int32)
+    starts = np.array([0, 8, 12, 12, 15], np.int32)
+    vals = np.random.default_rng(C).uniform(0.0, 1.0, (len(xy), C)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (xy, vals, owner, starts)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("space_to_depth", [False, True])
+def test_kernel_region_edges_at_production_width(cuda, space_to_depth, dtype):
+    """400x280x3 images (12 channels in space-to-depth, neither a multiple
+    of the 16-byte vector): K1 against its plain version on region borders,
+    duplicates on a region corner, one region, an empty image."""
+    H, W, C = 400, 280, 3
+    shape = (H // 2, W // 2, 4 * C) if space_to_depth else (H, W, C)
+    rows = k1.region_shape(*shape)[0] * (2 if space_to_depth else 1)
+    xy, vals, owner, starts = edge_bank(H, W, rows, C, cuda)
+    vals = vals.to(dtype)
+    out = k1.densify_images_cuda(xy, vals, starts, 4, H, W, space_to_depth)
+    ref = k1.densify_images_plain(xy, vals, owner, 4, H, W, space_to_depth)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    assert not out[2].any()
 
 
 def test_kernel_checks_its_inputs(cuda):
@@ -179,6 +215,57 @@ def test_coo_stem_kernel_matches_plain(cuda, C_out, out_dtype):
     torch.cuda.synchronize()
     assert out.shape == ref.shape == (3, 19, 15, C_out) and out.dtype == out_dtype
     torch.testing.assert_close(out.float(), ref.float(), **K2_TOL[out_dtype])
+
+
+def stem_edge_inputs(C_out, device):
+    """48x100 images (24x50 outputs: 6 x 2 tiles at C_out 64): windows that
+    straddle two and four tiles, duplicates on a tile corner, an image whose
+    hits all fall in one tile, an empty image, one whose hits are all off
+    the grid, then padding rows."""
+    xy = np.array([[14, 62], [14, 10], [3, 62],                      # image 0: straddles
+                   [15, 63], [15, 63], [14, 62], [15, 63],           # corner duplicates
+                   [18, 20], [19, 21], [18, 20],                     # image 1: one tile
+                   [-1, 5], [52, 5], [5, 100],                       # image 3: off the grid
+                   [47, 99], [0, 0]], np.int32)                      # image 4
+    xy = np.concatenate([xy, np.zeros((5, 2), np.int32)])
+    owner = np.array([0] * 7 + [1] * 3 + [3] * 3 + [4] * 2 + [5] * 5, np.int32)
+    starts = np.array([0, 7, 10, 10, 13, 15], np.int32)
+    rng = np.random.default_rng(C_out)
+    vals = rng.uniform(0.0, 1.0, (len(xy), 3)).astype(np.float32)
+    kernel = 0.1 * rng.normal(size=(7, 7, 3, C_out)).astype(np.float32)
+    bias = rng.normal(size=C_out).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (xy, vals, owner, starts, kernel, bias)]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C_out", [12, 64])
+def test_coo_stem_kernel_tile_edges(cuda, C_out, out_dtype):
+    """K2 against its plain version where tiles meet (C_out 12: channels not
+    a multiple of the 8-wide vector); the untouched images are the bias."""
+    H, W, N = 48, 100, 5
+    xy, vals, owner, starts, kernel, bias = stem_edge_inputs(C_out, cuda)
+    patches = k2.stem_patches(xy, vals, kernel, H, W)
+    out = k2.scatter_patches_cuda(patches, xy, starts, bias, N, H, W, out_dtype)
+    ref = k2.scatter_patches_plain(patches, xy, starts, bias, N, H, W, out_dtype)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **K2_TOL[out_dtype])
+    for i in (2, 3):
+        assert torch.equal(out[i], bias.to(out_dtype).expand_as(out[i]))
+
+
+@pytest.mark.parametrize("C_out", [12, 64, 128])
+def test_coo_stem_binning_matches_plain(cuda, C_out):
+    """K2's binning kernel against its plain version: the same bins, and the
+    same bank-ordered hit lists."""
+    xy, _, _, starts, _, _ = stem_edge_inputs(C_out, cuda)
+    big = bank(3, 400, 280, [160, 0, 90, 3], 300, C_out, cuda)
+    for xy_, starts_, n, H, W in ((xy, starts, 5, 48, 100), (big[0], big[3], 4, 400, 280)):
+        bins, entries = k2.bin_hits_cuda(xy_, starts_, n, H, W, C_out)
+        want_bins, want_entries = k2.bin_hits_plain(xy_, starts_, n, H, W, C_out)
+        torch.cuda.synchronize()
+        assert torch.equal(bins, want_bins)
+        used = want_entries >= 0
+        assert torch.equal(entries[used], want_entries[used])
 
 
 def test_coo_stem_gradients_through_the_kernel(cuda):

@@ -122,20 +122,31 @@ def test_densify_rejects_odd_space_to_depth_and_cpu_kernel_call():
 
 
 @pytest.mark.parametrize("shape,want", [
-    ((400, 280, 3), (14, 280)),      # production NHWC: 14 whole rows
-    ((200, 140, 12), (7, 140)),      # production space-to-depth
-    ((5, 3, 1), (5, 3)),             # whole image in one tile
-    ((400, 280, 768), (1, 16)),      # one-hot pixels: a band of columns
+    ((400, 280, 3), (20, 280)),      # production NHWC: 20 regions of 20 rows
+    ((200, 140, 12), (10, 140)),     # production space-to-depth
+    ((5, 3, 1), (5, 3)),             # whole image in one region
+    ((7, 5, 3), (7, 5)),             # odd width and channels
+    ((400, 280, 768), (1, 21)),      # one-hot pixels: a band of columns
 ])
-def test_kernel_tile_fits_shared_memory(shape, want):
-    rows, cols = port_densify.tile_shape(*shape)
+def test_kernel_region_plan(shape, want):
+    """K1's regions cover every output element exactly once, each one
+    contiguous in memory (whole rows, or columns of one row), none more than
+    a row over the budget, nor a single pixel's columns over it."""
+    out_h, out_w, out_c = shape
+    rows, cols = port_densify.region_shape(*shape)
     assert (rows, cols) == want
-    assert rows * cols * shape[2] <= port_densify.TILE_FLOATS
+    assert cols == out_w or rows == 1
+    assert (rows - 1) * cols * out_c < port_densify.REGION_ELEMS
+    assert (cols - 1) * out_c < port_densify.REGION_ELEMS
+    cover = np.zeros((out_h, out_w), np.int32)
+    for r0 in range(0, out_h, rows):
+        for c0 in range(0, out_w, cols):
+            cover[r0:r0 + rows, c0:c0 + cols] += 1
+    assert (cover == 1).all()
 
 
-def test_kernel_tile_rejects_too_many_channels():
-    with pytest.raises(ValueError, match="channels"):
-        port_densify.tile_shape(4, 4, port_densify.TILE_FLOATS + 1)
+def test_kernel_region_of_a_pixel_over_the_budget():
+    assert port_densify.region_shape(4, 4, port_densify.REGION_ELEMS + 1) == (1, 1)
 
 
 def slot_maps():
