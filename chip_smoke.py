@@ -41,7 +41,19 @@ Phases, each of which raises on failure:
    against dense logits with the same weights; each coo embedder through K2
    against the plain stem; the card against the CPU at batch 4, both
    families.
-8. A JSON line of every ported kernel, then, as the last line,
+8. The Trainer on the card: the production option file as it stands
+   (``num_gpu`` 4, clamped to one device), dense family, bfloat16, batch
+   16, events made in memory (512 training, 64 validation), a run dir in a
+   temporary directory; ``fit(max_steps=24, eval_interval=12)`` with a
+   snapshot of the state on the host at step 12; finite loss and AUCs,
+   checkpoints 12 and 24 indexed, K1 twice a step and a validation batch,
+   K2 never; a fresh Trainer's ``resume(step_12)`` equal to the snapshot bit
+   for bit, then ``fit(max_steps=16)`` with a finite loss; ``evaluate_run``
+   of the best checkpoint with finite AUCs and K1 twice a batch; the median
+   events/s the Trainer logged over windows with no validation, beside the
+   same Trainer's step timed bare in the same process; the time of a
+   synchronous checkpoint save of the full state.
+9. A JSON line of every ported kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -50,12 +62,15 @@ Exits non-zero, printing no result, when CUDA is unavailable.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -70,11 +85,14 @@ from dune_transformercvn_torch.ops import coo_stem
 from dune_transformercvn_torch.ops.coo_conv import coo_stem_conv_plain
 from dune_transformercvn_torch.ops.densify import (
     densify_images_cuda, densify_images_plain)
+from dune_transformercvn_torch.evaluate import evaluate_run
 from dune_transformercvn_torch.predict import predict_split, to_device
 from dune_transformercvn_torch.profile_serving import OPTION_FILE, production_config
 from dune_transformercvn_torch.train import (
-    create_train_state, finalize_metrics, init_metric_state, make_eval_step,
+    Trainer, create_train_state, finalize_metrics, init_metric_state, make_eval_step,
     make_train_step)
+from dune_transformercvn_torch.train.checkpoint import CheckpointManager, to_host
+from dune_transformercvn_torch.train.logging import read_history
 from dune_transformercvn_torch.utils.build import build, sources
 
 SEED = 0
@@ -111,6 +129,13 @@ TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, EVAL_EVENTS = 16, 3, 20, 64
 # The card against the CPU, float32: cuDNN and oneDNN sum in other orders
 # through ~30 conv layers.
 CPU_TOL = dict(rtol=1e-3, atol=1e-3)
+# The Trainer: in-memory training and validation events, the fit's steps and
+# validation interval, the metric-log cadence, and the resumed fit's limit.
+FIT_EVENTS, FIT_VAL_EVENTS = 512, 64
+FIT_STEPS, FIT_EVAL, FIT_LOG, RESUME_TO = 24, 12, 4, 16
+# The same Trainer's step timed bare (batches already on the card, no loop
+# around it), and the synchronous checkpoint saves timed at this width.
+BARE_WARMUP, BARE_STEPS, SAVES = 2, 12, 3
 
 
 def log(msg: str = ""):
@@ -608,11 +633,186 @@ def check_paths(bf16_model):
             f"(tol {CPU_TOL})")
 
 
+# ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+
+def fit_datasets():
+    return (InMemoryEvents(FIT_EVENTS, SEED + 5), InMemoryEvents(FIT_VAL_EVENTS, SEED + 6),
+            None)
+
+
+def fit_options():
+    """The production option file as it stands, bfloat16 (train's -fp16)."""
+    options = Options.load(OPTION_FILE)
+    options.compute_dtype = "bfloat16"
+    return options
+
+
+def assert_state_equal(got, want):
+    """Two ``TrainState.state_dict()``s (host copies) equal bit for bit."""
+    assert got["step"] == want["step"], (got["step"], want["step"])
+    assert got["model"].keys() == want["model"].keys()
+    for name, tensor in want["model"].items():
+        assert torch.equal(got["model"][name], tensor), f"model tensor {name}"
+    g_opt, w_opt = got["optimizer"], want["optimizer"]
+    assert g_opt["param_groups"] == w_opt["param_groups"]
+    assert g_opt["state"].keys() == w_opt["state"].keys() and w_opt["state"]
+    for index, slots in w_opt["state"].items():
+        for key, tensor in slots.items():
+            assert torch.equal(g_opt["state"][index][key], tensor), f"AdamW {index} {key}"
+    for key, tensor in want["norm"].items():
+        assert torch.equal(got["norm"][key], tensor), f"norm {key}"
+    assert torch.equal(got["generator"], want["generator"]), "generator state"
+
+
+def counted(fn):
+    """``fn()`` with the kernels' counts set to 0 just before it and read
+    just after; returns (result, (K1, K2))."""
+    torch.cuda.synchronize()
+    reset_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, read_counts()
+
+
+def bare_step_ms(trainer):
+    """Wall ms per step of ``trainer.train_step`` back to back over batches
+    already on the card: the step the loop wraps, with no loop around it."""
+    host = trainer.train_batcher.epoch(1)
+    batches = [to_device(next(host), trainer.device) for _ in range(BARE_WARMUP + BARE_STEPS)]
+    for batch in batches[:BARE_WARMUP]:
+        trainer.train_step(trainer.state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches[BARE_WARMUP:]:
+        trainer.train_step(trainer.state, batch)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / BARE_STEPS
+
+
+def checkpoint_save_s(trainer, directory):
+    """Median seconds of ``CheckpointManager.save`` of the trainer's full
+    state (copy to the host and ``torch.save``), and the state's MB."""
+    manager = CheckpointManager(directory)
+    times = []
+    for step in range(SAVES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        manager.save(trainer.state, step, None)
+        times.append(time.perf_counter() - t0)
+    size = os.path.getsize(os.path.join(directory, f"step_{SAVES - 1}", "state.pt"))
+    return statistics.median(times), size / 1e6
+
+
+def check_trainer(smi):
+    """Phase 8; returns K1's launches."""
+    val_batches = math.ceil(FIT_VAL_EVENTS / TRAIN_BATCH)
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        snapshot = {}
+
+        def snap(step, metrics):
+            if step == FIT_EVAL:
+                snapshot.update(to_host(trainer.state.state_dict()))
+
+        trainer = Trainer(fit_options(), run_dir=run_dir, callbacks=[snap],
+                          log_every_n_steps=FIT_LOG, datasets=fit_datasets(), verbose=False)
+        assert trainer.device.type == "cuda"
+        assert trainer.global_batch == TRAIN_BATCH == trainer.options.batch_size
+        assert trainer.model_config.embedder == "dense"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result, counts = counted(lambda: trainer.fit(max_steps=FIT_STEPS,
+                                                     eval_interval=FIT_EVAL))
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        evals = FIT_STEPS // FIT_EVAL
+        assert counts == (2 * (FIT_STEPS + evals * val_batches), 0), counts
+        launches = counts[0]
+        history = read_history(run_dir)
+        losses = [v for _, v in history["train_loss"]]
+        assert losses and all(math.isfinite(v) for v in losses), losses
+        for key in ("val_loss", "val_epoch_AUC", "event_epoch_AUC", "prong_epoch_AUC"):
+            assert math.isfinite(result[key]), (key, result[key])
+        with open(os.path.join(run_dir, "checkpoints", "index.json")) as f:
+            index = json.load(f)
+        assert [c["step"] for c in index["checkpoints"]] == [FIT_EVAL, FIT_STEPS], index
+        assert index["last"] == FIT_STEPS and snapshot["step"] == FIT_EVAL
+        # the window of log step s runs from the previous log step's read to
+        # s's; keep those past the first steps (logged at 1 and 2) that span
+        # no validation
+        eps = history["events_per_second"]
+        kept = [(s, r) for (prev, _), (s, r) in zip(eps, eps[1:])
+                if prev >= 2 and not any(prev <= e < s for e in range(FIT_EVAL, s, FIT_EVAL))]
+        rates = [r for _, r in kept]
+        log(f"[trainer] production options (num_gpu {trainer.options.num_gpu} -> 1 device), "
+            f"dense, {trainer.model_config.compute_dtype}, batch {TRAIN_BATCH}: fit {FIT_STEPS} steps + {evals} "
+            f"validations of {val_batches} batches in {seconds:.2f} s; last train_loss "
+            f"{losses[-1]:.5f}, val_loss {result['val_loss']:.5f}, val_epoch_AUC "
+            f"{result['val_epoch_AUC']:.4f}; launches K1 {counts[0]}, K2 {counts[1]}; peak "
+            f"memory {peak:.2f} GiB")
+        log(f"[trainer] logged events/s over windows with no validation (log steps "
+            f"{[s for s, _ in kept]}): "
+            f"median {statistics.median(rates):.2f}, min {min(rates):.2f}, max "
+            f"{max(rates):.2f} ({len(rates)} windows; {smi})")
+        bare_ms = bare_step_ms(trainer)
+        log(f"[trainer] the same Trainer's step bare, batches on the card: "
+            f"{bare_ms:.3f} ms/step, {1e3 * TRAIN_BATCH / bare_ms:.2f} events/s ({BARE_STEPS} "
+            f"steps back to back after {BARE_WARMUP}); the loop's logged median is "
+            f"{100 * statistics.median(rates) * bare_ms / (1e3 * TRAIN_BATCH):.1f}% of it ({smi})")
+        save_s, save_mb = checkpoint_save_s(trainer, os.path.join(run_dir, "save_timing"))
+        interval_s = trainer.options.eval_interval * bare_ms / 1e3
+        log(f"[trainer] synchronous checkpoint save of {save_mb:.1f} MB: median {save_s:.3f} s "
+            f"of {SAVES}; {100 * save_s / interval_s:.2f}% of the option file's eval interval "
+            f"({trainer.options.eval_interval} steps, {interval_s:.1f} s at the bare step)")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        fresh = Trainer(fit_options(), run_dir=run_dir, log_every_n_steps=FIT_LOG,
+                        datasets=fit_datasets(), verbose=False)
+        fresh.resume(os.path.join(run_dir, "checkpoints", f"step_{FIT_EVAL}"))
+        assert_state_equal(to_host(fresh.state.state_dict()), snapshot)
+        n_tensors = len(snapshot["model"]) + sum(len(v) for v in
+                                                 snapshot["optimizer"]["state"].values())
+        del snapshot
+        _, counts = counted(lambda: fresh.fit(max_steps=RESUME_TO))
+        assert counts == (2 * (RESUME_TO - FIT_EVAL + val_batches), 0), counts
+        launches += counts[0]
+        resumed = [v for s, v in read_history(run_dir)["train_loss"] if s == RESUME_TO]
+        assert resumed and math.isfinite(resumed[-1]), resumed
+        log(f"[trainer] resume(step_{FIT_EVAL}): step, {n_tensors} model and AdamW tensors, "
+            f"norm and generator state equal to the step-{FIT_EVAL} snapshot bit for bit; "
+            f"fit to step {RESUME_TO}: train_loss {resumed[-1]:.5f}; K1 {counts[0]}, "
+            f"K2 {counts[1]}")
+        del fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        (predictions, results, _), counts = counted(
+            lambda: evaluate_run(run_dir, "best", datasets=fit_datasets()))
+        assert counts == (2 * val_batches, 0), counts
+        launches += counts[0]
+        for key in ("event_auc", "prong_auc"):
+            assert math.isfinite(results[key]), (key, results[key])
+        for key in ("event_probabilities", "prong_probabilities"):
+            assert np.isfinite(predictions[key]).all(), key
+            np.testing.assert_allclose(predictions[key].sum(-1), 1.0, atol=1e-3)
+        assert predictions["event_probabilities"].shape == (FIT_VAL_EVENTS, 4)
+        log(f"[trainer] evaluate_run(best) over {FIT_VAL_EVENTS} events: event AUC "
+            f"{results['event_auc']:.4f}, prong AUC {results['prong_auc']:.4f}; K1 "
+            f"{counts[0]}, K2 {counts[1]}")
+        return launches
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this smoke "
                  "test needs an NVIDIA GPU")
-    device_and_build()
+    smi = device_and_build()
     k1 = check_k1()
     dense_model, dense_counts = check_serving("dense")
     conv0 = dense_model.prong_embedding.event_pixel_embedding.features.conv0
@@ -620,10 +820,15 @@ def main():
     _, coo_counts = check_serving("coo")
     train_launches = check_training()
     check_paths(dense_model)
+    del dense_model, conv0
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer_launches = check_trainer(smi)
     kernels = []
     for (err, ms, plain_ms, lib_ms, bound_ms), name, source, replaces, launches in (
             (k1, "densify", "dune_transformercvn_torch/csrc/densify.cu",
-             "dune_transformercvn_tpu/ops/pallas_densify.py:61", int(dense_counts[0])),
+             "dune_transformercvn_tpu/ops/pallas_densify.py:61",
+             int(dense_counts[0]) + trainer_launches),
             (k2, "coo_stem_scatter", "dune_transformercvn_torch/csrc/coo_stem.cu",
              "dune_transformercvn_tpu/ops/pallas_coo_stem.py:146",
              int(coo_counts[1]) + train_launches)):

@@ -7,8 +7,10 @@ NVIDIA Hopper (``csrc/``, built with ``nvcc`` at first use by
 :mod:`.utils.build`).  Nothing here builds or loads CUDA at import time.
 
 The port stands alone: it imports nothing of the JAX package and keeps its
-own copies of the framework-free modules it needs (:mod:`.config`, and the
-``data`` package's schema, dataset and batcher).
+own copies of the framework-free modules it needs (:mod:`.config`, the
+``data`` package's schema, dataset and batcher, :mod:`.evaluation`,
+``utils.rundir`` and ``train.logging``).  Entry points:
+``python -m dune_transformercvn_torch.train`` and ``.evaluate``.
 """
 
 from .config import Options

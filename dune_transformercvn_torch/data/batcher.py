@@ -29,7 +29,7 @@ from __future__ import annotations
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -401,7 +401,7 @@ class Batcher:
 
     def prefetch_epoch(
         self, epoch: int = 0, depth: int = 2, num_workers: int = 1,
-        start_batch: int = 0,
+        start_batch: int = 0, transform: Optional[Callable] = None,
     ) -> Iterator[Dict[str, np.ndarray]]:
         """Epoch iterator with background prefetch.
 
@@ -410,9 +410,12 @@ class Batcher:
         the GIL) while preserving batch order; ``depth`` strictly bounds how
         many prepared batches may be in flight (it also caps the effective
         pool parallelism — raise both together for multi-core hosts).
+        ``transform`` is applied to each batch on the thread that built it
+        (e.g. copying it into pinned memory).
         """
         if num_workers > 1:
-            yield from self._pool_epoch(epoch, depth, num_workers, start_batch)
+            yield from self._pool_epoch(epoch, depth, num_workers, start_batch,
+                                        transform)
             return
 
         q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -432,6 +435,8 @@ class Batcher:
         def worker():
             try:
                 for item in self.epoch(epoch, start_batch):
+                    if transform is not None:
+                        item = transform(item)
                     if not put(item):
                         return  # consumer gone: drop the batch, exit cleanly
             except BaseException as e:  # propagate to consumer
@@ -476,7 +481,7 @@ class Batcher:
             _drain()
 
     def _pool_epoch(self, epoch: int, depth: int, num_workers: int,
-                    start_batch: int = 0):
+                    start_batch: int = 0, transform: Optional[Callable] = None):
         from concurrent.futures import ThreadPoolExecutor
 
         order = self.epoch_indices(epoch)
@@ -487,8 +492,10 @@ class Batcher:
 
         def build(start):
             if start < 0:
-                return self._tail_batch(order)
-            return self.build_batch(order[start:start + self.batch_size])
+                batch = self._tail_batch(order)
+            else:
+                batch = self.build_batch(order[start:start + self.batch_size])
+            return batch if transform is None else transform(batch)
 
         window = max(depth, 1)  # depth strictly bounds in-flight batches
         with ThreadPoolExecutor(max_workers=num_workers) as pool:

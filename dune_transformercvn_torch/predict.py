@@ -7,7 +7,7 @@ device.  Batches come from the port's :class:`.data.Batcher`.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -15,9 +15,22 @@ import torch
 from .data import Batcher, split_current_targets
 
 
-def to_device(arrays: Mapping[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """numpy arrays (a batch, or the norm statistics) -> tensors on ``device``."""
-    return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in arrays.items()}
+def to_device(arrays: Mapping[str, np.ndarray], device,
+              non_blocking: bool = False) -> Dict[str, torch.Tensor]:
+    """numpy arrays or host tensors (a batch, or the norm statistics) ->
+    tensors on ``device``.  ``non_blocking`` copies from :func:`pinned`
+    tensors do not wait for the device."""
+    return {k: (v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))).to(
+        device, non_blocking=non_blocking) for k, v in arrays.items()}
+
+
+def pinned(arrays: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A batch's numpy arrays -> tensors in page-locked host memory, from
+    which ``to_device(..., non_blocking=True)`` queues the copy to the card
+    without synchronising the stream (a copy from pageable memory waits
+    for the work queued before it).  Needs CUDA."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+            for k, v in arrays.items()}
 
 
 def make_predict_step(model) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
@@ -49,6 +62,8 @@ def predict_split(
     device,
     coo_granularity: int = 8192,
     fixed_shape: bool = False,
+    prong_bucket_multipliers: Optional[Sequence[int]] = None,
+    fold_eval_bn: bool = False,
 ) -> Dict[str, np.ndarray]:
     """Batched inference over ``dataset`` (an ``EventDataset``, or anything
     with what ``Batcher.build_batch`` reads).
@@ -56,10 +71,18 @@ def predict_split(
     Returns event probabilities/targets for every event and prong
     probabilities/targets for every *real* prong, plus each prong's owning
     event index.  The last batch is wrap-padded by the batcher and trimmed.
+    ``prong_bucket_multipliers`` lays batches out as the ``Trainer``'s
+    batchers do.  ``fold_eval_bn`` (the options' eval-time
+    BatchNorm folding) is not ported and raises.
     """
+    if fold_eval_bn:
+        raise NotImplementedError(
+            "fold_eval_bn is not ported yet (ROADMAP.md §1 item 17, ops/fold.py); "
+            "turn the option off")
     batcher = Batcher(
         dataset,
         batch_size=batch_size,
+        prong_bucket_multipliers=prong_bucket_multipliers,
         coo_granularity=coo_granularity,
         drop_last=False,
         fixed_shape=fixed_shape,

@@ -2,8 +2,8 @@
 
 Port of ``compute_losses``, ``event_metric_view``, ``make_train_step`` and
 ``make_eval_step`` (``dune_transformercvn_tpu/train/step.py``) without the
-mesh: one device, one step per call.  The data-parallel step, several steps
-per dispatch, the loop, the CLI and checkpointing wait (ROADMAP.md).
+mesh: one device, one step per call (:class:`.loop.Trainer` drives them).
+The data-parallel step and several steps per dispatch wait (ROADMAP.md).
 
 * The loss is the weighted event/prong focal loss; padding rows (target
   ``-1``) drop out by weight.

@@ -1,1 +1,2 @@
-"""Utilities of the port: building the CUDA kernels (:mod:`.build`)."""
+"""Utilities of the port: building the CUDA kernels (:mod:`.build`), run
+directories (:mod:`.rundir`) and the parameter summary (:mod:`.summary`)."""

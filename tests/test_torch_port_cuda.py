@@ -11,18 +11,24 @@ layout, the column-tiled path for wide rows, region borders at production
 width, input checks, dispatch, and the tiny network on the card against the
 CPU; kernel K2 (the coo stem's scatter) against its plain version forward
 and backward, where tiles meet, its binning pass against the plain binning,
-its input checks, and the coo network on the card against the CPU.
+its input checks, and the coo network on the card against the CPU.  The
+Trainer lands on the card when no device is given, and a train state it
+checkpoints restores onto the card bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from dune_transformercvn_torch import Options
+from dune_transformercvn_torch.data import InMemoryEvents
 from dune_transformercvn_torch.models import ModelConfig, TransformerCVN
 from dune_transformercvn_torch.ops import coo_stem as k2
 from dune_transformercvn_torch.ops import densify as k1
 from dune_transformercvn_torch.ops.coo_conv import coo_stem_conv
 from dune_transformercvn_torch.ops.scatter import densify_images
+from dune_transformercvn_torch.train import Trainer
+from dune_transformercvn_torch.train.checkpoint import to_host
 
 pytestmark = pytest.mark.cuda
 
@@ -340,3 +346,57 @@ def test_tiny_coo_network_on_the_card_matches_the_cpu(cuda):
         assert k2.scatter_patches_cuda.launches == before + 2
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+def tiny_trainer(run_dir, seed):
+    """A Trainer with no device given, on 16 + 8 in-memory 48x40 events."""
+    options = Options()
+    options.update_options(dict(
+        densenet_structure=[1, 1], densenet_growth_rate=8, initial_pixel_dim=8,
+        pixel_embedding_dim=16, feature_embedding_dim=8, position_embedding_dim=8,
+        hidden_dim=32, num_encoder_layers=1, num_prong_decoder_layers=2,
+        num_attention_heads=4, dropout=0.1, pixel_noise_std=0.01, batch_size=4,
+        compute_dtype="float32", num_dataloader_workers=2, verbose_output=False, seed=seed))
+    datasets = (InMemoryEvents(16, 1, (48, 40)), InMemoryEvents(8, 2, (48, 40)), None)
+    return Trainer(options, run_dir=run_dir, debug=run_dir is None, datasets=datasets)
+
+
+def test_trainer_state_restores_onto_the_card_bit_equal(cuda, tmp_path):
+    trainer = tiny_trainer(str(tmp_path), seed=0)
+    assert trainer.device == cuda and next(trainer.state.model.parameters()).is_cuda
+    before = k1.densify_images_cuda.launches
+    trainer.fit(max_steps=2, eval_interval=100)           # checkpoints step_2
+    assert k1.densify_images_cuda.launches == before + 2 * (2 + 2)
+    want = to_host(trainer.state.state_dict())
+    other = tiny_trainer(None, seed=3)
+    other.resume(str(tmp_path / "checkpoints" / "step_2"))
+    state = other.state
+    assert next(state.model.parameters()).is_cuda
+    assert all(v.is_cuda for v in state.norm.values())
+    slots = [state.optimizer.state[p] for p in state.model.parameters()]
+    assert all(s["exp_avg"].is_cuda and not s["step"].is_cuda for s in slots)
+    got = to_host(state.state_dict())
+    assert got["step"] == want["step"] == 2
+    for name, tensor in want["model"].items():
+        assert torch.equal(got["model"][name], tensor), name
+    for index, slot in want["optimizer"]["state"].items():
+        for key, tensor in slot.items():
+            assert torch.equal(got["optimizer"]["state"][index][key], tensor), (index, key)
+    for key, tensor in want["norm"].items():
+        assert torch.equal(got["norm"][key], tensor), key
+    assert torch.equal(got["generator"], want["generator"])
+
+
+def test_trainer_batches_come_from_pinned_memory(cuda):
+    """The Trainer's host batches are pinned on the batcher's threads, so the
+    copy one step ahead does not wait for the stream."""
+    trainer = tiny_trainer(None, seed=0)
+    want = list(trainer.train_batcher.epoch(0))
+    host = list(trainer._host_batches(trainer.train_batcher, 0))
+    assert len(host) == len(want) == 4
+    assert all(v.is_pinned() for batch in host for v in batch.values())
+    for got, ref in zip(trainer._device_prefetch(iter(host)), want):
+        assert got.keys() == ref.keys()
+        for key, tensor in got.items():
+            assert tensor.is_cuda
+            np.testing.assert_array_equal(tensor.cpu().numpy(), ref[key])

@@ -68,6 +68,24 @@ def test_batches_of_in_memory_events_are_the_same(fixed_shape):
                          theirs.build_batch(np.array([3, 1, 4, 1, 5, 9, 2, 6])))
 
 
+@pytest.mark.parametrize("num_workers", [1, 3])
+def test_prefetch_applies_the_transform_to_every_batch_in_order(num_workers):
+    """The prefetching batcher's per-batch ``transform`` (the Trainer pins
+    batches with it) runs on every batch, the tail and a mid-epoch start
+    included, and keeps the JAX batcher's order."""
+    ds = InMemoryEvents(30, 5, image_shape=(48, 40))
+    kw = dict(batch_size=8, coo_granularity=256, shuffle=True, drop_last=False)
+    ours, theirs = Batcher(ds, **kw), JaxBatcher(ds, **kw)
+    tagged = list(ours.prefetch_epoch(
+        2, depth=2, num_workers=num_workers, start_batch=1,
+        transform=lambda batch: dict(batch, tag=np.ones(1))))
+    want = list(theirs.epoch(2, start_batch=1))
+    assert len(tagged) == len(want) == 3
+    for got, ref in zip(tagged, want):
+        assert got.pop("tag")[0] == 1
+        assert_batches_equal(got, ref)
+
+
 @pytest.mark.parametrize("load_full_dataset", [False, True])
 def test_hdf5_dataset_batches_and_statistics_are_the_same(synthetic_file, load_full_dataset):
     kw = dict(limit_index=(0.1, 0.6), event_current_targets=True,
