@@ -52,8 +52,24 @@ Phases, each of which raises on failure:
    of the best checkpoint with finite AUCs and K1 twice a batch; the median
    events/s the Trainer logged over windows with no validation, beside the
    same Trainer's step timed bare in the same process; the time of a
-   synchronous checkpoint save of the full state.
-9. A JSON line of every ported kernel, then, as the last line,
+   synchronous checkpoint save of the full state.  Then the memory options:
+   the dense b16 train step's ms/step and peak memory with ``remat_cnn``
+   and with ``remat_embedder`` beside the plain step's (reported only).
+9. Data-parallel training: 2 ranks of a process group, over ``nccl`` on
+   2 cards when there are 2, else over ``gloo`` with CUDA tensors on the
+   one card (the line says which); the production option file (``num_gpu``
+   4, clamped to the world of 2), dense, bfloat16, batch 8 a rank (16 a
+   step), sync-BN; ``fit(max_steps=6)`` with one validation over 64
+   events, then ``predict_split`` of those events; the ranks' parameters
+   and BatchNorm statistics equal bit for bit, their predictions equal with
+   one row per event in order, finite losses, K1 twice a step, a
+   validation batch and a predicted batch on each rank; ms/step (the step
+   timed bare, with sync-BN and again with it off) and peak memory per
+   rank.  Then a world of one over ``nccl`` against no process group: the
+   Trainer's states after 3 steps equal bit for bit.
+   ``check_data_parallel(smi, ranks, batch)`` runs other worlds (e.g. the
+   option file's 4 devices at batch 16 on a machine with 4 cards).
+10. A JSON line of every ported kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -62,7 +78,9 @@ Exits non-zero, printing no result, when CUDA is unavailable.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import gc
+import hashlib
 import json
 import math
 import os
@@ -82,6 +100,7 @@ from dune_transformercvn_torch.data import Batcher, InMemoryEvents
 from dune_transformercvn_torch.models import TransformerCVN
 from dune_transformercvn_torch.models.densenet import densenet_post_stem
 from dune_transformercvn_torch.ops import coo_stem
+from dune_transformercvn_torch.ops.masked import sync_batch_norm
 from dune_transformercvn_torch.ops.coo_conv import coo_stem_conv_plain
 from dune_transformercvn_torch.ops.densify import (
     densify_images_cuda, densify_images_plain)
@@ -136,6 +155,14 @@ FIT_STEPS, FIT_EVAL, FIT_LOG, RESUME_TO = 24, 12, 4, 16
 # The same Trainer's step timed bare (batches already on the card, no loop
 # around it), and the synchronous checkpoint saves timed at this width.
 BARE_WARMUP, BARE_STEPS, SAVES = 2, 12, 3
+# The memory options' readings: warm-up and timed steps of each variant.
+REMAT_WARMUP, REMAT_STEPS = 2, 5
+# Data-parallel training: ranks, batch a rank, training and validation
+# events, steps (one validation, at the last), the bare steps timed after,
+# and the world-of-one comparison's steps.
+DP_RANKS, DP_BATCH, DP_EVENTS, DP_VAL_EVENTS, DP_STEPS = 2, 8, 512, 64, 6
+DP_BARE_WARMUP, DP_BARE_STEPS, ONE_RANK_STEPS = 1, 4, 3
+DP_TIMEOUT_S = 400
 
 
 def log(msg: str = ""):
@@ -676,19 +703,19 @@ def counted(fn):
     return result, read_counts()
 
 
-def bare_step_ms(trainer):
+def bare_step_ms(trainer, warmup=BARE_WARMUP, steps=BARE_STEPS):
     """Wall ms per step of ``trainer.train_step`` back to back over batches
     already on the card: the step the loop wraps, with no loop around it."""
     host = trainer.train_batcher.epoch(1)
-    batches = [to_device(next(host), trainer.device) for _ in range(BARE_WARMUP + BARE_STEPS)]
-    for batch in batches[:BARE_WARMUP]:
+    batches = [to_device(next(host), trainer.device) for _ in range(warmup + steps)]
+    for batch in batches[:warmup]:
         trainer.train_step(trainer.state, batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for batch in batches[BARE_WARMUP:]:
+    for batch in batches[warmup:]:
         trainer.train_step(trainer.state, batch)
     torch.cuda.synchronize()
-    return 1e3 * (time.perf_counter() - t0) / BARE_STEPS
+    return 1e3 * (time.perf_counter() - t0) / steps
 
 
 def checkpoint_save_s(trainer, directory):
@@ -808,6 +835,203 @@ def check_trainer(smi):
         shutil.rmtree(run_dir, ignore_errors=True)
 
 
+def remat_readings(smi):
+    """The dense b16 train step plain, with ``remat_cnn`` and with
+    ``remat_embedder``: ms/step and peak memory, reported only."""
+    options = fit_options()
+    ds = InMemoryEvents(TRAIN_BATCH * (REMAT_WARMUP + REMAT_STEPS), SEED + 7)
+    batches = [to_device(b, "cuda") for b in Batcher(ds, batch_size=TRAIN_BATCH).epoch(0)]
+    readings = []
+    for flags in ({}, {"remat_cnn": True}, {"remat_embedder": True}):
+        cfg = dataclasses.replace(production_config("bfloat16"), **flags)
+        model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED)).cuda()
+        state = create_train_state(model, options, ds.norm(), len(batches), seed=SEED)
+        step = make_train_step(model, options)
+        for batch in batches[:REMAT_WARMUP]:
+            step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for batch in batches[REMAT_WARMUP:]:
+            metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / REMAT_STEPS
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        assert math.isfinite(float(metrics["train_loss"]))
+        name = "+".join(flags) or "plain"
+        readings.append((name, ms, peak))
+        del model, state, step, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("[remat] dense b16 train step, " + "; ".join(
+        f"{name} {ms:.2f} ms/step, peak {peak:.2f} GiB" for name, ms, peak in readings)
+        + f" ({REMAT_STEPS} steps after {REMAT_WARMUP}; {smi})")
+
+
+# ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+
+def state_digest(model):
+    """sha256 of every parameter and buffer's bytes, in ``state_dict`` order."""
+    digest = hashlib.sha256()
+    for name, tensor in model.state_dict().items():
+        digest.update(name.encode())
+        digest.update(tensor.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return digest.hexdigest()
+
+
+def data_parallel_rank(rank, ranks, batch, backend, rendezvous, log_dir, out_path):
+    """One rank of phase 9 (a process of its own): trains, validates and
+    predicts as the data-parallel Trainer does, times its step with sync-BN
+    and without, and writes what the parent checks to ``out_path``."""
+    import torch.distributed as dist
+
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{rendezvous}",
+                            world_size=ranks, rank=rank,
+                            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    dist.all_reduce(torch.zeros(1, device=device))   # the ranks meet once, in step
+    try:
+        options = fit_options()
+        options.batch_size = batch
+        trainer = Trainer(options, log_dir=log_dir, name="dp", log_every_n_steps=1,
+                          device=device, verbose=False,
+                          datasets=(InMemoryEvents(DP_EVENTS, SEED + 8),
+                                    InMemoryEvents(DP_VAL_EVENTS, SEED + 9), None))
+        assert trainer.num_shards == ranks and trainer.global_batch == ranks * batch
+        torch.cuda.reset_peak_memory_stats(device)
+        result, fit_counts = counted(lambda: trainer.fit(max_steps=DP_STEPS,
+                                                         eval_interval=DP_STEPS))
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        digest = state_digest(trainer.state.model)
+        predictions, predict_counts = counted(lambda: trainer.predict_split("validation"))
+        losses = ([v for _, v in read_history(trainer.run_dir)["train_loss"]]
+                  if trainer.run_dir else [])
+        bare_ms = bare_step_ms(trainer, DP_BARE_WARMUP, DP_BARE_STEPS)
+        # the same step with sync-BN off: the running statistics averaged
+        # in the step's one all-reduce instead of one all-reduce a layer
+        options.sync_batch_norm = False
+        trainer.train_step = make_train_step(sync_batch_norm(trainer.state.model, None),
+                                             options)
+        unsynced_ms = bare_step_ms(trainer, DP_BARE_WARMUP, DP_BARE_STEPS)
+        ev = predictions["event_probabilities"]
+        out = dict(
+            rank=rank, device=str(device), run_dir=trainer.run_dir, state=digest,
+            predictions=hashlib.sha256(ev.tobytes() + predictions[
+                "prong_probabilities"].tobytes()).hexdigest(),
+            rows=ev.shape[0], finite=bool(np.isfinite(ev).all()),
+            targets_in_order=bool(np.array_equal(
+                predictions["event_targets"], trainer.validation_dataset.event_targets)),
+            fit_counts=fit_counts, predict_counts=predict_counts, losses=losses,
+            val_loss=result["val_loss"], val_auc=result["val_epoch_AUC"],
+            ms_per_step=bare_ms, unsynced_ms_per_step=unsynced_ms, peak_gib=peak)
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def check_data_parallel(smi, ranks=DP_RANKS, batch=DP_BATCH):
+    """Phase 9: ``ranks`` processes of ``batch`` events a step; returns K1's
+    launches over the ranks."""
+    backend = "nccl" if torch.cuda.device_count() >= ranks else "gloo"
+    where = (f"nccl, one card each ({torch.cuda.device_count()} cards)" if backend == "nccl"
+             else "gloo with CUDA tensors, every rank on the one card")
+    log(f"[dp] {ranks} ranks over {where}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        outs = [os.path.join(work, f"rank{r}.json") for r in range(ranks)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.data_parallel_rank("
+             "*map(int, sys.argv[1:4]), *sys.argv[4:])",
+             str(r), str(ranks), str(batch), backend, os.path.join(work, "rendezvous"),
+             work, outs[r]],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "LOCAL_RANK": str(r)}) for r in range(ranks)]
+        t0 = time.perf_counter()
+        try:
+            texts = [p.communicate(timeout=DP_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        seconds = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, texts)):
+            if p.returncode != 0:
+                raise RuntimeError(f"data-parallel rank {r} exited {p.returncode}:\n"
+                                   + text[-6000:])
+        results = []
+        for path in outs:
+            with open(path) as f:
+                results.append(json.load(f))
+        val_batches = math.ceil(DP_VAL_EVENTS / (ranks * batch))
+        for r in results:
+            assert r["fit_counts"] == [2 * (DP_STEPS + val_batches), 0], r["fit_counts"]
+            assert r["predict_counts"] == [2 * val_batches, 0], r["predict_counts"]
+            assert r["rows"] == DP_VAL_EVENTS and r["finite"] and r["targets_in_order"], r
+            assert math.isfinite(r["val_loss"]) and math.isfinite(r["val_auc"]), r
+        assert len({r["state"] for r in results}) == 1, "the ranks' states differ"
+        assert len({r["predictions"] for r in results}) == 1, "the ranks' predictions differ"
+        assert results[0]["run_dir"] and not any(r["run_dir"] for r in results[1:])
+        losses = results[0]["losses"]
+        assert len(losses) == DP_STEPS and all(math.isfinite(v) for v in losses), losses
+        log(f"[dp] {ranks} ranks x batch {batch} ({backend}): fit {DP_STEPS} steps + 1 "
+            f"validation of {val_batches} batches, predict_split of {DP_VAL_EVENTS} events, "
+            f"in {seconds:.1f} s of the processes' life; states equal bit for bit, "
+            f"predictions equal ({DP_VAL_EVENTS} rows in order); train_loss "
+            f"{[round(v, 5) for v in losses]}, val_loss {results[0]['val_loss']:.5f}; K1 per "
+            f"rank {results[0]['fit_counts'][0]} fit + {results[0]['predict_counts'][0]} predict, "
+            f"K2 0")
+        for r in results:
+            log(f"[dp] rank {r['rank']} on {r['device']}: {r['ms_per_step']:.2f} ms/step, "
+                f"{r['unsynced_ms_per_step']:.2f} with sync-BN off ({DP_BARE_STEPS} steps "
+                f"bare after {DP_BARE_WARMUP}); {batch * ranks / r['ms_per_step'] * 1e3:.2f} "
+                f"events/s over the ranks; peak memory {r['peak_gib']:.2f} GiB ({smi})")
+        return sum(r["fit_counts"][0] + r["predict_counts"][0] for r in results)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def check_world_of_one():
+    """The Trainer in a world of one over ``nccl`` against the Trainer with
+    no process group: the states after the same steps equal bit for bit
+    (cuDNN set to deterministic algorithms for both runs)."""
+    import torch.distributed as dist
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_one_")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        digests = []
+        for grouped in (False, True):
+            if grouped:
+                dist.init_process_group("nccl", init_method=f"file://{work}/rendezvous",
+                                        world_size=1, rank=0)
+            try:
+                trainer = Trainer(fit_options(), debug=True, verbose=False,
+                                  datasets=fit_datasets())
+                assert trainer.num_shards == 1
+                trainer.fit(max_steps=ONE_RANK_STEPS, eval_interval=ONE_RANK_STEPS)
+                digests.append(state_digest(trainer.state.model))
+                del trainer
+                gc.collect()
+                torch.cuda.empty_cache()
+            finally:
+                if grouped:
+                    dist.destroy_process_group()
+        assert digests[0] == digests[1], "a world of one over nccl changed the Trainer's state"
+        log(f"[dp] world of one over nccl: state after {ONE_RANK_STEPS} steps equal bit for "
+            f"bit to the Trainer's with no process group")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -824,6 +1048,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     trainer_launches = check_trainer(smi)
+    remat_readings(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer_launches += check_data_parallel(smi)
+    check_world_of_one()
     kernels = []
     for (err, ms, plain_ms, lib_ms, bound_ms), name, source, replaces, launches in (
             (k1, "densify", "dune_transformercvn_torch/csrc/densify.cu",

@@ -4,7 +4,9 @@ Port of ``dune_transformercvn_tpu/models/densenet.py``: 7x7/2 stem conv with
 bias, BN, PReLU, 3x3/2 average pool; bottleneck dense blocks (1x1 expand to
 ``batch_norm_size * growth``, 3x3 to ``growth``, channel concat); 1x1 conv +
 2x2/2 average-pool transitions; final BN and PReLU; global mean; and a
-bias-free Linear, BN, PReLU output block.
+bias-free Linear, BN, PReLU output block.  With ``remat`` (the options'
+``remat_cnn``) each bottleneck keeps only its input for the backward and
+recomputes the rest (:func:`..ops.masked.remat`).
 
 Activations stay NHWC (channels last), as in JAX: BN, PReLU and the concat
 work on the last axis, and convolutions and pools see an NCHW view of the
@@ -22,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.masked import MaskedBatchNorm, PReLU
+from ..ops.masked import MaskedBatchNorm, PReLU, remat
 from .blocks import dense
 
 
@@ -157,10 +159,12 @@ class DenseNet(nn.Module):
         dropout: float = 0.0,
         stem_space_to_depth: bool = False,
         transition_pool_first: bool = False,
+        remat: bool = False,
         compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.remat = remat
         if stem_space_to_depth:
             conv0 = SpaceToDepthStem(in_channels, initial_features, compute_dtype)
         else:
@@ -211,7 +215,7 @@ def densenet_post_stem(net: DenseNet, x, mask=None):
     i = 1
     while f"dense{i}" in f:
         for layer in f[f"dense{i}"].layers:
-            x = layer(x, mask)
+            x = remat(layer, x, mask) if net.remat else layer(x, mask)
         if f"transition{i}" in f:
             x = f[f"transition{i}"](x, mask)
         i += 1

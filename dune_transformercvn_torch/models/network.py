@@ -24,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..ops.masked import remat
 from ..ops.scatter import densify_images, pack_rows, pad_rows
 from .blocks import FeatureEmbedding, LinearBlock, make_divisible
 from .coo_densenet import CooStemDenseNet
@@ -81,6 +82,9 @@ class ModelConfig:
     transition_pool_first: bool = False
     # reference quirk: prongs reuse the *event* position embedding unless set
     fix_prong_position_embedding: bool = False
+    # recompute in the backward: each DenseNet bottleneck, each whole embedder
+    remat_cnn: bool = False
+    remat_embedder: bool = False
 
     @classmethod
     def from_options(
@@ -95,6 +99,15 @@ class ModelConfig:
         embedder: str = "dense",
     ) -> "ModelConfig":
         split = bool(getattr(options, "split_event_targets", False))
+        chunk = int(getattr(options, "embedder_chunk", 0) or 0)
+        if chunk and embedder != "sdxl":
+            raise ValueError(
+                "embedder_chunk is only valid with the sdxl embedder: its "
+                "GroupNorm is per-sample so chunked == full-bank exactly; "
+                "the BatchNorm families compute bank-wide statistics "
+                f"(got embedder={embedder!r}); the port has no sdxl family "
+                "yet (ROADMAP.md §1 item 14)"
+            )
         if split and (
             getattr(options, "event_current_targets", False)
             or num_event_classes > 10
@@ -141,6 +154,8 @@ class ModelConfig:
             compute_dtype=options.compute_dtype,
             stem_space_to_depth=bool(getattr(options, "stem_space_to_depth", False)),
             transition_pool_first=bool(getattr(options, "transition_pool_first", False)),
+            remat_cnn=bool(options.remat_cnn),
+            remat_embedder=bool(getattr(options, "remat_embedder", False)),
         )
 
     @property
@@ -168,6 +183,7 @@ class ProngEmbedding(nn.Module):
             block_config=cfg.densenet_structure,
             dropout=cfg.dropout,
             transition_pool_first=cfg.transition_pool_first,
+            remat=cfg.remat_cnn,
             compute_dtype=dt,
         )
         if cfg.embedder == "coo":
@@ -315,8 +331,11 @@ class TransformerCVN(nn.Module):
         slot_mask = slot_mask.bool()
         prong_mask = prong_mask.bool()
 
-        event_pixel_emb = pe.event_pixel_embedding(event_images, None)
-        prong_pixel_emb = pe.prong_pixel_embedding(prong_images, slot_mask)
+        # remat_embedder: only each embedder's inputs and output are kept
+        # for the backward, which recomputes the CNN
+        embed = remat if cfg.remat_embedder else nn.Module.__call__
+        event_pixel_emb = embed(pe.event_pixel_embedding, event_images, None)
+        prong_pixel_emb = embed(pe.prong_pixel_embedding, prong_images, slot_mask)
 
         packed_features = pack_rows(features, slot_batch, slot_pos)
         packed_features = (packed_features - norm["mean"]) / norm["std"]

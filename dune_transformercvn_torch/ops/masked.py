@@ -7,16 +7,33 @@ packed real rows.  Tensors are channels-last: the channel axis is the last one.
 
 Parameter and buffer names follow torch's ``BatchNorm``/``PReLU`` (``weight``,
 ``bias``, ``running_mean``, ``running_var``) so the reference ``state_dict``
-loads as it is.  Cross-replica sync-BN is not ported yet.
+loads as it is.
+
+* **Cross-process sync-BN.**  :func:`sync_batch_norm` gives every
+  :class:`MaskedBatchNorm` of a model a ``torch.distributed`` process group
+  (the counterpart of the JAX package's ``axis_name``).  In training each
+  layer then sums its packed float32 ``[total (C), total_sq (C), count]``
+  over the group with one all-reduce, before the mean, the variance and the
+  running-statistic update, so every rank normalises with the statistics of
+  the global batch.  The all-reduce is autograd-aware: its backward sums the
+  cotangent over the group, as ``lax.psum``'s transpose does.
+* **Recompute.**  :func:`remat` runs a module under non-reentrant
+  ``torch.utils.checkpoint`` (JAX's ``nn.remat``).  The backward re-runs it
+  with the random state of the first run, and the BatchNorms inside leave
+  their running statistics alone during that re-run: JAX's functional remat
+  updates them once.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from contextlib import contextmanager, nullcontext
+from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 class PReLU(nn.Module):
@@ -50,6 +67,11 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        # the group the statistics are summed over (None: this process's
+        # batch alone); set by sync_batch_norm
+        self.process_group = None
+        # > 0 while remat re-runs this layer: the running statistics stay
+        self.frozen_stats = 0
 
     def forward(
         self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -79,10 +101,20 @@ class MaskedBatchNorm(nn.Module):
             total = (xf * w).sum(dims)
             total_sq = (xf.square() * w).sum(dims)
 
+        if self.process_group is not None:
+            # one all-reduce per layer instead of three small ones
+            channels = total.shape[0]
+            packed = all_reduce_sum(torch.cat([total, total_sq, count.reshape(1)]),
+                                    self.process_group)
+            total, total_sq = packed[:channels], packed[channels:2 * channels]
+            count = packed[-1]
+
         raw_count = count
         count = count.clamp(min=1.0)
         mean = total / count
         var = (total_sq / count - mean.square()).clamp(min=0.0)
+        if self.frozen_stats:
+            return mean, var
 
         with torch.no_grad():
             m = self.momentum * (raw_count > 0).float()
@@ -90,3 +122,62 @@ class MaskedBatchNorm(nn.Module):
             self.running_mean.mul_(1 - m).add_(m * mean)
             self.running_var.mul_(1 - m).add_(m * unbiased)
         return mean, var
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a process group; the backward sums the cotangent over it."""
+
+    @staticmethod
+    def forward(ctx, tensor, group):
+        ctx.group = group
+        out = tensor.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def all_reduce_sum(tensor: torch.Tensor, group) -> torch.Tensor:
+    """``tensor`` summed over ``group``, differentiably: every rank's
+    gradient of its input is the sum of all ranks' gradients of the output
+    (a plain in-place ``all_reduce`` would leave each rank its own)."""
+    return _AllReduceSum.apply(tensor, group)
+
+
+def sync_batch_norm(model: nn.Module, group) -> nn.Module:
+    """Sum the training statistics of every :class:`MaskedBatchNorm` of
+    ``model`` over the process group ``group`` (``None`` turns it off), in
+    the manner of ``nn.SyncBatchNorm.convert_sync_batchnorm`` but in place:
+    no module or ``state_dict`` name changes.  Returns ``model``."""
+    for module in model.modules():
+        if isinstance(module, MaskedBatchNorm):
+            module.process_group = group
+    return model
+
+
+@contextmanager
+def _frozen(norms: Sequence[MaskedBatchNorm]):
+    for norm in norms:
+        norm.frozen_stats += 1
+    try:
+        yield
+    finally:
+        for norm in norms:
+            norm.frozen_stats -= 1
+
+
+def remat(module: nn.Module, *args):
+    """``module(*args)``, keeping only its inputs for the backward, which
+    recomputes the rest (non-reentrant ``torch.utils.checkpoint``).  The
+    recompute draws the dropout of the first run and leaves the running
+    statistics of the module's BatchNorms as the first run left them.
+    Without autograd it is a plain call."""
+    if not torch.is_grad_enabled():
+        return module(*args)
+    norms = [m for m in module.modules() if isinstance(m, MaskedBatchNorm)]
+    return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=True,
+                      context_fn=lambda: (nullcontext(), _frozen(norms)))

@@ -1,8 +1,11 @@
 """Batched inference: the serving path.
 
 Port of ``make_predict_step`` (``dune_transformercvn_tpu/train/step.py``) and
-``Trainer.predict_split`` (``dune_transformercvn_tpu/train/loop.py``) for one
-device.  Batches come from the port's :class:`.data.Batcher`.
+``Trainer.predict_split`` (``dune_transformercvn_tpu/train/loop.py``).
+:func:`predict_split` serves on one device, or on every rank of a
+data-parallel process group, each rank assembling and predicting its shard
+of every batch and the ranks' rows gathered in rank order.  Batches come
+from the port's :class:`.data.Batcher`.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import numpy as np
 import torch
 
 from .data import Batcher, split_current_targets
+from .parallel import all_gather_rows, local_shard_ids, world
 
 
 def to_device(arrays: Mapping[str, np.ndarray], device,
@@ -74,18 +78,28 @@ def predict_split(
     ``prong_bucket_multipliers`` lays batches out as the ``Trainer``'s
     batchers do.  ``fold_eval_bn`` (the options' eval-time
     BatchNorm folding) is not ported and raises.
+
+    In a process group of more than one rank (:func:`.parallel.world`,
+    read here as the train step reads it) every rank calls it: each global
+    batch of ``batch_size`` events is laid out in one shard per rank, this
+    rank assembles and predicts only its own shard, and the probabilities
+    and targets of all ranks are gathered in rank order, so every rank
+    returns the whole split.
     """
     if fold_eval_bn:
         raise NotImplementedError(
             "fold_eval_bn is not ported yet (ROADMAP.md §1 item 17, ops/fold.py); "
             "turn the option off")
+    size, _ = world()
     batcher = Batcher(
         dataset,
         batch_size=batch_size,
         prong_bucket_multipliers=prong_bucket_multipliers,
         coo_granularity=coo_granularity,
+        num_shards=size,
         drop_last=False,
         fixed_shape=fixed_shape,
+        local_shards=local_shard_ids() if size > 1 else None,
     )
     step = make_predict_step(model)
     norm_t = to_device(norm, device)
@@ -93,18 +107,24 @@ def predict_split(
     pr_probs, pr_targets, pr_event = [], [], []
     seen = 0
     for batch in batcher.prefetch_epoch(0):
-        probs_e, probs_p = step(to_device(batch, device), norm_t)
-        probs_e, probs_p = probs_e.cpu().numpy(), probs_p.cpu().numpy()
+        probs = step(to_device(batch, device), norm_t)
+        if size == 1:
+            probs_e, probs_p = (p.cpu().numpy() for p in probs)
+            event_targets, prong_targets = batch["event_targets"], batch["prong_targets"]
+        else:  # this rank's rows -> the global batch's, in rank order
+            probs_e, probs_p, event_targets, prong_targets = all_gather_rows([
+                *probs, torch.from_numpy(batch["event_targets"]),
+                torch.from_numpy(batch["prong_targets"])])
         take = min(batch_size, len(dataset) - seen)
-        mask = batch["prong_targets"][:take] >= 0
+        mask = prong_targets[:take] >= 0
         ev_probs.append(probs_e[:take])
-        targets = batch["event_targets"][:take]
+        targets = event_targets[:take]
         if model.cfg.num_generation_classes:
             # scores are the 4-way current head; remap targets to match
             targets = split_current_targets(targets)
         ev_targets.append(targets)
         pr_probs.append(probs_p[:take][mask])
-        pr_targets.append(batch["prong_targets"][:take][mask])
+        pr_targets.append(prong_targets[:take][mask])
         pr_event.append(np.nonzero(mask)[0] + seen)
         seen += take
 

@@ -1,7 +1,7 @@
-"""Training of the port on one device: losses in :mod:`..ops.losses`,
-schedules, AdamW, the train state, metrics, the train/eval steps,
-checkpoints, metric logging and the :class:`Trainer` loop
-(``python -m dune_transformercvn_torch.train`` is its CLI)."""
+"""Training of the port, on one device or data-parallel over processes:
+losses in :mod:`..ops.losses`, schedules, AdamW, the train state, metrics,
+the train/eval steps, checkpoints, metric logging and the :class:`Trainer`
+loop (``python -m dune_transformercvn_torch.train`` is its CLI)."""
 
 from .checkpoint import CheckpointManager, restore_from_path
 from .loop import Trainer

@@ -7,10 +7,17 @@
 Where a flag names something of XLA, the port does its eager counterpart:
 ``--debug_nans`` turns on autograd's anomaly detection, ``--profile``
 writes a ``torch.profiler`` trace of steps 11-15, ``--threads`` sets
-torch's CPU threads, ``--gpus N`` (N > 1) runs on one device with a note.
-``-g`` and ``--log_compiles`` have no counterpart in the eager port and
-exit with a message.  ``--device`` (default ``cuda``) is the port's own.
-The HDF5 files are read with ``h5py``.
+torch's CPU threads.  ``-g`` and ``--log_compiles`` have no counterpart in
+the eager port and exit with a message.  ``--device`` (default ``cuda``) is
+the port's own.  The HDF5 files are read with ``h5py``.
+
+Data-parallel training runs one process per device under ``torchrun``,
+whose variables (``RANK``, ``WORLD_SIZE``, ...) make the CLI join a process
+group (``nccl`` on the card, ``gloo`` with ``--device cpu``) and leave it at
+exit; ``num_gpu`` (``--gpus``) is clamped to the world size::
+
+    torchrun --nproc_per_node 2 -m dune_transformercvn_torch.train -o <options.json> \
+        -n <name> --gpus 2 --device cpu
 """
 
 from __future__ import annotations
@@ -57,6 +64,9 @@ def main(
     import torch
 
     from ..config import Options
+    from ..parallel import world
+
+    master = world()[1] == 0
 
     if sparse:
         embedder_name = "sparse"
@@ -110,7 +120,8 @@ def main(
         # produced a NaN
         torch.autograd.set_detect_anomaly(True)
 
-    options.display()
+    if master:
+        options.display()
 
     from .loop import Trainer
 
@@ -139,7 +150,7 @@ def main(
     elif auto_resume and run_dir is not None:
         trainer.resume()
 
-    if trainer.run_dir is not None:
+    if trainer.run_dir is not None and master:
         print(f"Run directory: {trainer.run_dir}")
 
     trainer.fit(max_steps=max_steps, profile=profile)
@@ -170,7 +181,7 @@ def parser() -> ArgumentParser:
     p.add_argument("-e", "--eval", type=int, default=None,
                    help="Number of steps between validations.")
     p.add_argument("--gpus", type=int, default=None,
-                   help="Override device count (the port trains on one).")
+                   help="Override device count (num_gpu; one process each).")
     p.add_argument("--threads", type=int, default=None,
                    help="torch.set_num_threads for host CPU work.")
     p.add_argument("-d", "--debug", action="store_true",
@@ -205,4 +216,14 @@ def parser() -> ArgumentParser:
 
 
 if __name__ == "__main__":
-    main(**vars(parser().parse_args()))
+    from ..parallel import init_from_env
+
+    args = parser().parse_args()
+    grouped = init_from_env(args.device)
+    try:
+        main(**vars(args))
+    finally:
+        if grouped:
+            import torch.distributed
+
+            torch.distributed.destroy_process_group()

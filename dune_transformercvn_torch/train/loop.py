@@ -1,5 +1,6 @@
-"""The training orchestrator on one device: the port of
-``dune_transformercvn_tpu/train/loop.py::Trainer`` without the mesh.
+"""The training orchestrator: the port of
+``dune_transformercvn_tpu/train/loop.py::Trainer``, on one device or
+data-parallel over the processes of a ``torch.distributed`` group.
 
 Covers dataset creation and statistic sharing (neutrino_base.py:20-49),
 per-step LR scheduling, periodic validation with streaming metrics,
@@ -7,10 +8,12 @@ TensorBoard/JSONL logging with the reference tag names, top-k checkpointing
 keyed on ``val_epoch_AUC`` and resume, and run-dir versioning with the
 resolved ``options.json`` dumped beside the logs (train.py:145-149).
 
-One device per process: ``options.num_gpu > 1`` and ``model_parallel > 1``
-run on one device with the notes the JAX package's ``create_mesh`` prints
-when it clamps.  Data-parallel training waits for a later slice (ROADMAP.md
-§1 item 11).
+Data parallelism (:mod:`..parallel`): one process per device, the group
+initialised by the caller.  ``options.num_gpu`` is the device count, clamped
+to the world size as the JAX package's ``create_mesh`` clamps it; the global
+batch is ``batch_size`` times the world size, each rank assembles and steps
+on its own shard of it, and only rank 0 writes the run dir.  Tensor
+parallelism (``model_parallel > 1``) is not ported (ROADMAP.md §1 item 19).
 """
 
 from __future__ import annotations
@@ -27,39 +30,48 @@ from ..config import Options
 from ..data import Batcher
 from ..data.dataset import create_datasets
 from ..models.network import ModelConfig, TransformerCVN
+from ..ops.masked import sync_batch_norm
+from ..parallel import barrier, data_parallel_size, local_rank, local_shard_ids, world
 from ..predict import pinned, predict_split, to_device
 from ..utils.rundir import create_run_dir
 from .checkpoint import CheckpointManager, restore_from_path
 from .logging import MetricLogger
-from .metrics import finalize_metrics, init_metric_state
+from .metrics import finalize_metrics, init_metric_state, reduce_metric_state
 from .state import create_train_state
 from .step import make_eval_step, make_train_step
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the card.  There is no quiet fallback: without CUDA
-    only an explicit ``"cpu"`` runs."""
+    """``None`` means the card.  A card without an index is the process's
+    own, ``cuda:LOCAL_RANK``, which becomes the current device.  There is no
+    quiet fallback: without CUDA only an explicit ``"cpu"`` runs."""
     device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available (torch.cuda.is_available() is False); pass "
-            "device='cpu' (--device cpu) to run on the CPU")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available (torch.cuda.is_available() is False); pass "
+                "device='cpu' (--device cpu) to run on the CPU")
+        torch.cuda.set_device(local_rank() if device.index is None else device)
     return device
 
 
 class Trainer:
-    """Trains, validates, checkpoints and predicts on one device.
+    """Trains, validates, checkpoints and predicts, on one device or as one
+    rank of a data-parallel process group (every rank builds a Trainer with
+    the same options and makes the same calls).
 
     ``datasets``: a ``(training, validation, testing)`` tuple (testing may be
     ``None``) used in place of ``create_datasets(options)``, e.g. events made
     in memory on a host without h5py; statistics are shared from training
     as they are for the HDF5 splits.
 
-    ``options.steps_per_dispatch > 1`` is accepted (it implies static batch
-    shapes, as in the JAX package) but every step is its own call: the JAX
-    package's ``lax.scan`` over K stacked batches computes the same K
-    updates.  Its dispatch counterpart, a CUDA graph of the step, is queued
-    in ROADMAP.md §0.
+    ``options.steps_per_dispatch`` K > 1 implies static batch shapes, as in
+    the JAX package, and keeps its cadence: logs, validations and
+    checkpoints fall at the ends of groups of K steps, and an epoch's tail
+    of fewer than K batches runs as single steps.  Every step is its own
+    call; the JAX package's ``lax.scan`` over K stacked batches computes the
+    same K updates.  Its dispatch counterpart, a CUDA graph of the step, is
+    queued in ROADMAP.md §1 item 20.
     """
 
     def __init__(
@@ -89,16 +101,19 @@ class Trainer:
         # network/sherpa/*.py); any tuner can subscribe here.
         self.callbacks = list(callbacks or [])
 
-        # ---- one device ------------------------------------------------------
-        if options.num_gpu and options.num_gpu > 1:
-            print(f"Requested {options.num_gpu} devices but the port trains on 1 "
-                  "(data parallelism is not ported yet); clamping.")
+        # ---- processes: one device each --------------------------------------
+        self.num_shards = data_parallel_size(options.num_gpu)
+        self.rank = world()[1]
         mp = max(1, int(options.model_parallel))
-        if mp > 1:
+        if mp > self.num_shards:
             # checkpoints are layout-independent, so a TP-trained run's
-            # options.json still evaluates on one device
-            print(f"model_parallel={mp} exceeds the 1 available device(s); "
-                  "running without tensor parallelism.")
+            # options.json still evaluates on fewer devices
+            print(f"model_parallel={mp} exceeds the {self.num_shards} available "
+                  "device(s); running without tensor parallelism.")
+        elif mp > 1:
+            raise NotImplementedError(
+                f"model_parallel={mp}: tensor parallelism is not ported yet "
+                "(ROADMAP.md §1 item 19)")
 
         # ---- data ------------------------------------------------------------
         self.training_dataset, self.validation_dataset, self.testing_dataset = (
@@ -120,8 +135,8 @@ class Trainer:
         }
 
         # Reference step accounting (neutrino_base.py:47-49): batch_size is
-        # per-device; the global batch is batch_size * device count (1).
-        self.global_batch = options.batch_size
+        # per-device; the global batch is batch_size * device count.
+        self.global_batch = options.batch_size * self.num_shards
         self.steps_per_epoch = len(self.training_dataset) // self.global_batch
         if self.steps_per_epoch == 0:
             raise ValueError(
@@ -133,10 +148,14 @@ class Trainer:
         self.steps_per_dispatch = max(1, int(options.steps_per_dispatch))
         batcher_kwargs = dict(
             batch_size=self.global_batch,
+            num_shards=self.num_shards,
             prong_bucket_multipliers=options.prong_bucket_multipliers,
             coo_granularity=options.coo_bucket_granularity,
             seed=options.seed,
             fixed_shape=options.static_batch_shapes or self.steps_per_dispatch > 1,
+            # each rank assembles only its shard; the bucket sizes come from
+            # the global index list, so every rank builds the same shapes
+            local_shards=local_shard_ids() if self.num_shards > 1 else None,
         )
         self.train_batcher = Batcher(self.training_dataset, shuffle=True, **batcher_kwargs)
         # drop_last=False: validation splits smaller than the global batch
@@ -170,6 +189,8 @@ class Trainer:
         model = TransformerCVN(
             self.model_config, generator=torch.Generator().manual_seed(options.seed)
         ).to(self.device)
+        if options.sync_batch_norm and self.num_shards > 1:
+            sync_batch_norm(model, torch.distributed.group.WORLD)
         self.state = create_train_state(
             model, options, self.norm, self.steps_per_epoch, seed=options.seed
         )
@@ -179,17 +200,20 @@ class Trainer:
 
             print(summarize_params(model, max_depth=2))
             print(f"Parameters: {param_count(model):,}")
-            print(f"Device: {self.device}; global batch {self.global_batch}")
+            print(f"Device: {self.device} ({self.num_shards} process(es)); "
+                  f"global batch {self.global_batch}")
 
         # ---- step functions --------------------------------------------------
         self.train_step = make_train_step(model, options)
         self.eval_step = make_eval_step(model, options)
 
-        # ---- run dir / logging / checkpoints ---------------------------------
-        if run_dir is None and not debug:
+        # ---- run dir / logging / checkpoints: rank 0 writes -------------------
+        self.is_master = self.rank == 0
+        if run_dir is None and not debug and self.is_master:
             run_dir = create_run_dir(log_dir or os.getcwd(), name)
         self.run_dir = run_dir
-        self.logger = MetricLogger(run_dir, enabled=run_dir is not None)
+        self.logger = MetricLogger(run_dir, enabled=run_dir is not None and self.is_master)
+        # every rank given a run dir can resume from it; only rank 0 saves
         self.checkpoints = (
             CheckpointManager(
                 os.path.join(run_dir, "checkpoints"), top_k=options.checkpoint_top_k
@@ -197,7 +221,7 @@ class Trainer:
             if run_dir is not None
             else None
         )
-        if run_dir is not None:
+        if run_dir is not None and self.is_master:
             options.save(os.path.join(run_dir, "options.json"))
 
     # -------------------------------------------------------------------------
@@ -256,7 +280,7 @@ class Trainer:
         )
         for batch in self._device_prefetch(self._host_batches(self.val_batcher, 0)):
             totals = self.eval_step(self.state, batch, totals)
-        return finalize_metrics(totals)
+        return finalize_metrics(reduce_metric_state(totals))
 
     def predict_split(self, split: str = "validation"):
         """Batched inference over a split (the Evaluate.ipynb cell-14 loop).
@@ -264,7 +288,8 @@ class Trainer:
         Returns event probabilities/targets for every event and prong
         probabilities/targets for every *real* prong, plus each prong's
         owning event index; in split mode the targets are remapped to the
-        4-way current head's.
+        4-way current head's.  Data-parallel, each rank predicts its shard
+        of every batch and every rank returns all rows, in order.
         """
         dataset = {
             "training": self.training_dataset,
@@ -281,7 +306,7 @@ class Trainer:
             self.global_batch,
             self.device,
             coo_granularity=options.coo_bucket_granularity,
-            fixed_shape=options.static_batch_shapes,
+            fixed_shape=options.static_batch_shapes or self.num_shards > 1,
             prong_bucket_multipliers=options.prong_bucket_multipliers,
             fold_eval_bn=options.fold_eval_bn,
         )
@@ -306,8 +331,9 @@ class Trainer:
     def _after_validation(self, metrics: Dict[str, float], step: int):
         self.logger.log_scalars(metrics, step)
         self._log_confusions(metrics, step)
-        if self.checkpoints is not None:
+        if self.checkpoints is not None and self.is_master:
             self.checkpoints.save(self.state, step, metrics.get("val_epoch_AUC"))
+        barrier()  # the save lands before any rank goes on
         for callback in self.callbacks:
             callback(step, metrics)
 
@@ -353,14 +379,16 @@ class Trainer:
         """Run the full training loop; returns the last validation metrics.
 
         ``profile=True`` writes a ``torch.profiler`` Chrome trace of steps
-        ~11-15 to ``<run_dir>/profile/trace.json`` (viewable in Perfetto).
+        ~11-15 to ``<run_dir>/profile/trace.json`` (viewable in Perfetto);
+        data-parallel, rank 0 traces and the other ranks do not.
         """
         options = self.options
         eval_interval = eval_interval or options.eval_interval
         limit = max_steps or self.total_steps
         last_val: Dict[str, float] = {}
         profile_dir = (
-            os.path.join(self.run_dir or os.getcwd(), "profile") if profile else None
+            os.path.join(self.run_dir or os.getcwd(), "profile")
+            if profile and self.is_master else None
         )
         profiler = None
 
@@ -405,13 +433,19 @@ class Trainer:
                 host.pop("grad_norm", None)
             self.logger.log_scalars(host, log_step)
 
+        K = self.steps_per_dispatch
         try:
             for epoch in range(start_epoch, options.epochs):
                 start_batch, resume_skip = resume_skip, 0
+                # the JAX package dispatches the epoch's batches in groups of
+                # K and its tail of fewer than K as single steps; the cadence
+                # below is checked where each dispatch ends
+                n = max(0, min(self.steps_per_epoch - start_batch, limit - step))
+                grouped = n - n % K
                 host_iterator = self._host_batches(self.train_batcher, epoch, start_batch)
-                for batch in self._device_prefetch(
-                    itertools.islice(host_iterator, max(0, limit - step))
-                ):
+                for i, batch in enumerate(self._device_prefetch(
+                    itertools.islice(host_iterator, n)
+                )):
                     if (
                         profile_dir is not None
                         and step - start_step >= 10
@@ -425,14 +459,17 @@ class Trainer:
                         self._stop_profile(profiler, profile_dir)
                         profiler = None
                         profile_dir = None  # capture exactly one trace per run
+                    if i < grouped and (i + 1) % K:
+                        continue  # inside a group of K
+                    took = K if i < grouped else 1
 
                     flush_pending_log()
                     if self.logger.enabled and (
-                        step % self.log_every_n_steps == 0 or step <= 2
+                        step % self.log_every_n_steps < took or step <= 2
                     ):
                         pending_log = (step, self._fetch_async(metrics))
 
-                    if step % eval_interval == 0:
+                    if step % eval_interval < took:
                         flush_pending_log()
                         last_val = self.validate()
                         last_eval_step = step

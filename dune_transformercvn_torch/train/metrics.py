@@ -6,8 +6,10 @@ of float32 tensors (correct counts, per-class histograms of the softmax
 scores of positives and negatives, confusion matrices, the loss sum) that
 each eval step adds to; :func:`finalize_metrics` turns it into accuracies
 and macro one-vs-rest AUCs.  With B bins the AUC's discretisation error is
-below 1/B.  The cross-device reduction waits for the data-parallel port
-(ROADMAP.md).
+below 1/B.  In data-parallel training every rank adds its own shard's rows,
+and :func:`reduce_metric_state` sums the statistics over the ranks once per
+validation, before :func:`finalize_metrics` (the JAX package psums them per
+batch; sums are linear, so the totals are the same).
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from ..parallel import all_reduce_, world
 
 
 def init_metric_state(num_event_classes: int, num_prong_classes: int, bins: int,
@@ -96,6 +100,14 @@ def update_metric_state(
     # weighted by valid events, so all-padding batches do not deflate it
     state["loss_sum"] += loss.float() * ev_w.sum()
     state["loss_count"] += ev_w.sum()
+    return state
+
+
+def reduce_metric_state(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``state`` summed over the ranks of the process group in place (one
+    all-reduce), and returned; a world of one leaves it as it is."""
+    if world()[0] > 1:
+        all_reduce_(list(state.values()))
     return state
 
 

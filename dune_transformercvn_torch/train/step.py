@@ -1,9 +1,20 @@
-"""Train and eval steps on one device.
+"""Train and eval steps, on one device or data-parallel over processes.
 
 Port of ``compute_losses``, ``event_metric_view``, ``make_train_step`` and
-``make_eval_step`` (``dune_transformercvn_tpu/train/step.py``) without the
-mesh: one device, one step per call (:class:`.loop.Trainer` drives them).
-The data-parallel step and several steps per dispatch wait (ROADMAP.md).
+``make_eval_step`` (``dune_transformercvn_tpu/train/step.py``), one step per
+call (:class:`.loop.Trainer` drives them).  In a process group of more than
+one rank (:mod:`..parallel`) each rank steps on its own shard of the global
+batch, as the JAX package's ``shard_map`` over the data axis does:
+
+* the gradient is the mean over ranks of the per-rank losses' gradients,
+  summed with one all-reduce of the flattened gradients after the backward;
+  ``grad_norm`` and the clipping see the reduced gradient;
+* the logged metrics are averaged over ranks (in the same all-reduce);
+* without sync-BN (``options.sync_batch_norm`` off) the BatchNorm running
+  statistics are averaged over ranks after the step (also in it), so every
+  rank keeps the same state;
+* each rank draws its own noise and dropout: the rank is folded into the
+  step's seed, while ``state.generator`` advances alike on every rank.
 
 * The loss is the weighted event/prong focal loss; padding rows (target
   ``-1``) drop out by weight.
@@ -29,9 +40,14 @@ from torch.profiler import record_function
 
 from ..ops.losses import (binary_event_loss, class_balanced_loss,
                           softmax_focal_loss, split_event_targets)
+from ..ops.masked import MaskedBatchNorm
+from ..parallel import all_reduce_, world
 from .metrics import update_metric_state
 from .optimizer import clip_by_global_norm_, global_norm
 from .state import TrainState
+
+# folds the rank into a step's seed (rank 0 keeps it): the 64-bit golden ratio
+_RANK_STRIDE = 0x9E3779B97F4A7C15
 
 
 def event_metric_view(event_logits, event_targets, num_generation_classes: int):
@@ -120,12 +136,19 @@ def _loss_kwargs(options, model) -> Dict:
 def make_train_step(model, options) -> Callable[[TrainState, Dict], Dict[str, torch.Tensor]]:
     """``step(state, batch) -> metrics``: one optimizer step of
     ``state.model`` (``model`` fixes the loss variant) on a batch of tensors
-    on the model's device.  Updates ``state`` in place; the metrics are
-    0-d tensors on the device (no synchronisation), ``grad_norm`` included."""
+    on the model's device -- this rank's shard of the global batch when the
+    process group (:func:`..parallel.world`, read here) has more than one
+    rank.  Updates ``state`` in place; the metrics are 0-d tensors on the
+    device (no synchronisation on one device), ``grad_norm`` included."""
     gamma = options.loss_gamma
     event_scale = options.event_prong_loss_proportion
     loss_kwargs = _loss_kwargs(options, model)
     clip = float(options.gradient_clip or 0.0)
+    size, rank = world()
+    # with sync-BN the statistics are already the global batch's
+    stats = ([] if size == 1 or options.sync_batch_norm else
+             [t for m in model.modules() if isinstance(m, MaskedBatchNorm)
+              for t in (m.running_mean, m.running_var)])
 
     def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         net = state.model
@@ -134,7 +157,7 @@ def make_train_step(model, options) -> Callable[[TrainState, Dict], Dict[str, to
         device = params[0].device
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=state.generator))
         with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
-            torch.manual_seed(seed)
+            torch.manual_seed((seed + rank * _RANK_STRIDE) % 2 ** 64)
             with record_function("train_step.forward"):
                 event_logits, prong_logits = net(batch, state.norm)
                 total, metrics = compute_losses(
@@ -142,7 +165,7 @@ def make_train_step(model, options) -> Callable[[TrainState, Dict], Dict[str, to
                     batch["prong_targets"], gamma, event_scale, **loss_kwargs)
             with record_function("train_step.backward"):
                 state.optimizer.zero_grad(set_to_none=True)
-                total.backward()
+                (total / size if size > 1 else total).backward()
 
         with record_function("train_step.optimizer"):
             # optax updates every leaf: a parameter the loss did not reach
@@ -151,6 +174,15 @@ def make_train_step(model, options) -> Callable[[TrainState, Dict], Dict[str, to
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             grads = [p.grad for p in params]
+            if size > 1:
+                # the gradients summed (each rank's loss carries 1/size),
+                # the metrics and unsynced statistics averaged
+                keys = list(metrics)
+                values = torch.stack([metrics[k] for k in keys]) / size
+                if stats:
+                    torch._foreach_div_(stats, size)
+                all_reduce_(grads + [values] + stats)
+                metrics = dict(zip(keys, values.unbind()))
             norm = global_norm(grads)
             if clip > 0:
                 clip_by_global_norm_(grads, clip, norm)

@@ -1,0 +1,124 @@
+"""One rank of the port's data-parallel tests: a process of a ``gloo``
+group on the CPU, started by ``tests/test_torch_port_parallel.py`` and
+``tests/test_torch_port_ddp_parity.py``.
+
+    python _torch_dp_worker.py <mode> <rendezvous file> <world size> <rank> \
+        <input> <output>
+
+``syncbn``: the input (``.npz``) holds cases of the global ``x``, ``mask``,
+cotangent and BatchNorm state; this rank takes its rows, runs a train-mode
+``MaskedBatchNorm`` synced over the group, backpropagates its rows'
+cotangent and writes its output rows, its input and affine gradients and
+the running statistics.
+
+``trainer``: the input (``torch.save``) holds ``options`` (a dict), the
+JAX Trainer's initial ``variables`` and the run's ``log_dir``; this rank
+builds the port's ``Trainer`` on them, fits, predicts the validation split
+and writes its state, the elements whose gradient stayed above 1e-4 at
+every step, its fit result, predictions and (rank 0) its logged history
+and checkpoint index.
+
+Imports nothing of JAX: the port runs here as it does on the card.
+"""
+
+import datetime
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+torch.set_num_threads(1)
+
+
+def syncbn(inputs, rank, world_size):
+    from dune_transformercvn_torch.ops.masked import MaskedBatchNorm, sync_batch_norm
+
+    data = np.load(inputs)
+    out = {}
+    for case in sorted({k.split("/")[0] for k in data.files}):
+        get = lambda key: data[f"{case}/{key}"]  # noqa: E731
+        rows = get("x").shape[0] // world_size
+        local = slice(rank * rows, (rank + 1) * rows)
+        bn = MaskedBatchNorm(get("x").shape[-1])
+        bn.load_state_dict({k: torch.from_numpy(get(k)) for k in
+                            ("weight", "bias", "running_mean", "running_var")})
+        sync_batch_norm(bn, dist.group.WORLD).train()
+        x = torch.from_numpy(get("x")[local]).requires_grad_()
+        y = bn(x, torch.from_numpy(get("mask")[local]))
+        (y * torch.from_numpy(get("cot")[local])).sum().backward()
+        out.update({f"{case}/y": y.detach().numpy(), f"{case}/grad_x": x.grad.numpy(),
+                    f"{case}/grad_weight": bn.weight.grad.numpy(),
+                    f"{case}/grad_bias": bn.bias.grad.numpy(),
+                    f"{case}/running_mean": bn.running_mean.numpy(),
+                    f"{case}/running_var": bn.running_var.numpy()})
+    return out
+
+
+def trainer(inputs, rank, world_size):
+    from dune_transformercvn_torch import Options
+    from dune_transformercvn_torch.from_jax import load_jax_variables
+    from dune_transformercvn_torch.train import Trainer
+    from dune_transformercvn_torch.train.logging import read_history
+
+    setup = torch.load(inputs, weights_only=False)
+    options = Options()
+    options.update_options(setup["options"])
+    ours = Trainer(options, log_dir=setup["log_dir"], name="run", device="cpu",
+                   log_every_n_steps=1, verbose=True)
+    load_jax_variables(ours.state.model, setup["variables"])
+    # where the reduced, clipped gradient stayed above 1e-4 at every step
+    stable = {n: torch.ones_like(p, dtype=torch.bool)
+              for n, p in ours.state.model.named_parameters()}
+    step = ours.train_step
+
+    def tracked_step(state, batch):
+        metrics = step(state, batch)
+        for n, p in state.model.named_parameters():
+            stable[n] &= p.grad.abs() > 1e-4
+        return metrics
+
+    ours.train_step = tracked_step
+    result = ours.fit(**setup["fit"])
+    out = {
+        "run_dir": ours.run_dir,
+        "global_batch": ours.global_batch,
+        "steps_per_epoch": ours.steps_per_epoch,
+        "step": ours.state.step,
+        "result": {k: v for k, v in result.items() if np.ndim(v) == 0},
+        "state": {k: v.clone() for k, v in ours.state.model.state_dict().items()},
+        "stable": stable,
+        "generator": ours.state.generator.get_state(),
+        "predictions": ours.predict_split("validation"),
+    }
+    if ours.run_dir is not None:
+        out["history"] = read_history(ours.run_dir)
+        with open(os.path.join(ours.run_dir, "checkpoints", "index.json")) as f:
+            out["index"] = json.load(f)
+    return out
+
+
+def main():
+    mode, rendezvous, world_size, rank, inputs, output = sys.argv[1:7]
+    world_size, rank = int(world_size), int(rank)
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                            world_size=world_size, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    # the first collective while the ranks are still in step: gloo's
+    # rendezvous has a deadline the later, drifted collectives could miss
+    dist.all_reduce(torch.zeros(1))
+    try:
+        out = {"syncbn": syncbn, "trainer": trainer}[mode](inputs, rank, world_size)
+    finally:
+        dist.destroy_process_group()
+    if mode == "syncbn":
+        np.savez(output, **out)
+    else:
+        torch.save(out, output)
+
+
+if __name__ == "__main__":
+    main()

@@ -351,6 +351,19 @@ def test_profile_writes_a_trace_of_steps_11_to_15(tmp_path):
     assert not torch.autograd.profiler._is_profiler_enabled
 
 
+@pytest.mark.parametrize("rank", [0, 1])
+def test_only_rank_0_profiles(tmp_path, monkeypatch, rank):
+    """Without a run dir (as on the ranks other than 0 of a process group)
+    the trace goes to ``<cwd>/profile``; a rank other than 0 writes none,
+    or the ranks of one host would all write that one file."""
+    monkeypatch.chdir(tmp_path)
+    datasets = (InMemoryEvents(16, 1, (H, W)), InMemoryEvents(8, 2, (H, W)), None)
+    trainer = Trainer(tiny_options(), debug=True, device="cpu", datasets=datasets)
+    trainer.is_master = rank == 0
+    trainer.fit(max_steps=16, eval_interval=100, profile=True)
+    assert os.listdir(tmp_path) == (["profile"] if rank == 0 else [])
+
+
 def test_an_exception_closes_the_profiler_and_the_checkpoint(tmp_path):
     """``fit``'s ``finally``: an open profiler session stops; the checkpoint
     saved before the callback raised is written and indexed."""
@@ -369,12 +382,17 @@ def test_an_exception_closes_the_profiler_and_the_checkpoint(tmp_path):
 
 def test_steps_per_dispatch_runs_one_step_per_call(tmp_path):
     """K > 1 implies static batch shapes, as in the JAX package, and steps
-    one at a time."""
+    one at a time; metrics are logged where the JAX package's dispatches
+    end: after the group of 3, then after the epoch's last step, which runs
+    alone."""
     trainer = memory_trainer(tmp_path, steps_per_dispatch=3)
     assert trainer.train_batcher.fixed_caps is not None
+    calls = []
+    trainer.train_step = lambda state, batch, step=trainer.train_step: (
+        calls.append(state.step), step(state, batch))[1]
     trainer.fit(max_steps=4, eval_interval=100)
-    assert trainer.state.step == 4
-    assert [s for s, _ in read_history(str(tmp_path))["train_loss"]] == [1, 2, 3, 4]
+    assert trainer.state.step == 4 and calls == [0, 1, 2, 3]
+    assert [s for s, _ in read_history(str(tmp_path))["train_loss"]] == [3, 4]
 
 
 def test_no_quiet_fallback_to_the_cpu(monkeypatch):

@@ -258,6 +258,58 @@ def test_predict_split_matches_jax(data):
     assert not model.training
 
 
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_network_bfloat16_matches_jax(setup, train):
+    """bfloat16 compute on both sides (float32 parameters, statistics and
+    logits): the port's logits against JAX's.  bfloat16 keeps 8 significant
+    bits, so every rounded activation is off by up to 2^-9 of itself, and
+    some thirty layers of them move either framework's logits by 1-3% of
+    their largest magnitude from its own float32 logits.  The two
+    frameworks round at different points (XLA fuses elementwise chains in
+    float32, torch rounds after each op), so their bfloat16 logits may
+    differ by as much: they are compared at 2^-5 (3.1%) of the largest
+    float32 logit, 8 units of the 2^-8 bfloat16 spacing."""
+    jax_model, variables, _, jb, jn, batch, norm = setup
+    outputs = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(jax_model.cfg, compute_dtype=dtype)
+        port_cfg = ModelConfig(**{f.name: getattr(cfg, f.name)
+                                  for f in dataclasses.fields(ModelConfig)})
+        module = JaxTransformerCVN(cfg)
+        if train:
+            want, _ = jax.jit(partial(module.apply, train=True, mutable=["batch_stats"]))(
+                variables, jb, jn)
+        else:
+            want = jax.jit(module.apply)(variables, jb, jn)
+        model = load_jax_variables(TransformerCVN(port_cfg), variables).train(train)
+        with torch.no_grad():
+            got = model(to_device(batch, "cpu"), to_device(norm, "cpu"))
+        assert all(t.dtype == torch.float32 for t in got)
+        outputs[dtype] = [np.asarray(w) for w in want], [t.numpy() for t in got]
+    real = batch["prong_mask"]
+    for i, name in enumerate(("event", "prong")):
+        pick = (lambda x: x) if name == "event" else (lambda x: x[real])
+        (want32, got32), (want16, got16) = ([pick(o[i]) for o in pair]
+                                           for pair in (outputs["float32"], outputs["bfloat16"]))
+        np.testing.assert_allclose(got32, want32, **TOL)
+        assert np.abs(want16 - want32).max() > 1e-3     # bfloat16 did round
+        bound = 2 ** -5 * np.abs(want32).max()
+        np.testing.assert_allclose(got16, want16, rtol=0, atol=bound, err_msg=name)
+
+
+@pytest.mark.parametrize("family", ["dense", "coo"])
+def test_embedder_chunk_is_rejected_as_in_jax(family):
+    """``embedder_chunk`` is only for the sdxl family, which the port does
+    not have yet: both packages raise the same error for the others."""
+    options = Options()
+    options.embedder_chunk = 4
+    match = r"embedder_chunk is only valid with the sdxl embedder.*\(got embedder="
+    with pytest.raises(ValueError, match=match):
+        JaxModelConfig.from_options(options, 6, 4, 3, 4, 8, embedder=family)
+    with pytest.raises(ValueError, match=match + ".*item 14"):
+        ModelConfig.from_options(options, 6, 4, 3, 4, 8, embedder=family)
+
+
 def test_model_config_from_options_matches_jax():
     options = Options.load(os.path.join(
         os.path.dirname(__file__), "..", "option_files",

@@ -152,8 +152,8 @@ def batch_and_norm(synthetic_file, count=1):
     return batches, norm
 
 
-def family_config(family):
-    cfg, port_cfg = tiny_coo_config(disable_smart_features=False)
+def family_config(family, **overrides):
+    cfg, port_cfg = tiny_coo_config(disable_smart_features=False, **overrides)
     if family == "dense":
         cfg = dataclasses.replace(cfg, embedder="dense")
         port_cfg = dataclasses.replace(port_cfg, embedder="dense")
@@ -238,9 +238,10 @@ def step_options(cls, clip, warmup_epochs):
 STEPS_PER_EPOCH = 4
 
 
-def start_both(family, clip, warmup_epochs, batches, norm):
-    """The same weights in a JAX train state and in a port train state."""
-    cfg, port_cfg = family_config(family)
+def start_both(family, clip, warmup_epochs, batches, norm, **overrides):
+    """The same weights in a JAX train state and in a port train state
+    (``overrides``: model config fields, on both sides)."""
+    cfg, port_cfg = family_config(family, **overrides)
     jax_model = JaxTransformerCVN(cfg)
     jb = {k: jnp.asarray(v) for k, v in batches[0].items()}
     jn = {k: jnp.asarray(v) for k, v in norm.items()}
@@ -276,6 +277,51 @@ def start_both(family, clip, warmup_epochs, batches, norm):
     ("coo", 3, 0.5, 0.5),
 ])
 def test_train_steps_match_jax(synthetic_file, family, steps, clip, warmup):
+    check_train_steps(synthetic_file, family, steps, clip, warmup)
+
+
+def test_remat_train_steps_match_jax(synthetic_file):
+    """With ``remat_cnn`` and ``remat_embedder`` on both sides (the JAX
+    package's ``nn.remat``, the port's ``torch.utils.checkpoint``), the
+    steps of the main path's family match JAX's as the plain steps do."""
+    check_train_steps(synthetic_file, "dense", 3, 0.5, 0.5,
+                      remat_cnn=True, remat_embedder=True)
+
+
+@pytest.mark.parametrize("family", ["dense", "coo"])
+@pytest.mark.parametrize("option", ["remat_cnn", "remat_embedder"])
+def test_remat_steps_equal_plain_steps_bit_for_bit(synthetic_file, family, option):
+    """Two steps with dropout and pixel noise on: with either memory option
+    the loss, the metrics, every gradient and, after the steps, every
+    parameter and BatchNorm statistic equal the plain steps' bit for bit.
+    The recompute draws the first run's dropout, and the running
+    statistics move once a step, not again in the recompute."""
+    batches, norm = batch_and_norm(synthetic_file, 2)
+
+    def run(**flags):
+        port_cfg = dataclasses.replace(family_config(family)[1], dropout=0.2,
+                                       pixel_noise_std=0.05, **flags)
+        model = TransformerCVN(port_cfg, generator=torch.Generator().manual_seed(3))
+        opts = step_options(Options, 0.5, 0.0)
+        state = create_train_state(model, opts, norm, STEPS_PER_EPOCH, seed=0)
+        step = make_train_step(model, opts)
+        steps = []
+        for batch in batches:
+            metrics = step(state, to_device(batch, "cpu"))
+            steps.append((metrics, {n: p.grad.clone() for n, p in model.named_parameters()}))
+        return steps, model.state_dict()
+
+    (plain, plain_state), (remat, remat_state) = run(), run(**{option: True})
+    for (metrics, grads), (remat_metrics, remat_grads) in zip(plain, remat):
+        for key, value in metrics.items():
+            assert torch.equal(remat_metrics[key], value), key
+        for name, grad in grads.items():
+            assert torch.equal(remat_grads[name], grad), name
+    for name, tensor in plain_state.items():
+        assert torch.equal(remat_state[name], tensor), name
+
+
+def check_train_steps(synthetic_file, family, steps, clip, warmup, **overrides):
     """Loss, metrics, grad_norm, BatchNorm statistics and parameters after
     the steps.  Parameters: an Adam step moves an element by
     ``lr * m / (sqrt(v) + eps)``, about +-lr wherever |g| >> eps = 1e-8,
@@ -288,7 +334,9 @@ def test_train_steps_match_jax(synthetic_file, family, steps, clip, warmup):
     fraction of lr.  There only the bound ``2 * steps * lr`` is checked."""
     batches, norm = batch_and_norm(synthetic_file, steps)
     (jax_model, jopts, tx, mesh, jax_state), (model, opts, state), port_cfg = start_both(
-        family, clip, warmup, batches, norm)
+        family, clip, warmup, batches, norm, **overrides)
+    assert (port_cfg.remat_cnn, port_cfg.remat_embedder) == (
+        jax_model.cfg.remat_cnn, jax_model.cfg.remat_embedder)
     jax_step = jax_make_train_step(jax_model, tx, jopts, mesh)
     step = make_train_step(model, opts)
     lr = opts.learning_rate
@@ -310,19 +358,30 @@ def test_train_steps_match_jax(synthetic_file, family, steps, clip, warmup):
     want_sd = state_dict_from_jax(jax.device_get(
         {"params": jax_state.params, "batch_stats": jax_state.batch_stats}), port_cfg)
     got_sd = model.state_dict()
-    params = dict(model.named_parameters())
-    moved = 0
     for name, want_t in want_sd.items():
-        got_t, w = got_sd[name], want_t.numpy()
-        if name not in params:                              # BatchNorm statistics
-            np.testing.assert_allclose(got_t.numpy(), w, rtol=1e-5, atol=1e-5, err_msg=name)
-            continue
-        diff = np.abs(got_t.numpy() - w)
-        ok = stable[name].numpy()
-        assert (diff[ok] <= 1e-6 + 1e-2 * lr).all(), (name, diff[ok].max())
+        if name not in stable:                              # BatchNorm statistics
+            np.testing.assert_allclose(got_sd[name].numpy(), want_t.numpy(),
+                                       rtol=1e-5, atol=1e-5, err_msg=name)
+    assert assert_adam_params_close(got_sd, want_sd, stable, lr, steps) > 1000
+
+
+def assert_adam_params_close(got, want, stable, lr, steps, rounding=False):
+    """The parameters of two state dicts after ``steps`` Adam steps at
+    ``lr``, by :func:`check_train_steps`' rule: elements whose |g| stayed
+    above 1e-4 (``stable``, by parameter name) within ``1e-6 + 1e-2 * lr``,
+    the rest within ``2 * steps * lr``.  ``rounding`` replaces the 1e-6 by
+    the float32 rounding of ``steps`` updates, ``steps`` spacings of the
+    value, for a rate too small for 1e-6 to tell one step from none.
+    Returns the stable elements' count."""
+    moved = 0
+    for name, ok in stable.items():
+        w = want[name].numpy()
+        diff, ok = np.abs(got[name].numpy() - w), ok.numpy()
+        floor = steps * np.spacing(np.abs(w)) if rounding else 1e-6
+        assert (diff <= floor + 1e-2 * lr)[ok].all(), (name, diff[ok].max())
         assert (diff <= 2 * steps * lr).all(), (name, diff.max())
         moved += int(ok.sum())
-    assert moved > 1000
+    return moved
 
 
 def test_eval_step_matches_jax(synthetic_file):
