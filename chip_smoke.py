@@ -69,7 +69,19 @@ Phases, each of which raises on failure:
    Trainer's states after 3 steps equal bit for bit.
    ``check_data_parallel(smi, ranks, batch)`` runs other worlds (e.g. the
    option file's 4 devices at batch 16 on a machine with 4 cards).
-10. A JSON line of every ported kernel, then, as the last line,
+10. The other embedder families at the option file's width, bfloat16,
+   random weights from a seed, each path with the kernel counts reset
+   before it and K1 asserted twice a batch and a step.  sdxl with
+   ``embedder_chunk`` 16: ``predict_split`` at batch 16 and 64 (128 and 256
+   events) as in phase 4; the train step at batch 16, 3 warm-up and 10 timed steps (ms/step,
+   events/s, peak memory); the same with ``embedder_chunk_save_spatial``;
+   the unchunked step at batch 8 (the largest the memory reckoning in
+   PERF.md keeps far under 80 GB); and, in float32, the chunked network
+   against the unchunked one at batch 4, logits and every gradient.
+   sparse, convnext, fcnn, mobilenet and resnet: a warm-up and a timed
+   ``predict_split`` pass at batch 16, and 1 + 3 train steps at batch 16
+   (ms/step, peak memory).  ``check_families(smi)`` runs it alone.
+11. A JSON line of every ported kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -163,6 +175,25 @@ REMAT_WARMUP, REMAT_STEPS = 2, 5
 DP_RANKS, DP_BATCH, DP_EVENTS, DP_VAL_EVENTS, DP_STEPS = 2, 8, 512, 64, 6
 DP_BARE_WARMUP, DP_BARE_STEPS, ONE_RANK_STEPS = 1, 4, 3
 DP_TIMEOUT_S = 400
+# Phase 10.  sdxl: the chunk, the save-spatial threshold of its selective
+# remat (conv outputs of 100x70 and smaller are kept), the unchunked step's
+# batch, warm-up and timed steps of the chunked step and of each reading,
+# and the float32 chunked-vs-unchunked check's batch and chunk.
+SDXL_CHUNK, SDXL_SAVE_SPATIAL, SDXL_UNCHUNKED_BATCH = 16, 7000, 8
+SDXL_SERVE_EVENTS = ((16, 128), (64, 256))
+SDXL_WARMUP, SDXL_STEPS, SDXL_READING_WARMUP, SDXL_READING_STEPS = 3, 10, 2, 5
+SDXL_CHECK_BATCH, SDXL_CHECK_CHUNK = 4, 4
+# Chunked against unchunked sdxl, float32, TF32 off: logits; and each
+# gradient within CHUNK_GRAD_SHARE of its tensor's largest element (a
+# parameter's gradient sums over every pixel of the bank, chunk by chunk)
+# plus CHUNK_GRAD_FLOOR of the network's largest (a gradient that cancels to
+# ~1e-6 of the rest, as the position vectors' does, keeps the rounding of
+# the terms it cancels).
+CHUNK_TOL = dict(rtol=1e-4, atol=1e-4)
+CHUNK_GRAD_SHARE, CHUNK_GRAD_FLOOR = 1e-3, 1e-5
+# The other families: events of the serving pass, warm-up and timed steps.
+OTHER_FAMILIES = ("sparse", "convnext", "fcnn", "mobilenet", "resnet")
+FAMILY_SERVE_EVENTS, FAMILY_WARMUP, FAMILY_STEPS = 128, 1, 3
 
 
 def log(msg: str = ""):
@@ -473,8 +504,8 @@ def serve(model, ds, batch_size):
     seconds = time.perf_counter() - t0
     counts = read_counts()
     num_batches = math.ceil(len(ds) / batch_size)
-    want = ((2 * num_batches, 0) if model.cfg.embedder == "dense"
-            else (0, 2 * num_batches))
+    want = ((0, 2 * num_batches) if model.cfg.embedder == "coo"
+            else (2 * num_batches, 0))
     assert counts == want, (model.cfg.embedder, counts, want)
 
     n = len(ds)
@@ -489,28 +520,35 @@ def serve(model, ds, batch_size):
     return seconds, counts
 
 
-def check_serving(embedder):
-    """Returns the model and the kernels' launches over the timed passes."""
-    cfg = dataclasses.replace(production_config("bfloat16"), embedder=embedder)
+def family_config(embedder, **fields):
+    """The option file's network at full width in ``embedder``'s family."""
+    return dataclasses.replace(production_config("bfloat16"), embedder=embedder, **fields)
+
+
+def check_serving(embedder, cfg=None, sizes=SERVE_EVENTS, passes=SERVE_PASSES):
+    """Returns the model and the kernels' launches over the timed passes
+    (the warm-up pass's are asserted too)."""
+    cfg = cfg or family_config(embedder)
     model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED))
     model = model.to("cuda").eval()
     log(f"[serve {embedder}] {os.path.basename(OPTION_FILE)}: densenet "
         f"{list(cfg.densenet_structure)} growth {cfg.densenet_growth_rate}, "
+        f"initial_pixel_dim {cfg.initial_pixel_dim}, embedder_chunk {cfg.embedder_chunk}, "
         f"{cfg.num_encoder_layers} encoder layers, {cfg.compute_dtype}, "
         f"{sum(p.numel() for p in model.parameters())} parameters")
     total = np.zeros(2, np.int64)
-    for batch_size, num_events in SERVE_EVENTS:
+    for batch_size, num_events in sizes:
         ds = InMemoryEvents(num_events, SEED + batch_size)
         # warm-up over the same events: the batcher's slot ladder gives the
         # prong bank several sizes, and the timed passes meet none anew
         serve(model, ds, batch_size)
         torch.cuda.reset_peak_memory_stats()
         rates = []
-        for _ in range(SERVE_PASSES):
+        for _ in range(passes):
             seconds, counts = serve(model, ds, batch_size)
             total += counts
             rates.append(num_events / seconds)
-        log(f"[serve {embedder}] b{batch_size}: {num_events} events x {SERVE_PASSES} "
+        log(f"[serve {embedder}] b{batch_size}: {num_events} events x {passes} "
             f"passes, median {statistics.median(rates):.1f} events/s, min "
             f"{min(rates):.1f}, max {max(rates):.1f} (predict_split, host batching "
             f"included); launches per pass K1 {counts[0]}, K2 {counts[1]}; peak memory "
@@ -1032,6 +1070,134 @@ def check_world_of_one():
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+
+def free_memory():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_reading(cfg, batch_size, warmup, steps, seed):
+    """``steps`` train steps of ``cfg``'s network at ``batch_size`` after
+    ``warmup``, the option file's optimizer; returns (ms/step, peak GiB of
+    the timed steps, K1 launches), with K1 asserted twice a step and K2
+    never, and a finite loss and gradient norm."""
+    options = fit_options()
+    ds = InMemoryEvents(batch_size * (warmup + steps), seed)
+    batches = [to_device(b, "cuda") for b in Batcher(ds, batch_size=batch_size).epoch(0)]
+    model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED)).cuda()
+    state = create_train_state(model, options, ds.norm(), len(batches), seed=SEED)
+    step = make_train_step(model, options)
+    torch.cuda.synchronize()
+    reset_counts()
+    for batch in batches[:warmup]:
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for batch in batches[warmup:]:
+        metrics = step(state, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    counts = read_counts()
+    assert counts == (2 * (warmup + steps), 0), (cfg.embedder, counts)
+    loss, grad_norm = float(metrics["train_loss"]), float(metrics["grad_norm"])
+    assert math.isfinite(loss) and math.isfinite(grad_norm), (cfg.embedder, loss, grad_norm)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model, state, step, batches, metrics
+    free_memory()
+    return ms, peak, counts[0]
+
+
+def check_sdxl_chunks():
+    """The sdxl network in float32 (TF32 off), chunked against unchunked, at
+    a small batch: logits and every parameter's gradient of a fixed
+    projection of them; returns K1's launches."""
+    cfg = family_config("sdxl", compute_dtype="float32", dropout=0.0, pixel_noise_std=0.0)
+    model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED)).cuda().train()
+    ds = InMemoryEvents(SDXL_CHECK_BATCH, SEED + 12)
+    batch = to_device(Batcher(ds, batch_size=SDXL_CHECK_BATCH).build_batch(
+        np.arange(SDXL_CHECK_BATCH)), "cuda")
+    norm = to_device(ds.norm(), "cuda")
+    P = batch["slot_batch"].shape[0]
+
+    def run(chunk):
+        model.cfg = dataclasses.replace(cfg, embedder_chunk=chunk)
+        model.zero_grad(set_to_none=True)
+        ev, pr = model(batch, norm)
+        weights = [torch.linspace(-1.0, 1.0, t.numel(), device="cuda").reshape(t.shape)
+                   for t in (ev, pr)]
+        (ev * weights[0]).sum().add((pr * weights[1]).sum()).backward()
+        return (ev.detach(), pr.detach()), {n: p.grad.clone() for n, p in
+                                            model.named_parameters() if p.grad is not None}
+
+    (full, full_grads), counts = counted(lambda: run(0))
+    (chunked, chunked_grads), chunked_counts = counted(lambda: run(SDXL_CHECK_CHUNK))
+    assert counts == chunked_counts == (2, 0), (counts, chunked_counts)
+    for got, want in zip(chunked, full):
+        torch.testing.assert_close(got, want, **CHUNK_TOL)
+    assert chunked_grads.keys() == full_grads.keys() and len(full_grads) > 100
+    largest = max(g.abs().max().item() for g in full_grads.values())
+    worst = 0.0
+    for name, want in full_grads.items():
+        scale = want.abs().max().item()
+        diff = (chunked_grads[name] - want).abs().max().item()
+        bound = CHUNK_GRAD_SHARE * scale + CHUNK_GRAD_FLOOR * largest
+        assert diff <= bound, (name, diff, scale, largest)
+        worst = max(worst, diff / bound)
+    log(f"[sdxl] float32, batch {SDXL_CHECK_BATCH} ({P} prong slots): chunks of "
+        f"{SDXL_CHECK_CHUNK} against the full bank: logits max diff "
+        f"{max(max_diff(g, w) for g, w in zip(chunked, full)):.3g} (tol {CHUNK_TOL}), "
+        f"{len(full_grads)} gradients within {CHUNK_GRAD_SHARE} of the tensor's largest "
+        f"element + {CHUNK_GRAD_FLOOR} of the network's ({largest:.3g}); the worst used "
+        f"{worst:.1%} of its bound")
+    del model, full_grads, chunked_grads
+    free_memory()
+    return counts[0] + chunked_counts[0]
+
+
+def check_families(smi):
+    """Phase 10; returns K1's launches."""
+    launches = 0
+    sdxl = family_config("sdxl", embedder_chunk=SDXL_CHUNK)
+    _, counts = check_serving("sdxl", sdxl, SDXL_SERVE_EVENTS)
+    launches += int(counts[0])
+    free_memory()
+    ms, peak, k1 = train_reading(sdxl, TRAIN_BATCH, SDXL_WARMUP, SDXL_STEPS, SEED + 10)
+    launches += k1
+    log(f"[sdxl] train b{TRAIN_BATCH}, embedder_chunk {SDXL_CHUNK}: {SDXL_STEPS} steps after "
+        f"{SDXL_WARMUP}, {ms:.2f} ms/step, {1e3 * TRAIN_BATCH / ms:.2f} events/s, peak "
+        f"memory {peak:.2f} GiB; K1 {k1} ({smi})")
+    readings = []
+    for name, cfg, batch_size in (
+            (f"embedder_chunk {SDXL_CHUNK} + save_spatial {SDXL_SAVE_SPATIAL}",
+             dataclasses.replace(sdxl, embedder_chunk_save_spatial=SDXL_SAVE_SPATIAL),
+             TRAIN_BATCH),
+            ("unchunked", dataclasses.replace(sdxl, embedder_chunk=0), SDXL_UNCHUNKED_BATCH)):
+        ms, peak, k1 = train_reading(cfg, batch_size, SDXL_READING_WARMUP,
+                                     SDXL_READING_STEPS, SEED + 11)
+        launches += k1
+        readings.append(f"{name} b{batch_size}: {ms:.2f} ms/step, "
+                        f"{1e3 * batch_size / ms:.2f} events/s, peak {peak:.2f} GiB")
+    log(f"[sdxl] train readings ({SDXL_READING_STEPS} steps after {SDXL_READING_WARMUP}): "
+        + "; ".join(readings) + f" ({smi})")
+    launches += check_sdxl_chunks()
+    for embedder in OTHER_FAMILIES:
+        _, counts = check_serving(embedder, sizes=((TRAIN_BATCH, FAMILY_SERVE_EVENTS),),
+                                  passes=1)
+        launches += int(counts[0])
+        free_memory()
+        ms, peak, k1 = train_reading(family_config(embedder), TRAIN_BATCH, FAMILY_WARMUP,
+                                     FAMILY_STEPS, SEED + 13)
+        launches += k1
+        log(f"[{embedder}] train b{TRAIN_BATCH}: {FAMILY_STEPS} steps after {FAMILY_WARMUP}, "
+            f"{ms:.2f} ms/step, {1e3 * TRAIN_BATCH / ms:.2f} events/s, peak memory "
+            f"{peak:.2f} GiB; K1 {k1} ({smi})")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1053,6 +1219,7 @@ def main():
     torch.cuda.empty_cache()
     trainer_launches += check_data_parallel(smi)
     check_world_of_one()
+    trainer_launches += check_families(smi)
     kernels = []
     for (err, ms, plain_ms, lib_ms, bound_ms), name, source, replaces, launches in (
             (k1, "densify", "dune_transformercvn_torch/csrc/densify.cu",

@@ -190,9 +190,8 @@ class Options:
         # Execution options of the JAX package (absent from reference option
         # files).  Carried with the same names and defaults so every option
         # file loads to the same Options in both packages; the port reads
-        # compute_dtype, coo_bucket_granularity, embedder,
-        # stem_space_to_depth, transition_pool_first, auc_bins and seed, and
-        # leaves the others to the JAX package (ROADMAP.md).
+        # every one of them, and raises where it meets
+        # model_parallel > 1 or fold_eval_bn (ROADMAP.md).
         # =========================================================================
 
         # Compute dtype for the network ('bfloat16' or 'float32'); params stay fp32.

@@ -1,16 +1,19 @@
 """Carry weights from the JAX package into the port.
 
-``state_dict_from_jax`` is the inverse of
-``dune_transformercvn_tpu/torch_import.py::transplant_dense_network``: it
-turns a JAX ``{"params", "batch_stats"}`` tree of a dense- or coo-family
-``TransformerCVN`` into the port's ``state_dict``, whose keys are the
-reference network's (the coo stem's ``stem_kernel`` / ``stem_bias`` land in
-``features.conv0`` as the dense stem's ``Conv_0`` does).  Conv kernels go
-HWIO -> OIHW, Dense kernels ``[in, out]`` -> ``[out, in]``, attention q/k/v ``[D, h, hd]`` kernels and
+``state_dict_from_jax`` turns a JAX ``{"params", "batch_stats"}`` tree of a
+``TransformerCVN`` of any embedder family into the port's ``state_dict``.
+For the dense and coo families it is the inverse of
+``dune_transformercvn_tpu/torch_import.py::transplant_dense_network``, whose
+keys are the reference network's (the coo stem's ``stem_kernel`` /
+``stem_bias`` land in ``features.conv0`` as the dense stem's ``Conv_0``
+does); the other families' embedders map by :class:`WeightMapper`'s method
+of the family's name.  Conv kernels go HWIO -> OIHW, Dense kernels
+``[in, out]`` -> ``[out, in]``, attention q/k/v ``[D, h, hd]`` kernels and
 ``[h, hd]`` biases pack into ``in_proj_weight [3D, D]`` / ``in_proj_bias``,
-and ``out [h, hd, D]`` becomes ``out_proj``; BatchNorm scale/bias/mean/var
-and PReLU alpha are copied.  :class:`WeightMapper` does the same per module
-and records which JAX leaves each tensor came from.
+and ``out [h, hd, D]`` becomes ``out_proj``; BatchNorm scale/bias/mean/var,
+GroupNorm and LayerNorm scale/bias, PReLU alpha and ConvNeXt's layer scale
+are copied.  :class:`WeightMapper` records which JAX leaves each tensor came
+from.
 
 :func:`jax_leaf_names` gives, for each parameter of a port model, the name
 of the JAX leaf it is carried from (``kernel``, ``bias``, ``scale``,
@@ -29,11 +32,19 @@ from .models.coo_densenet import CooStemDenseNet
 from .models.densenet import SpaceToDepthStem
 from .models.encoder import SelfAttention
 from .models.heads import linear_block_layers
+from .models.resnet import BLOCK_CONFIG as RESNET_BLOCK_CONFIG
+from .models.sparse_convnext import HIDDEN_DEPTHS as CONVNEXT_DEPTHS
+from .models.sparse_convnext import ConvNeXtBlock
 from .ops.masked import MaskedBatchNorm, PReLU
 
 
 def _join(sep: str, *parts: str) -> str:
     return sep.join(p for p in parts if p)
+
+
+def _prefixes(name: str, path: str):
+    """The port-name and JAX-path prefixes of a module ("" at the root)."""
+    return (f"{name}." if name else ""), (f"{path}/" if path else "")
 
 
 class WeightMapper:
@@ -86,9 +97,11 @@ class WeightMapper:
     # ---- layers -----------------------------------------------------------
 
     def conv(self, name, path, kernel="kernel", bias="bias"):
+        """A conv, with its bias where the tree has one."""
         self.put(_join(".", name, "weight"),
                  self.take(_join("/", path, kernel)).transpose(3, 2, 0, 1))
-        self.put(_join(".", name, "bias"), self.take(_join("/", path, bias)))
+        if self.has(_join("/", path, bias)):
+            self.put(_join(".", name, "bias"), self.take(_join("/", path, bias)))
 
     def linear(self, name, path):
         self.put(_join(".", name, "weight"), self.take(_join("/", path, "kernel")).T)
@@ -107,8 +120,15 @@ class WeightMapper:
         self.put(_join(".", name, "weight"), self.take(_join("/", path, "alpha")))
 
     def layer_norm(self, name, path):
+        """A LayerNorm's or a GroupNorm's scale and bias."""
         self.put(_join(".", name, "weight"), self.take(_join("/", path, "scale")))
         self.put(_join(".", name, "bias"), self.take(_join("/", path, "bias")))
+
+    def output_block(self, name, path, index=0):
+        """Linear, BN, PReLU: ``Dense_0`` and the ``index``-th BN and PReLU."""
+        self.linear(_join(".", name, "linear"), _join("/", path, "Dense_0"))
+        self.batch_norm(_join(".", name, "norm"), _join("/", path, f"MaskedBatchNorm_{index}"))
+        self.prelu(_join(".", name, "relu"), _join("/", path, f"PReLU_{index}"))
 
     # ---- modules ----------------------------------------------------------
 
@@ -157,10 +177,156 @@ class WeightMapper:
                 self.conv(f"{t}.conv", f"{b}/Conv_0")
         self.batch_norm(f"{f}.final_norm", sub("MaskedBatchNorm_1"))
         self.prelu(f"{f}.final_relu", sub("PReLU_1"))
-        out = _join(".", name, "output_block")
-        self.linear(f"{out}.linear", sub("Dense_0"))
-        self.batch_norm(f"{out}.norm", sub("MaskedBatchNorm_2"))
-        self.prelu(f"{out}.relu", sub("PReLU_2"))
+        self.output_block(_join(".", name, "output_block"), path, index=2)
+
+    def embedder(self, name, path, cfg):
+        """The pixel embedder of ``cfg.embedder``'s family."""
+        if cfg.embedder in ("dense", "coo"):
+            self.densenet(name, path, cfg.densenet_structure)
+        elif cfg.embedder == "sparse":
+            self.sparse_densenet(name, path, cfg.densenet_structure)
+        else:
+            getattr(self, cfg.embedder)(name, path)
+
+    def resnet_block(self, name, path):
+        """sdxl's resnet block: GroupNorm, conv, GroupNorm, conv, shortcut."""
+        N, P = _prefixes(name, path)
+        self.layer_norm(f"{N}norm1", f"{P}GroupNorm_0")
+        self.conv(f"{N}conv1", f"{P}Conv_0")
+        self.layer_norm(f"{N}norm2", f"{P}GroupNorm_1")
+        self.conv(f"{N}conv2", f"{P}Conv_1")
+        if self.has(f"{P}shortcut/kernel"):
+            self.conv(f"{N}conv_shortcut", f"{P}shortcut")
+
+    def sdxl(self, name, path):
+        N, P = _prefixes(name, path)
+        e = f"{N}encoder"
+        self.conv(f"{e}.conv_in", f"{P}conv_in")
+        i = 0
+        while self.has(f"{P}DownEncoderBlock_{i}/ResnetBlock_0/Conv_0/kernel"):
+            block, j = f"{P}DownEncoderBlock_{i}", 0
+            while self.has(f"{block}/ResnetBlock_{j}/Conv_0/kernel"):
+                self.resnet_block(f"{e}.down_blocks.{i}.resnets.{j}", f"{block}/ResnetBlock_{j}")
+                j += 1
+            if self.has(f"{block}/Conv_0/kernel"):
+                self.conv(f"{e}.down_blocks.{i}.downsampler.conv", f"{block}/Conv_0")
+            i += 1
+        mid, attn = f"{e}.mid_block", f"{P}SpatialSelfAttention_0"
+        self.resnet_block(f"{mid}.resnet1", f"{P}ResnetBlock_0")
+        self.layer_norm(f"{mid}.attn.group_norm", f"{attn}/GroupNorm_0")
+        for port, jax_name in (("to_q", "q"), ("to_k", "k"), ("to_v", "v"), ("to_out", "proj")):
+            self.linear(f"{mid}.attn.{port}", f"{attn}/{jax_name}")
+        self.resnet_block(f"{mid}.resnet2", f"{P}ResnetBlock_1")
+        self.layer_norm(f"{e}.conv_norm_out", f"{P}GroupNorm_0")
+        self.conv(f"{e}.conv_out", f"{P}conv_out")
+        self.linear(f"{N}output_layer", f"{P}output_layer")
+
+    def norm_prelu(self, norm, relu, path):
+        """A ``SparseBatchNormPReLU``."""
+        self.batch_norm(norm, f"{path}/MaskedBatchNorm_0")
+        self.prelu(relu, f"{path}/PReLU_0")
+
+    def sparse_densenet(self, name, path, block_config: Sequence[int]):
+        N, P = _prefixes(name, path)
+        f = f"{N}features"
+        self.conv(f"{f}.conv0", f"{P}SparseConv_0")
+        self.norm_prelu(f"{f}.norm0", f"{f}.relu0", f"{P}SparseBatchNormPReLU_0")
+        k = 0
+        for i, num_layers in enumerate(block_config):
+            for j in range(num_layers):
+                t, b = f"{f}.dense{i + 1}.layers.{j}", f"{P}SparseDenseLayer_{k}"
+                self.norm_prelu(f"{t}.bottleneck_block.norm1", f"{t}.bottleneck_block.relu1",
+                                f"{b}/SparseBatchNormPReLU_0")
+                self.conv(f"{t}.bottleneck_block.conv1", f"{b}/SparseConv_0")
+                self.norm_prelu(f"{t}.output_block.norm2", f"{t}.output_block.relu2",
+                                f"{b}/SparseBatchNormPReLU_1")
+                self.conv(f"{t}.output_block.conv2", f"{b}/SparseConv_1")
+                k += 1
+            if i != len(block_config) - 1:
+                t, b = f"{f}.transition{i + 1}", f"{P}SparseTransition_{i}"
+                self.norm_prelu(f"{t}.norm", f"{t}.relu", f"{b}/SparseBatchNormPReLU_0")
+                self.conv(f"{t}.conv", f"{b}/SparseConv_0")
+        self.norm_prelu(f"{f}.final_norm", f"{f}.final_relu", f"{P}SparseBatchNormPReLU_1")
+        self.output_block(f"{N}output_block", path)
+
+    def fcnn(self, name, path):
+        N, P = _prefixes(name, path)
+        self.conv(f"{N}stem.conv", f"{P}SparseConv_0")
+        self.norm_prelu(f"{N}stem.norm", f"{N}stem.relu",
+                        f"{P}SparseBatchNormPReLU_0")
+        s = 0
+        while self.has(f"{P}SparseConv_{s + 1}/kernel"):
+            stage = f"{N}stages.{s}"
+            self.conv(f"{stage}.conv", f"{P}SparseConv_{s + 1}")
+            self.norm_prelu(f"{stage}.norm", f"{stage}.relu",
+                            f"{P}SparseBatchNormPReLU_{s + 1}")
+            s += 1
+        self.output_block(f"{N}output_block", path)
+
+    def convnext(self, name, path):
+        N, P = _prefixes(name, path)
+        self.conv(f"{N}stem.conv", f"{P}SparseConv_0")
+        self.layer_norm(f"{N}stem.norm", f"{P}LayerNorm_0")
+        k = 0
+        for s, depth in enumerate(CONVNEXT_DEPTHS):
+            stage = f"{N}stages.{s}"
+            if s > 0:
+                self.layer_norm(f"{stage}.downsample.norm", f"{P}LayerNorm_{s}")
+                self.conv(f"{stage}.downsample.conv", f"{P}SparseConv_{s}")
+            for b in range(depth):
+                t, p = f"{stage}.blocks.{b}", f"{P}ConvNeXtBlock_{k}"
+                self.conv(f"{t}.dwconv", f"{p}/SparseConv_0")
+                self.layer_norm(f"{t}.norm", f"{p}/LayerNorm_0")
+                self.linear(f"{t}.pwconv1", f"{p}/Dense_0")
+                self.linear(f"{t}.pwconv2", f"{p}/Dense_1")
+                self.put(f"{t}.gamma", self.take(f"{p}/layer_scale"))
+                k += 1
+        self.layer_norm(f"{N}head_norm", f"{P}LayerNorm_{len(CONVNEXT_DEPTHS)}")
+        self.output_block(f"{N}output_block", path)
+
+    def conv_block(self, name, path):
+        """MobileNet's conv, BN (its SiLU and dropout have no parameters)."""
+        N, P = _prefixes(name, path)
+        self.conv(f"{N}conv", f"{P}Conv_0")
+        self.batch_norm(f"{N}norm", f"{P}MaskedBatchNorm_0")
+
+    def mobilenet(self, name, path):
+        N, P = _prefixes(name, path)
+        self.conv_block(f"{N}resnet.0", f"{P}ConvBlock_0")
+        k = 0
+        while self.has(f"{P}InvertedResidual_{k}/Conv_0/kernel"):
+            pre, p = f"{N}resnet.{k + 1}.convolutions", f"{P}InvertedResidual_{k}"
+            i = 0
+            if self.has(f"{p}/ConvBlock_1/Conv_0/kernel"):     # an expand block
+                self.conv_block(f"{pre}.0", f"{p}/ConvBlock_0")
+                i = 1
+            self.conv_block(f"{pre}.{i}", f"{p}/ConvBlock_{i}")
+            self.linear(f"{pre}.{i + 1}.fc1", f"{p}/SqueezeExcite_0/Dense_0")
+            self.linear(f"{pre}.{i + 1}.fc2", f"{p}/SqueezeExcite_0/Dense_1")
+            self.conv(f"{pre}.{i + 2}", f"{p}/Conv_0")
+            self.batch_norm(f"{pre}.{i + 3}", f"{p}/MaskedBatchNorm_0")
+            k += 1
+        self.conv_block(f"{N}resnet.{k + 1}", f"{P}ConvBlock_1")
+
+    def resnet(self, name, path):
+        N, P = _prefixes(name, path)
+        self.conv(f"{N}stem.conv", f"{P}Conv_0")
+        self.batch_norm(f"{N}stem.norm", f"{P}MaskedBatchNorm_0")
+        self.prelu(f"{N}stem.relu", f"{P}PReLU_0")
+        k = 0
+        for layer, depth in enumerate(RESNET_BLOCK_CONFIG):
+            for b in range(depth):
+                pre, p = f"{N}blocks.{layer}.blocks.{b}", f"{P}ResNetBody_0/BasicBlock_{k}"
+                self.conv(f"{pre}.blocks.0.conv", f"{p}/Conv_0")
+                self.batch_norm(f"{pre}.blocks.0.bn", f"{p}/MaskedBatchNorm_0")
+                self.prelu(f"{pre}.blocks.1", f"{p}/PReLU_0")
+                self.conv(f"{pre}.blocks.2.conv", f"{p}/Conv_1")
+                self.batch_norm(f"{pre}.blocks.2.bn", f"{p}/MaskedBatchNorm_1")
+                if self.has(f"{p}/shortcut/kernel"):
+                    self.conv(f"{pre}.shortcut.conv", f"{p}/shortcut")
+                    self.batch_norm(f"{pre}.shortcut.bn", f"{p}/shortcut_norm")
+                k += 1
+        self.output_block(f"{N}output_block", path, index=1)
 
     def encoder_layer(self, name, path, hidden_dim: int):
         D = hidden_dim
@@ -205,8 +371,8 @@ class WeightMapper:
 
 
 def state_dict_from_jax(variables: Mapping, cfg) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for a JAX dense- or coo-family
-    ``TransformerCVN`` built from the same :class:`ModelConfig` fields.
+    """The port's ``state_dict`` for a JAX ``TransformerCVN`` built from the
+    same :class:`ModelConfig` fields.
     Raises if a JAX leaf is missing or left unused."""
     return map_jax_variables(variables, cfg).state_dict()
 
@@ -216,10 +382,8 @@ def map_jax_variables(variables: Mapping, cfg) -> WeightMapper:
     moved into its ``sd`` (and ``sources`` filled)."""
     m = WeightMapper(variables)
     pe = "prong_embedding"
-    m.densenet(f"{pe}.event_pixel_embedding", "event_pixel_embedding",
-               cfg.densenet_structure)
-    m.densenet(f"{pe}.prong_pixel_embedding", "prong_pixel_embedding",
-               cfg.densenet_structure)
+    m.embedder(f"{pe}.event_pixel_embedding", "event_pixel_embedding", cfg)
+    m.embedder(f"{pe}.prong_pixel_embedding", "prong_pixel_embedding", cfg)
     m.put(f"{pe}.event_position_embedding", m.take("event_position_embedding"))
     m.put(f"{pe}.prong_position_embedding", m.take("prong_position_embedding"))
     m.feature_embedding(f"{pe}.feature_embedding", "feature_embedding")
@@ -235,8 +399,9 @@ def map_jax_variables(variables: Mapping, cfg) -> WeightMapper:
 # JAX leaf name of each parameter, by the port module that holds it
 _LEAF_NAMES = (
     ((nn.Conv2d, nn.Linear, SpaceToDepthStem), {"weight": "kernel", "bias": "bias"}),
-    ((MaskedBatchNorm, nn.LayerNorm), {"weight": "scale", "bias": "bias"}),
+    ((MaskedBatchNorm, nn.LayerNorm, nn.GroupNorm), {"weight": "scale", "bias": "bias"}),
     ((PReLU,), {"weight": "alpha"}),
+    ((ConvNeXtBlock,), {"gamma": "layer_scale"}),
     ((SelfAttention,), {"in_proj_weight": "kernel", "in_proj_bias": "bias"}),
 )
 
@@ -245,8 +410,9 @@ def jax_leaf_names(model: nn.Module) -> Dict[str, str]:
     """For each parameter of ``model``, the name of the JAX leaf it is
     carried from by :func:`state_dict_from_jax`: ``kernel`` / ``bias`` of a
     conv or dense layer, ``scale`` / ``bias`` of a norm, ``alpha`` of a
-    PReLU, ``stem_kernel`` / ``stem_bias`` of the coo family's stem, and a
-    position or classifier vector's own name."""
+    PReLU, ``layer_scale`` of a ConvNeXt block, ``stem_kernel`` /
+    ``stem_bias`` of the coo family's stem, and a position or classifier
+    vector's own name."""
     coo_stems = {f"{name}.features.conv0" for name, module in model.named_modules()
                  if isinstance(module, CooStemDenseNet)}
     names = {}

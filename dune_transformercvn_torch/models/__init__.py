@@ -1,4 +1,5 @@
-"""Models of the port (dense and coo embedder families)."""
+"""Models of the port: the full network and every embedder family of the
+JAX package (dense, coo, sdxl, sparse, convnext, fcnn, mobilenet, resnet)."""
 
 from .coo_densenet import CooStemDenseNet
 from .network import ModelConfig, TransformerCVN

@@ -23,6 +23,28 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
+def layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax's ``LayerNorm``: statistics and affine in float32, the result in
+    ``dtype``."""
+    y = F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps)
+    return y.to(dtype)
+
+
+class OutputBlock(nn.Module):
+    """A CNN embedder's head: Linear (no bias), masked BN, PReLU, dropout."""
+
+    def __init__(self, in_features: int, output_dim: int, dropout: float = 0.0):
+        super().__init__()
+        self.linear = nn.Linear(in_features, output_dim, bias=False)
+        self.norm = MaskedBatchNorm(output_dim)
+        self.relu = PReLU(output_dim)
+        self.dropout = nn.Dropout(dropout) if dropout > 0.0 else None
+
+    def forward(self, x, mask, dtype):
+        x = self.relu(self.norm(dense(self.linear, x, dtype), mask))
+        return x if self.dropout is None else self.dropout(x)
+
+
 class LinearBlock(nn.Module):
     """Linear (no bias when BN is on) -> masked BN -> PReLU/ReLU -> Dropout."""
 

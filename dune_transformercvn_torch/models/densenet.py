@@ -25,14 +25,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.masked import MaskedBatchNorm, PReLU, remat
-from .blocks import dense
+from .blocks import OutputBlock
 
 
-def conv_nhwc(x, weight, bias, dtype, stride=1, padding=0):
+def conv_nhwc(x, weight, bias, dtype, stride=1, padding=0, groups=1):
     """2-D convolution of NHWC ``x`` with an OIHW ``weight``, in ``dtype``."""
     y = F.conv2d(
         x.to(dtype).permute(0, 3, 1, 2), weight.to(dtype),
-        None if bias is None else bias.to(dtype), stride, padding,
+        None if bias is None else bias.to(dtype), stride, padding, 1, groups,
     )
     return y.permute(0, 2, 3, 1)
 
@@ -189,12 +189,7 @@ class DenseNet(nn.Module):
         features["final_norm"] = MaskedBatchNorm(channels)
         features["final_relu"] = PReLU(channels)
         self.features = features
-        self.output_block = nn.ModuleDict(dict(
-            linear=nn.Linear(channels, output_dim, bias=False),
-            norm=MaskedBatchNorm(output_dim),
-            relu=PReLU(output_dim),
-        ))
-        self.dropout = nn.Dropout(dropout) if dropout > 0.0 else None
+        self.output_block = OutputBlock(channels, output_dim, dropout)
 
     def forward(self, images, mask: Optional[torch.Tensor] = None):
         conv0 = self.features.conv0
@@ -221,9 +216,4 @@ def densenet_post_stem(net: DenseNet, x, mask=None):
         i += 1
     x = f.final_relu(f.final_norm(x, mask))
     x = x.mean(dim=(1, 2))   # global average pool
-    out = net.output_block
-    x = dense(out.linear, x, net.compute_dtype)
-    x = out.relu(out.norm(x, mask))
-    if net.dropout is not None:
-        x = net.dropout(x)
-    return x
+    return net.output_block(x, mask, net.compute_dtype)

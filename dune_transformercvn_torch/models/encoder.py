@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import dense
+from .blocks import dense, layer_norm
 
 LAYER_NORM_EPS = 1e-6
 
@@ -89,10 +89,7 @@ class EncoderLayer(nn.Module):
         self.dropout2 = nn.Dropout(dropout)
 
     def _norm(self, norm: nn.LayerNorm, x):
-        # statistics in float32, result in the compute dtype (flax LayerNorm)
-        y = F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
-                         norm.bias, norm.eps)
-        return y.to(self.compute_dtype)
+        return layer_norm(norm, x, self.compute_dtype)
 
     def _attn_block(self, x, key_mask):
         return self.dropout1(self.self_attn(x, key_mask, self.compute_dtype))

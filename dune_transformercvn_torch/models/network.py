@@ -1,10 +1,13 @@
 """TransformerCVN: the full event + prong classification network.
 
-Port of ``dune_transformercvn_tpu/models/network.py`` for the dense and coo
-embedder families: two DenseNet pixel embedders (event and packed prong
-images; the coo family's run their stem sparsely on the hit banks), the
-prong feature embedding, learned type position embeddings, the shared
-combined LinearBlock, the masked transformer encoder and the two heads.
+Port of ``dune_transformercvn_tpu/models/network.py``: two pixel embedders
+(event and packed prong images) of the family ``ModelConfig.embedder``
+names, the prong feature embedding, learned type position embeddings, the
+shared combined LinearBlock, the masked transformer encoder and the two
+heads.  Every family but coo runs on images densified from the hit banks
+(kernel K1 on the card); the coo family's DenseNet runs its stem sparsely on
+the banks (kernel K2).  The sdxl family can run its embedders over the bank
+in chunks (:func:`apply_embedder`).
 
 Module names follow the reference ``state_dict``: everything that builds the
 tokens sits under ``prong_embedding.`` (``event_pixel_embedding``,
@@ -18,11 +21,14 @@ torch's ``module.train()``: batch statistics, dropout and pixel noise.
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import dataclass
+from functools import partial
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy
 
 from ..ops.masked import remat
 from ..ops.scatter import densify_images, pack_rows, pad_rows
@@ -31,6 +37,12 @@ from .coo_densenet import CooStemDenseNet
 from .densenet import DenseNet, SpaceToDepthStem
 from .encoder import SelfAttention, TransformerEncoder
 from .heads import EventDecoder, ProngDecoder
+from .mobilenet import DEFAULT_STRUCTURE, MobileNetV2
+from .resnet import ResNetStack
+from .sdxl import SDXLEncoder
+from .sparse_convnext import SparseConvNeXt
+from .sparse_densenet import SparseDenseNet
+from .sparse_fcnn import SparseFCNN
 
 
 @dataclass(frozen=True)
@@ -56,6 +68,7 @@ class ModelConfig:
     densenet_structure: Tuple[int, ...] = (6, 12, 24, 16)
     densenet_growth_rate: int = 16
     densenet_batch_norm_size: int = 4
+    mobilenet_structure: Optional[Tuple[Tuple[int, ...], ...]] = None
     dropout: float = 0.0
     pixel_noise_std: float = 0.01
     # data dims
@@ -72,7 +85,8 @@ class ModelConfig:
     # ClassifierProng variant: decode the event class from a learned token
     # placed ahead of the event-image token
     learned_classifier_token: bool = False
-    # embedder family; the port runs 'dense' and 'coo'
+    # embedder family: 'dense' | 'coo' | 'sdxl' | 'sparse' | 'mobilenet'
+    # | 'resnet' | 'convnext' | 'fcnn'
     embedder: str = "dense"
     compute_dtype: str = "bfloat16"
     # dense family: the 7x7/2 stem as a 4x4/1 conv over 2x2 space-to-depth
@@ -85,6 +99,11 @@ class ModelConfig:
     # recompute in the backward: each DenseNet bottleneck, each whole embedder
     remat_cnn: bool = False
     remat_embedder: bool = False
+    # sdxl only: run the embedders over the bank in sequential chunks of
+    # this many rows, each recomputed in the backward (0 = off); and within
+    # a chunk keep the conv outputs of at most this many pixels (0 = none)
+    embedder_chunk: int = 0
+    embedder_chunk_save_spatial: int = 0
 
     @classmethod
     def from_options(
@@ -105,8 +124,7 @@ class ModelConfig:
                 "embedder_chunk is only valid with the sdxl embedder: its "
                 "GroupNorm is per-sample so chunked == full-bank exactly; "
                 "the BatchNorm families compute bank-wide statistics "
-                f"(got embedder={embedder!r}); the port has no sdxl family "
-                "yet (ROADMAP.md §1 item 14)"
+                f"(got embedder={embedder!r})"
             )
         if split and (
             getattr(options, "event_current_targets", False)
@@ -139,6 +157,10 @@ class ModelConfig:
             densenet_structure=tuple(options.densenet_structure),
             densenet_growth_rate=options.densenet_growth_rate,
             densenet_batch_norm_size=options.densenet_batch_norm_size,
+            mobilenet_structure=(
+                tuple(tuple(row) for row in options.mobilenet_structure)
+                if options.mobilenet_structure else None
+            ),
             dropout=options.dropout,
             pixel_noise_std=options.pixel_noise_std,
             features_dim=features_dim,
@@ -156,6 +178,9 @@ class ModelConfig:
             transition_pool_first=bool(getattr(options, "transition_pool_first", False)),
             remat_cnn=bool(options.remat_cnn),
             remat_embedder=bool(getattr(options, "remat_embedder", False)),
+            embedder_chunk=chunk,
+            embedder_chunk_save_spatial=int(
+                getattr(options, "embedder_chunk_save_spatial", 0) or 0),
         )
 
     @property
@@ -167,6 +192,101 @@ class ModelConfig:
         return self.pixel_channels * 256 if self.one_hot_pixels else self.pixel_channels
 
 
+def _densenet(cfg: ModelConfig, **kwargs):
+    return dict(initial_features=cfg.initial_pixel_dim,
+                growth_rate=cfg.densenet_growth_rate,
+                batch_norm_size=cfg.densenet_batch_norm_size,
+                block_config=cfg.densenet_structure, dropout=cfg.dropout,
+                remat=cfg.remat_cnn, **kwargs)
+
+
+# embedder family -> (module class, its constructor's keywords from the
+# config); every class takes (in_channels, output_dim, ..., compute_dtype)
+_EMBEDDERS = {
+    "dense": (DenseNet, lambda cfg: _densenet(
+        cfg, stem_space_to_depth=cfg.stem_space_to_depth,
+        transition_pool_first=cfg.transition_pool_first)),
+    "coo": (CooStemDenseNet, lambda cfg: _densenet(
+        cfg, image_height=cfg.image_height, image_width=cfg.image_width,
+        transition_pool_first=cfg.transition_pool_first)),
+    "sdxl": (SDXLEncoder, lambda cfg: dict(
+        init_block_dim=cfg.initial_pixel_dim,
+        image_shape=(cfg.image_height, cfg.image_width))),
+    "sparse": (SparseDenseNet, _densenet),
+    "mobilenet": (MobileNetV2, lambda cfg: dict(
+        initial_features=cfg.initial_pixel_dim,
+        structure=cfg.mobilenet_structure or DEFAULT_STRUCTURE,
+        input_shape=(cfg.image_height, cfg.image_width), dropout=cfg.dropout)),
+    "resnet": (ResNetStack, lambda cfg: dict(
+        initial_features=cfg.initial_pixel_dim, dropout=cfg.dropout)),
+    "convnext": (SparseConvNeXt, lambda cfg: dict(
+        drop_path_rate=cfg.dropout, dropout=cfg.dropout)),
+    "fcnn": (SparseFCNN, lambda cfg: dict(
+        initial_features=cfg.initial_pixel_dim, dropout=cfg.dropout)),
+}
+
+
+def create_pixel_embedder(cfg: ModelConfig, output_dim: int) -> nn.Module:
+    """The configured embedder family, mapping NHWC images ``[N, H, W, C]``
+    (the coo family: a hit bank) and a slot mask to ``[N, output_dim]``."""
+    try:
+        family, kwargs = _EMBEDDERS[cfg.embedder]
+    except KeyError:
+        raise ValueError(f"unknown embedder family: {cfg.embedder}") from None
+    return family(cfg.cnn_input_channels, output_dim, compute_dtype=cfg.dtype,
+                  **kwargs(cfg))
+
+
+def _save_small_convs(threshold: int, ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: keep each convolution output of at most
+    ``threshold`` pixels, recompute everything else.  The policy sees the
+    op's inputs, so the output extent comes from the input extent, kernel,
+    stride, padding and dilation.  (JAX tags the resnets', shortcuts' and
+    downsamples' outputs by name; this keeps ``conv_out``'s 1x1 output too,
+    which changes what is stored, not the numbers.)"""
+    if op is torch.ops.aten.convolution.default:
+        x, weight, _, stride, padding, dilation = args[:6]
+        pixels = 1
+        for i in range(2):
+            k = dilation[i] * (weight.shape[2 + i] - 1) + 1
+            pixels *= (x.shape[2 + i] + 2 * padding[i] - k) // stride[i] + 1
+        if pixels <= threshold:
+            return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def apply_embedder(cnn: nn.Module, images, mask, chunk: int = 0, save_spatial: int = 0):
+    """``cnn(images, mask)``, or over the bank in sequential ``chunk``-row
+    slices (``cfg.embedder_chunk``), each under :func:`..ops.masked.remat`:
+    only one chunk's activations are live at a time, in the forward and in
+    the backward's recompute.  The parameters are the same either way, and
+    since sdxl's GroupNorm is per sample, so is the output.
+
+    A bank no larger than ``chunk`` runs as one rematted slice; a larger
+    bank that ``chunk`` does not divide runs as one full-bank call, with a
+    warning.  A coo hit bank (a tuple) is never chunked.  ``save_spatial``
+    > 0 keeps the conv outputs of at most that many pixels for the backward
+    (:func:`_save_small_convs`) and recomputes the rest.
+    """
+    if chunk <= 0 or isinstance(images, tuple):
+        return cnn(images, mask)
+    n = images.shape[0]
+    chunk = min(chunk, n)
+    if n % chunk != 0:
+        warnings.warn(
+            f"embedder_chunk={chunk} does not divide bank size {n}; "
+            f"falling back to ONE full-bank call — expect the OOM "
+            f"chunking was meant to avoid. Pick a chunk dividing {n}.",
+            stacklevel=2,
+        )
+        return cnn(images, mask)
+    policy = partial(_save_small_convs, save_spatial) if save_spatial > 0 else None
+    return torch.cat([
+        remat(cnn, images[i:i + chunk], None if mask is None else mask[i:i + chunk],
+              policy=policy)
+        for i in range(0, n, chunk)])
+
+
 class ProngEmbedding(nn.Module):
     """Holder of the token-building modules under the reference's
     ``prong_embedding.`` prefix; :class:`TransformerCVN` drives them."""
@@ -175,25 +295,8 @@ class ProngEmbedding(nn.Module):
         super().__init__()
         dt = cfg.dtype
         event_pixel_dim = cfg.pixel_embedding_dim + cfg.feature_embedding_dim
-        cnn = dict(
-            in_channels=cfg.cnn_input_channels,
-            initial_features=cfg.initial_pixel_dim,
-            growth_rate=cfg.densenet_growth_rate,
-            batch_norm_size=cfg.densenet_batch_norm_size,
-            block_config=cfg.densenet_structure,
-            dropout=cfg.dropout,
-            transition_pool_first=cfg.transition_pool_first,
-            remat=cfg.remat_cnn,
-            compute_dtype=dt,
-        )
-        if cfg.embedder == "coo":
-            family = CooStemDenseNet
-            cnn.update(image_height=cfg.image_height, image_width=cfg.image_width)
-        else:
-            family = DenseNet
-            cnn.update(stem_space_to_depth=cfg.stem_space_to_depth)
-        self.event_pixel_embedding = family(output_dim=event_pixel_dim, **cnn)
-        self.prong_pixel_embedding = family(output_dim=cfg.pixel_embedding_dim, **cnn)
+        self.event_pixel_embedding = create_pixel_embedder(cfg, event_pixel_dim)
+        self.prong_pixel_embedding = create_pixel_embedder(cfg, cfg.pixel_embedding_dim)
         self.feature_embedding = FeatureEmbedding(
             cfg.features_dim + cfg.extra_dim,
             output_dim=cfg.feature_embedding_dim,
@@ -220,7 +323,7 @@ class ProngEmbedding(nn.Module):
 
 
 class TransformerCVN(nn.Module):
-    """Full network, dense or coo embedder family.
+    """Full network, of any embedder family.
 
     Weights are drawn from ``generator`` (flax's initialisers: LeCun-normal
     kernels, zero biases, unit-normal position vectors), so a seed fixes them.
@@ -229,10 +332,6 @@ class TransformerCVN(nn.Module):
     def __init__(self, cfg: ModelConfig,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.embedder not in ("dense", "coo"):
-            raise NotImplementedError(
-                f"embedder {cfg.embedder!r} is not ported yet (ROADMAP.md, "
-                "open items 14-16); the port runs the dense and coo families")
         self.cfg = cfg
         dt = cfg.dtype
         self.prong_embedding = ProngEmbedding(cfg)
@@ -281,7 +380,7 @@ class TransformerCVN(nn.Module):
         Returns float32 ``(event_logits [B, Kev], prong_logits [B, P, Kpr])``.
 
         The coo family feeds the hit banks straight to its sparse stem
-        (kernel K2 on the card); the dense family densifies them first
+        (kernel K2 on the card); every other family densifies them first
         (kernel K1 on the card).
         """
         cfg = self.cfg
@@ -332,8 +431,13 @@ class TransformerCVN(nn.Module):
         prong_mask = prong_mask.bool()
 
         # remat_embedder: only each embedder's inputs and output are kept
-        # for the backward, which recomputes the CNN
-        embed = remat if cfg.remat_embedder else nn.Module.__call__
+        # for the backward, which recomputes the CNN (its chunk loop too)
+        def embed(cnn, images, mask):
+            run = partial(apply_embedder, cnn, chunk=cfg.embedder_chunk,
+                          save_spatial=cfg.embedder_chunk_save_spatial)
+            return remat(cnn, images, mask, call=run) if cfg.remat_embedder else run(
+                images, mask)
+
         event_pixel_emb = embed(pe.event_pixel_embedding, event_images, None)
         prong_pixel_emb = embed(pe.prong_pixel_embedding, prong_images, slot_mask)
 

@@ -1,5 +1,6 @@
-"""Tensor ops of the port: masked primitives, scatter/gather, losses, kernel
-K1 (densify) and kernel K2 (the sparse stem's scatter)."""
+"""Tensor ops of the port: masked primitives, scatter/gather, losses, the
+sparse-grid engine (``ops.sparse``), kernel K1 (densify) and kernel K2 (the
+sparse stem's scatter)."""
 
 from .coo_conv import coo_stem_conv
 from .coo_stem import (ScatterPatches, coo_stem_conv_cuda, scatter_patches_cuda,

@@ -18,22 +18,23 @@ loads as it is.
   the global batch.  The all-reduce is autograd-aware: its backward sums the
   cotangent over the group, as ``lax.psum``'s transpose does.
 * **Recompute.**  :func:`remat` runs a module under non-reentrant
-  ``torch.utils.checkpoint`` (JAX's ``nn.remat``).  The backward re-runs it
-  with the random state of the first run, and the BatchNorms inside leave
-  their running statistics alone during that re-run: JAX's functional remat
-  updates them once.
+  ``torch.utils.checkpoint`` (JAX's ``nn.remat``), optionally with a
+  selective-checkpoint policy (JAX's ``save_only_these_names``).  The
+  backward re-runs it with the random state of the first run, and the
+  BatchNorms inside leave their running statistics alone during that
+  re-run: JAX's functional remat updates them once.
 """
 
 from __future__ import annotations
 
 import math
 from contextlib import contextmanager, nullcontext
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 
 class PReLU(nn.Module):
@@ -160,24 +161,38 @@ def sync_batch_norm(model: nn.Module, group) -> nn.Module:
 
 
 @contextmanager
-def _frozen(norms: Sequence[MaskedBatchNorm]):
+def _frozen(norms: Sequence[MaskedBatchNorm], inner=None):
     for norm in norms:
         norm.frozen_stats += 1
     try:
-        yield
+        with inner or nullcontext():
+            yield
     finally:
         for norm in norms:
             norm.frozen_stats -= 1
 
 
-def remat(module: nn.Module, *args):
-    """``module(*args)``, keeping only its inputs for the backward, which
-    recomputes the rest (non-reentrant ``torch.utils.checkpoint``).  The
-    recompute draws the dropout of the first run and leaves the running
-    statistics of the module's BatchNorms as the first run left them.
-    Without autograd it is a plain call."""
+def remat(module: nn.Module, *args, call: Optional[Callable] = None,
+          policy: Optional[Callable] = None):
+    """``module(*args)`` (or ``call(*args)``, a function that runs
+    ``module``), keeping only its inputs for the backward, which recomputes
+    the rest (non-reentrant ``torch.utils.checkpoint``).  The recompute
+    draws the dropout of the first run and leaves the running statistics of
+    the module's BatchNorms as the first run left them.  ``policy``, a
+    selective-checkpoint policy (``fn(ctx, op, *args, **kwargs) ->
+    CheckpointPolicy``), keeps the outputs of the ops it marks
+    ``MUST_SAVE`` instead of recomputing them.  Without autograd it is a
+    plain call."""
+    call = module if call is None else call
     if not torch.is_grad_enabled():
-        return module(*args)
+        return call(*args)
     norms = [m for m in module.modules() if isinstance(m, MaskedBatchNorm)]
-    return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=True,
-                      context_fn=lambda: (nullcontext(), _frozen(norms)))
+
+    def contexts():
+        if policy is None:
+            return nullcontext(), _frozen(norms)
+        forward, recompute = create_selective_checkpoint_contexts(policy)
+        return forward, _frozen(norms, recompute)
+
+    return checkpoint(call, *args, use_reentrant=False, preserve_rng_state=True,
+                      context_fn=contexts)

@@ -54,6 +54,9 @@ KINDS = (
     ("coo stem scatter (K2)", ("coo_stem",)),
     ("pooling", ("pool",)),
     ("softmax / attention", ("softmax", "attention", "fmha", "flash")),
+    ("group norm", ("groupnorm", "group_norm", "rowwisemoments", "computefusedparams",
+                    "computeinternalgradients", "gammabeta")),
+    ("layout transpose", ("nchwtonhwc", "nhwctonchw")),
     ("convolution", ("conv", "fprop", "implicit", "xmma", "winograd", "nhwc", "nchw")),
     ("gemm", ("gemm", "cublas", "cutlass", "matmul")),
     ("reduction", ("reduce",)),

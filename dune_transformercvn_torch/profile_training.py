@@ -1,8 +1,10 @@
 """Where the training step's time goes on one GPU.
 
     python -m dune_transformercvn_torch.profile_training [--out FILE]
+        [--embedders coo,dense] [--embedder_chunk N]
 
-For the coo and the dense family, with the production option file at full
+For each family of ``--embedders`` (default the coo and the dense family;
+``--embedder_chunk`` applies to sdxl), with the production option file at full
 width in bfloat16 (its AdamW, schedule, clip, dropout and pixel noise),
 random weights from seed 0 and batches of 16 events made in memory
 (:class:`.data.InMemoryEvents`):
@@ -40,9 +42,10 @@ BATCH, WARMUP, TIMED, PROFILED, SEED = 16, 3, 10, 3, 0
 RANGES = ("train_step.forward", "train_step.backward", "train_step.optimizer")
 
 
-def setup(embedder):
+def setup(embedder, chunk=0):
     options = Options.load(OPTION_FILE)
-    cfg = dataclasses.replace(production_config("bfloat16"), embedder=embedder)
+    cfg = dataclasses.replace(production_config("bfloat16"), embedder=embedder,
+                              embedder_chunk=chunk if embedder == "sdxl" else 0)
     steps = WARMUP + TIMED + PROFILED
     ds = InMemoryEvents(BATCH * steps, SEED + 3)
     batcher = Batcher(ds, batch_size=BATCH, shuffle=True, seed=SEED)
@@ -116,12 +119,17 @@ def profiled(state, step, batches):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=None, help="write the results here as JSON")
+    p.add_argument("--embedders", default="coo,dense",
+                   help="comma-separated embedder families to time and profile")
+    p.add_argument("--embedder_chunk", type=int, default=0,
+                   help="the sdxl family's embedder_chunk")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_training needs a CUDA device")
     results = {"device": torch.cuda.get_device_name(0), "torch": torch.__version__,
                "batch_size": BATCH, "families": {}}
-    runs = {embedder: setup(embedder) for embedder in ("coo", "dense")}
+    runs = {embedder: setup(embedder, args.embedder_chunk)
+            for embedder in args.embedders.split(",")}
     # every family is timed before the first profiler session: a session
     # slows the host-bound work after it in the same process
     for embedder, run in runs.items():

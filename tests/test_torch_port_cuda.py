@@ -13,7 +13,11 @@ CPU; kernel K2 (the coo stem's scatter) against its plain version forward
 and backward, where tiles meet, its binning pass against the plain binning,
 its input checks, and the coo network on the card against the CPU.  The
 Trainer lands on the card when no device is given, and a train state it
-checkpoints restores onto the card bit for bit.
+checkpoints restores onto the card bit for bit.  Each of the other families'
+tiny networks on the card against the CPU (K1 twice a forward), sdxl's
+chunked embedder on the card against its full bank (forward and
+gradients, with the save-spatial policy too), and the sparse-grid ops on
+the card against the CPU.
 """
 
 import numpy as np
@@ -400,3 +404,89 @@ def test_trainer_batches_come_from_pinned_memory(cuda):
         for key, tensor in got.items():
             assert tensor.is_cuda
             np.testing.assert_array_equal(tensor.cpu().numpy(), ref[key])
+
+
+# ---------------------------------------------------------------------------
+# the families beyond dense and coo
+# ---------------------------------------------------------------------------
+
+FAMILY_SHAPES = {"sdxl": (400, 280), "sparse": (48, 40), "convnext": (48, 40),
+                 "fcnn": (48, 40), "mobilenet": (48, 40), "resnet": (48, 40)}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_SHAPES))
+def test_family_network_on_the_card_matches_the_cpu(cuda, family):
+    """Each family's tiny network, float32 with TF32 off, train mode (batch
+    statistics), through K1 on the card and the plain densify on the CPU;
+    sdxl in chunks of 2."""
+    from dune_transformercvn_torch.data import Batcher
+    from dune_transformercvn_torch.predict import to_device
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape = FAMILY_SHAPES[family]
+    cfg = ModelConfig(
+        hidden_dim=32, initial_feature_dim=8, initial_pixel_dim=4 if family == "sdxl" else 8,
+        feature_embedding_dim=8, pixel_embedding_dim=16, position_embedding_dim=8,
+        num_encoder_layers=1, num_prong_decoder_layers=2, num_attention_heads=4,
+        densenet_structure=(2, 2), densenet_growth_rate=8,
+        mobilenet_structure=((1, 8, 1, 1), (6, 16, 2, 2)), image_height=shape[0],
+        image_width=shape[1], compute_dtype="float32", embedder=family,
+        embedder_chunk=2 if family == "sdxl" else 0, dropout=0.0, pixel_noise_std=0.0)
+    ds = InMemoryEvents(4, 3, shape)
+    batch = Batcher(ds, batch_size=4).build_batch(np.arange(4))
+    model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(1)).train()
+    before = k1.densify_images_cuda.launches
+    with torch.no_grad():
+        want = model(to_device(batch, "cpu"), to_device(ds.norm(), "cpu"))
+        model.to(cuda)
+        got = model(to_device(batch, cuda), to_device(ds.norm(), cuda))
+    assert k1.densify_images_cuda.launches == before + 2
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-3)
+
+
+def test_sdxl_chunks_on_the_card_equal_the_full_bank(cuda):
+    """Forward and gradients of the sdxl embedder in chunks of 2, with and
+    without the save-spatial policy, against one full-bank call on the card."""
+    from dune_transformercvn_torch.models.network import apply_embedder
+    from dune_transformercvn_torch.models.sdxl import SDXLEncoder
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    cnn = SDXLEncoder(3, 8, 4).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = (torch.rand(6, 400, 280, 3, device=cuda, generator=gen) < 0.02).float()
+
+    def run(**kwargs):
+        cnn.zero_grad()
+        out = apply_embedder(cnn, x, None, **kwargs)
+        (out * torch.linspace(-1, 1, out.numel(), device=cuda).reshape(out.shape)).sum().backward()
+        return out.detach(), [p.grad.clone() for p in cnn.parameters()]
+
+    full = run()
+    for kwargs in (dict(chunk=2), dict(chunk=2, save_spatial=100)):
+        out, grads = run(**kwargs)
+        torch.testing.assert_close(out, full[0], rtol=1e-4, atol=1e-5)
+        for g, w in zip(grads, full[1]):
+            torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("kernel,stride", [(3, 1), (2, 2), (7, 2), (4, 4)])
+def test_sparse_ops_on_the_card_match_the_cpu(cuda, kernel, stride):
+    from dune_transformercvn_torch.ops import sparse
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(kernel + stride)
+    occupancy = torch.rand(3, 37, 29, generator=gen) < 0.1
+    features = torch.randn(3, 37, 29, 8, generator=gen) * occupancy[..., None]
+    weight = torch.randn(16, 8, kernel, kernel, generator=gen) / kernel
+    cpu = sparse.SparseGrid(features, occupancy)
+    card = sparse.SparseGrid(features.to(cuda), occupancy.to(cuda))
+    for op in (lambda g: sparse.sparse_conv(g, weight.to(g.features.device), stride),
+               lambda g: sparse.sparse_avg_pool(g, kernel, stride)):
+        want, got = op(cpu), op(card)
+        assert torch.equal(got.occupancy.cpu(), want.occupancy)
+        torch.testing.assert_close(got.features.cpu(), want.features, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(sparse.sparse_global_avg_pool(card).cpu(),
+                               sparse.sparse_global_avg_pool(cpu), rtol=1e-5, atol=1e-6)

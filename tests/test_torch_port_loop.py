@@ -69,16 +69,17 @@ def tiny_options(cls=Options, **overrides):
     return options
 
 
-def small_synthetic_file(path, num_events, seed):
-    """``make_synthetic_file`` with the hit coordinates scaled to 48x40."""
+def small_synthetic_file(path, num_events, seed, shape=(H, W)):
+    """``make_synthetic_file`` with the hit coordinates scaled to ``shape``
+    (48x40 by default)."""
     make_synthetic_file(str(path), num_events=num_events, seed=seed)
     with h5py.File(path, "r+") as f:
         for key in ("event_pixels_coordinates", "prong_pixels_coordinates"):
             coords = f[key][:]
-            coords[:, 1] = coords[:, 1] * H // 400
-            coords[:, 2] = coords[:, 2] * W // 280
+            coords[:, 1] = coords[:, 1] * shape[0] // 400
+            coords[:, 2] = coords[:, 2] * shape[1] // 280
             f[key][...] = coords
-        f["full_pixels_shape"][...] = np.array([3, H, W])
+        f["full_pixels_shape"][...] = np.array([3, *shape])
     return str(path)
 
 
@@ -195,12 +196,14 @@ def test_predictions_h5_matches_jax(tmp_path):
             np.testing.assert_array_equal(got[key][:], want[key][:])
 
 
-@pytest.mark.parametrize("family", ["dense", "coo"])
+@pytest.mark.parametrize("family", ["dense", "coo", "sdxl", "sparse", "convnext", "fcnn",
+                                    "mobilenet", "resnet"])
 def test_param_count_matches_jax(synthetic_file, family):
     """Parameters only on both sides: BatchNorm statistics are buffers in the
     port and ``batch_stats`` in JAX."""
     dims = dict(features_dim=6, extra_dim=4, pixel_channels=3, num_event_classes=4,
-                num_prong_classes=8, image_shape=(H, W), embedder=family)
+                num_prong_classes=8, embedder=family,
+                image_shape=(400, 280) if family == "sdxl" else (H, W))
     jax_cfg = JaxModelConfig.from_options(tiny_options(JaxOptions), **dims)
     ds = JaxEventDataset(synthetic_file, event_current_targets=True)
     ds.compute_statistics()

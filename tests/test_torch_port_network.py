@@ -297,17 +297,20 @@ def test_network_bfloat16_matches_jax(setup, train):
         np.testing.assert_allclose(got16, want16, rtol=0, atol=bound, err_msg=name)
 
 
-@pytest.mark.parametrize("family", ["dense", "coo"])
+@pytest.mark.parametrize("family", ["dense", "coo", "sparse", "convnext", "fcnn",
+                                    "mobilenet", "resnet"])
 def test_embedder_chunk_is_rejected_as_in_jax(family):
-    """``embedder_chunk`` is only for the sdxl family, which the port does
-    not have yet: both packages raise the same error for the others."""
+    """``embedder_chunk`` is only for the sdxl family: both packages raise
+    the same error for the BatchNorm families, whose statistics span the
+    bank."""
     options = Options()
     options.embedder_chunk = 4
     match = r"embedder_chunk is only valid with the sdxl embedder.*\(got embedder="
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match=match) as jax_error:
         JaxModelConfig.from_options(options, 6, 4, 3, 4, 8, embedder=family)
-    with pytest.raises(ValueError, match=match + ".*item 14"):
+    with pytest.raises(ValueError, match=match) as port_error:
         ModelConfig.from_options(options, 6, 4, 3, 4, 8, embedder=family)
+    assert str(port_error.value) == str(jax_error.value)
 
 
 def test_model_config_from_options_matches_jax():
@@ -325,10 +328,11 @@ def test_model_config_from_options_matches_jax():
 
 
 def test_only_the_dense_family_is_ported():
-    """Families beyond dense and coo are not ported yet."""
+    """Every family of the JAX package is ported (``test_torch_port_families.py``);
+    a name outside the registry raises JAX's error."""
     _, port_cfg = tiny_config()
-    with pytest.raises(NotImplementedError, match="sdxl"):
-        TransformerCVN(dataclasses.replace(port_cfg, embedder="sdxl"))
+    with pytest.raises(ValueError, match="unknown embedder family: vit"):
+        TransformerCVN(dataclasses.replace(port_cfg, embedder="vit"))
 
 
 def test_in_memory_events_batch_like_the_hdf5_dataset(data):

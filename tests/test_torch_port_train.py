@@ -1,6 +1,6 @@
 """The port's training pieces against the JAX package: losses, schedules,
-the decay rule, global-norm clipping, one and three train steps of the
-dense and the coo family, and the eval step with its metrics.
+the decay rule (every family), global-norm clipping, one and three train
+steps of the dense and the coo family, and the eval step with its metrics.
 
 Networks are tiny (48x40 images, DenseNet [2, 2], two encoder layers),
 float32, dropout 0, pixel noise 0, weights from seeded numpy carried by
@@ -47,7 +47,8 @@ from dune_transformercvn_torch.train import (create_optimizer, create_train_stat
                                              init_metric_state, make_eval_step,
                                              make_train_step, schedules)
 from dune_transformercvn_torch.train.optimizer import clip_by_global_norm_, global_norm
-from test_torch_port_coo import Scaled, tiny_coo_config  # same-dir test helpers
+from _torch_families import batches_and_norm, family_configs  # same-dir test helpers
+from test_torch_port_coo import Scaled, tiny_coo_config
 from test_torch_port_network import random_variables
 
 torch.set_num_threads(1)
@@ -142,7 +143,9 @@ def test_schedule_from_options_matches_jax(cycles):
         np.testing.assert_allclose(ours(s), float(theirs(s)), rtol=1e-6, atol=1e-6)
 
 
-def batch_and_norm(synthetic_file, count=1):
+def batch_and_norm(synthetic_file, count=1, family="coo"):
+    if family not in ("dense", "coo"):
+        return batches_and_norm(synthetic_file, family, count)
     ds = EventDataset(synthetic_file, limit_index=(0.0, 0.3), event_current_targets=True)
     ds.compute_statistics()
     norm = {"mean": ds.mean, "std": ds.std,
@@ -153,6 +156,8 @@ def batch_and_norm(synthetic_file, count=1):
 
 
 def family_config(family, **overrides):
+    if family not in ("dense", "coo"):
+        return family_configs(family, disable_smart_features=False, **overrides)
     cfg, port_cfg = tiny_coo_config(disable_smart_features=False, **overrides)
     if family == "dense":
         cfg = dataclasses.replace(cfg, embedder="dense")
@@ -160,12 +165,13 @@ def family_config(family, **overrides):
     return cfg, port_cfg
 
 
-@pytest.mark.parametrize("family", ["dense", "coo"])
+@pytest.mark.parametrize("family", ["dense", "coo", "sdxl", "sparse", "convnext", "fcnn",
+                                    "mobilenet", "resnet"])
 def test_decay_mask_matches_jax_leaf_by_leaf(family, synthetic_file):
     """The port's decay groups, carried leaf by leaf through ``from_jax``'s
-    mapping, are JAX's ``decay_mask``; the coo stem's ``stem_bias`` is
-    decayed though it is stored as ``conv0.bias``."""
-    (batch,), norm = batch_and_norm(synthetic_file)
+    mapping, are JAX's ``decay_mask``, for every family; the coo stem's
+    ``stem_bias`` is decayed though it is stored as ``conv0.bias``."""
+    (batch,), norm = batch_and_norm(synthetic_file, family=family)
     cfg, port_cfg = family_config(family)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     variables = random_variables(JaxTransformerCVN(cfg), 1, jb,
@@ -183,8 +189,9 @@ def test_decay_mask_matches_jax_leaf_by_leaf(family, synthetic_file):
             assert want[leaf] == flag, (name, leaf)
             covered.add(leaf)
     assert covered == set(want)
-    stem_bias = "prong_embedding.event_pixel_embedding.features.conv0.bias"
-    assert got[stem_bias] is (family == "coo")
+    if family in ("dense", "coo"):
+        stem_bias = "prong_embedding.event_pixel_embedding.features.conv0.bias"
+        assert got[stem_bias] is (family == "coo")
     assert not got["encoder.encoder.layers.0.self_attn.in_proj_bias"]
     assert got["encoder.encoder.layers.0.norm1.weight"]
 
@@ -238,10 +245,12 @@ def step_options(cls, clip, warmup_epochs):
 STEPS_PER_EPOCH = 4
 
 
-def start_both(family, clip, warmup_epochs, batches, norm, **overrides):
+def start_both(family, clip, warmup_epochs, batches, norm, port_only=None, **overrides):
     """The same weights in a JAX train state and in a port train state
-    (``overrides``: model config fields, on both sides)."""
+    (``overrides``: model config fields, on both sides; ``port_only``: on
+    the port's side alone)."""
     cfg, port_cfg = family_config(family, **overrides)
+    port_cfg = dataclasses.replace(port_cfg, **(port_only or {}))
     jax_model = JaxTransformerCVN(cfg)
     jb = {k: jnp.asarray(v) for k, v in batches[0].items()}
     jn = {k: jnp.asarray(v) for k, v in norm.items()}
@@ -253,7 +262,7 @@ def start_both(family, clip, warmup_epochs, batches, norm, **overrides):
         tree = variables["params"][embedder]
         if "stem_bias" in tree:
             tree["stem_bias"] = np.zeros_like(tree["stem_bias"])
-        else:
+        elif "bias" in tree.get("Conv_0", {}):
             tree["Conv_0"]["bias"] = np.zeros_like(tree["Conv_0"]["bias"])
     jopts = step_options(JaxOptions, clip, warmup_epochs)
     tx = jax_create_optimizer(jopts, jax_schedules.from_options(jopts, STEPS_PER_EPOCH))
@@ -288,15 +297,16 @@ def test_remat_train_steps_match_jax(synthetic_file):
                       remat_cnn=True, remat_embedder=True)
 
 
-@pytest.mark.parametrize("family", ["dense", "coo"])
+@pytest.mark.parametrize("family", ["dense", "coo", "sparse", "convnext"])
 @pytest.mark.parametrize("option", ["remat_cnn", "remat_embedder"])
 def test_remat_steps_equal_plain_steps_bit_for_bit(synthetic_file, family, option):
-    """Two steps with dropout and pixel noise on: with either memory option
-    the loss, the metrics, every gradient and, after the steps, every
-    parameter and BatchNorm statistic equal the plain steps' bit for bit.
-    The recompute draws the first run's dropout, and the running
-    statistics move once a step, not again in the recompute."""
-    batches, norm = batch_and_norm(synthetic_file, 2)
+    """Two steps with dropout and pixel noise on (and drop-path, convnext):
+    with either memory option the loss, the metrics, every gradient and,
+    after the steps, every parameter and BatchNorm statistic equal the plain
+    steps' bit for bit.  The recompute draws the first run's dropout, and
+    the running statistics move once a step, not again in the recompute.
+    (convnext does not read ``remat_cnn``: there the two runs are plain.)"""
+    batches, norm = batch_and_norm(synthetic_file, 2, family)
 
     def run(**flags):
         port_cfg = dataclasses.replace(family_config(family)[1], dropout=0.2,
@@ -321,7 +331,8 @@ def test_remat_steps_equal_plain_steps_bit_for_bit(synthetic_file, family, optio
         assert torch.equal(remat_state[name], tensor), name
 
 
-def check_train_steps(synthetic_file, family, steps, clip, warmup, **overrides):
+def check_train_steps(synthetic_file, family, steps, clip, warmup, port_only=None,
+                      **overrides):
     """Loss, metrics, grad_norm, BatchNorm statistics and parameters after
     the steps.  Parameters: an Adam step moves an element by
     ``lr * m / (sqrt(v) + eps)``, about +-lr wherever |g| >> eps = 1e-8,
@@ -332,9 +343,9 @@ def check_train_steps(synthetic_file, family, steps, clip, warmup, **overrides):
     gradient of rounding noise, and a weight whose gradient cancels can
     differ by a factor of two between the frameworks, moving the update by a
     fraction of lr.  There only the bound ``2 * steps * lr`` is checked."""
-    batches, norm = batch_and_norm(synthetic_file, steps)
+    batches, norm = batch_and_norm(synthetic_file, steps, family)
     (jax_model, jopts, tx, mesh, jax_state), (model, opts, state), port_cfg = start_both(
-        family, clip, warmup, batches, norm, **overrides)
+        family, clip, warmup, batches, norm, port_only, **overrides)
     assert (port_cfg.remat_cnn, port_cfg.remat_embedder) == (
         jax_model.cfg.remat_cnn, jax_model.cfg.remat_embedder)
     jax_step = jax_make_train_step(jax_model, tx, jopts, mesh)

@@ -6,6 +6,8 @@
   the port's ``state_dict`` read by the importer (so the port's names are
   the reference network's);
 * ``load_jax_variables`` is strict both ways;
+* every other family's mapping takes each JAX leaf once, fills every port
+  tensor and inverts leaf for leaf;
 * no module of the port imports JAX (or flax, optax, orbax) or any name of
   the JAX package; importing the port builds and loads no CUDA code.
 """
@@ -29,8 +31,10 @@ from dune_transformercvn_tpu.models import ModelConfig as JaxModelConfig
 from dune_transformercvn_tpu.models import TransformerCVN as JaxTransformerCVN
 from dune_transformercvn_tpu.torch_import import (
     _TrackedDict, _none_tree, transplant_dense_network)
-from dune_transformercvn_torch.from_jax import load_jax_variables, state_dict_from_jax
+from dune_transformercvn_torch.from_jax import (load_jax_variables, map_jax_variables,
+                                                state_dict_from_jax)
 from dune_transformercvn_torch.models import ModelConfig, TransformerCVN
+from _torch_families import FAMILIES, batches_and_norm, family_configs  # same-dir helpers
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "dune_transformercvn_torch"
@@ -137,6 +141,35 @@ def test_load_jax_variables_is_strict(batch_and_norm):
     del missing["params"]["prong_position_embedding"]
     with pytest.raises(KeyError, match="prong_position_embedding"):
         load_jax_variables(model, missing)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_every_family_round_trips_through_from_jax(family, synthetic_file):
+    """``map_jax_variables`` takes every JAX leaf exactly once and fills
+    every parameter and buffer of the family's port network; inverting each
+    tensor's layout change (OIHW -> HWIO, ``[out, in]`` -> ``[in, out]``)
+    gives its JAX leaf back bit for bit."""
+    (batch,), norm = batches_and_norm(synthetic_file, family)
+    cfg, port_cfg = family_configs(family)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jn = {k: jnp.asarray(v) for k, v in norm.items()}
+    variables = seeded_variables(cfg, (jb, jn), seed=6)
+    mapper = map_jax_variables(variables, port_cfg)
+    model = TransformerCVN(port_cfg)
+    model.load_state_dict(mapper.state_dict(), strict=True)
+    leaves = {"/".join([c, *(k.key for k in path)]): np.asarray(leaf)
+              for c in ("params", "batch_stats")
+              for path, leaf in jax.tree_util.tree_leaves_with_path(variables[c])}
+    taken = [leaf for sources in mapper.sources.values() for leaf in sources]
+    assert sorted(taken) == sorted(leaves)
+    for name, tensor in model.state_dict().items():
+        if len(mapper.sources[name]) != 1:           # the encoder's packed q/k/v
+            continue
+        (source,), value = mapper.sources[name], tensor.numpy()
+        if source.endswith("kernel"):    # attention's out kernel is [h, hd, D]
+            value = value.transpose(2, 3, 1, 0) if value.ndim == 4 else value.T
+        np.testing.assert_array_equal(value.reshape(leaves[source].shape), leaves[source],
+                                      err_msg=name)
 
 
 def test_initialisation_depends_only_on_the_generator():
