@@ -81,7 +81,21 @@ Phases, each of which raises on failure:
    sparse, convnext, fcnn, mobilenet and resnet: a warm-up and a timed
    ``predict_split`` pass at batch 16, and 1 + 3 train steps at batch 16
    (ms/step, peak memory).  ``check_families(smi)`` runs it alone.
-11. A JSON line of every ported kernel, then, as the last line,
+11. Export and the serving variants, on the option file's dense network at
+   full width, bfloat16, random weights from a seed and BatchNorm
+   statistics from 4 train-mode forwards: ``export_model`` on the card with
+   the ladder (4, 20) and ``bench_buckets`` (the export seconds and each
+   rung's ``bucket_ms``), every artifact loaded back and held to the eager
+   graph on a real event's pixel maps; ``predict_split`` at batch 16 with
+   ``fold_eval_bn`` off and on, in turns (events/s; probabilities within
+   2^-5); int8: scales calibrated on 4 batches, the quantized
+   ``predict_split`` at batch 16 (events/s, argmax agreement and the
+   largest probability difference against bfloat16), and one quantized
+   batch in which every int8 convolution's ``torch._int_mm`` sums are held
+   to the plain float64 route's, int32 equal.  K1 twice a batch on every
+   path; the exported graphs take dense pixel maps and launch no K1.
+   ``check_serving_variants(smi)`` runs it alone.
+12. A JSON line of every ported kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -117,6 +131,10 @@ from dune_transformercvn_torch.ops.coo_conv import coo_stem_conv_plain
 from dune_transformercvn_torch.ops.densify import (
     densify_images_cuda, densify_images_plain)
 from dune_transformercvn_torch.evaluate import evaluate_run
+from dune_transformercvn_torch.export import (build_inference_fn, export_model, load_exported,
+                                              with_max_prongs)
+from dune_transformercvn_torch.ops import quant
+from dune_transformercvn_torch.ops.fold import folded_copy
 from dune_transformercvn_torch.predict import predict_split, to_device
 from dune_transformercvn_torch.profile_serving import OPTION_FILE, production_config
 from dune_transformercvn_torch.train import (
@@ -194,6 +212,17 @@ CHUNK_GRAD_SHARE, CHUNK_GRAD_FLOOR = 1e-3, 1e-5
 # The other families: events of the serving pass, warm-up and timed steps.
 OTHER_FAMILIES = ("sparse", "convnext", "fcnn", "mobilenet", "resnet")
 FAMILY_SERVE_EVENTS, FAMILY_WARMUP, FAMILY_STEPS = 128, 1, 3
+# Phase 11: the export ladder (the full capacity 20 is added), the events
+# of the fold and int8 passes, the train-mode forwards that give the
+# BatchNorm statistics, and the calibration batches.
+EXPORT_LADDER, VARIANT_EVENTS, STAT_FORWARDS, CALIBRATION_BATCHES = (4,), 256, 4, 4
+# An artifact against the eager graph, bfloat16: the exported program runs
+# the same ATen ops, some decomposed, so a bf16 rounding may land apart;
+# probabilities within 2^-6, hidden vectors within 2^-5 of their largest.
+EXPORT_PROB_TOL, EXPORT_HIDDEN_SHARE = 2 ** -6, 2 ** -5
+# Folded against raw probabilities: 2^-5 of the largest (bf16 activations
+# of a folded and an unfolded conv round apart, PERF.md's bf16 bound).
+FOLD_SHARE = 2 ** -5
 
 
 def log(msg: str = ""):
@@ -1198,6 +1227,237 @@ def check_families(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11
+# ---------------------------------------------------------------------------
+
+OUTPUT_KINDS = {"pid": ("probabilities",) * 2, "embeddings": ("hidden",) * 2,
+                "combined": ("probabilities",) * 2 + ("hidden",) * 2}
+
+
+def event_pixel_maps(ds, index, max_prongs):
+    """One event's raw pixel counts as the exported graphs take them:
+    ``[1 + max_prongs, C, H, W]`` float32 on the card (the event image, then
+    the prong images padded with zeros), and its prong count."""
+    t = to_device(Batcher(ds, batch_size=1).build_batch(np.array([index])), "cpu")
+    images = [densify_images_plain(t[f"{key}_xy"], t[f"{key}_vals"], t[f"{key}_owner"],
+                                   n, H, W)
+              for key, n in (("event", 1), ("prong", t["slot_batch"].shape[0]))]
+    num_prongs = int(t["slot_mask"].sum())
+    pixels = torch.zeros((1 + max_prongs, H, W, C))
+    pixels[0] = images[0][0]
+    pixels[1:1 + num_prongs] = images[1][:num_prongs]
+    return pixels.permute(0, 3, 1, 2).contiguous().cuda(), num_prongs
+
+
+def check_export(model, norm, ds, smi):
+    """``export_model`` on the card; every artifact against the eager graph."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        paths = export_model(model, norm, out_dir, prong_buckets=EXPORT_LADDER,
+                             bench_buckets=True)
+        seconds = time.perf_counter() - t0
+        assert read_counts() == (0, 0), read_counts()
+        with open(os.path.join(out_dir, "transformercvn_export_meta.json")) as f:
+            meta = json.load(f)
+        rungs = [int(p) for p in meta["prong_buckets"]]
+        device = next(model.parameters()).device
+        assert rungs == [4, 20] and meta["platforms"] == [device.type], meta
+        sizes = sum(os.path.getsize(p) for p in paths.values()) / 1e6
+        log(f"[export] {len(paths)} artifacts ({sizes:.1f} MB) for rungs {rungs} in "
+            f"{seconds:.2f} s, bucket_ms timed included; pid bucket_ms per event "
+            + ", ".join(f"P={p}: {meta['bucket_ms'][str(p)]:.4f}" for p in rungs)
+            + f" ({smi})")
+        # an event with at most 4 prongs, so every rung serves it
+        index = next(i for i in range(len(ds)) if int((ds.prong_targets[i] >= 0).sum()) <= 4)
+        full, num_prongs = event_pixel_maps(ds, index, model.cfg.max_prongs)
+        n = torch.tensor(num_prongs, dtype=torch.int32, device=full.device)
+        worst = 0.0
+        for key, path in paths.items():
+            capacity = int(key.rsplit("_p", 1)[1]) if "_p" in key else model.cfg.max_prongs
+            variant = key.split("_")[0]
+            pixels = full[:1 + capacity]
+            t0 = time.perf_counter()
+            loaded = load_exported(path)
+            load_s = time.perf_counter() - t0
+            got = loaded(pixels, n)
+            with torch.inference_mode():
+                want = build_inference_fn(with_max_prongs(model, capacity), variant,
+                                          norm)(pixels, n)
+            diffs = []
+            for g, w, kind in zip(got, want, OUTPUT_KINDS[variant]):
+                assert g.shape == w.shape and torch.isfinite(g).all(), (key, g.shape)
+                bound = (EXPORT_PROB_TOL if kind == "probabilities"
+                         else EXPORT_HIDDEN_SHARE * w.float().abs().max().item())
+                diff = max_diff(g, w)
+                assert diff <= bound, (key, diff, bound)
+                diffs.append(diff)
+                worst = max(worst, diff / bound)
+            log(f"[export] {key}: loaded in {load_s:.2f} s; against the eager graph on an "
+                f"event of {num_prongs} prongs, max diffs {[f'{d:.3g}' for d in diffs]}")
+        log(f"[export] every artifact within its bound (probabilities {EXPORT_PROB_TOL}, "
+            f"hidden {EXPORT_HIDDEN_SHARE} of the largest); the worst used {worst:.1%}")
+        return seconds, meta["bucket_ms"]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def timed_predict(model, ds, norm, **kwargs):
+    """One ``predict_split`` pass at batch 16 with the counts reset before
+    it: (output, events/s, K1 launches), K1 asserted twice a batch."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = predict_split(model, ds, norm, TRAIN_BATCH, "cuda", **kwargs)
+    torch.cuda.synchronize()
+    rate = len(ds) / (time.perf_counter() - t0)
+    counts = read_counts()
+    assert counts == (2 * math.ceil(len(ds) / TRAIN_BATCH), 0), counts
+    for key in ("event_probabilities", "prong_probabilities"):
+        assert np.isfinite(out[key]).all(), key
+    return out, rate, counts[0]
+
+
+def prob_diffs(a, b):
+    """Largest probability difference and argmax agreement, events and prongs."""
+    return {k: ((np.abs(a[f"{k}_probabilities"] - b[f"{k}_probabilities"]).max()),
+                float((a[f"{k}_probabilities"].argmax(-1)
+                       == b[f"{k}_probabilities"].argmax(-1)).mean()))
+            for k in ("event", "prong")}
+
+
+def check_int8_route(model, scales, batch, norm):
+    """One quantized batch in which every int8 convolution's operands also
+    go through both int32 routes, ``_int_mm`` on the card and the plain
+    float64 one, which must agree int32 for int32; returns the number of
+    convolutions checked, of distinct shapes, and K1's launches in the
+    forward (its two densify calls)."""
+    int8_conv = quant.int8_conv
+    shapes = set()
+
+    def checked(x, weight, bias, act_scale, stride=1, padding=0, out_dtype=None):
+        qx = quant.quantize_activation(x, act_scale)
+        qw, _ = quant.quantize_weight(weight)
+        got = quant.conv_int32_cuda(qx, qw, stride, padding)
+        want = quant.conv_int32_plain(qx, qw, stride, padding)
+        assert got.dtype == want.dtype == torch.int32 and torch.equal(got, want), (
+            qx.shape, qw.shape, stride, padding)
+        shapes.add((tuple(qx.shape), tuple(qw.shape), str(stride), str(padding)))
+        return int8_conv(x, weight, bias, act_scale, stride, padding, out_dtype)
+
+    calls = quant.conv_int32_cuda.calls
+    quant.int8_conv = checked
+    reset_counts()
+    try:
+        with quant.quantized_convs(model, scales), torch.inference_mode():
+            model(batch, norm)
+        torch.cuda.synchronize()
+    finally:
+        quant.int8_conv = int8_conv
+    assert read_counts() == (2, 0), read_counts()
+    # each conv once in the check and once in the forward
+    assert quant.conv_int32_cuda.calls - calls == 2 * len(scales), (
+        quant.conv_int32_cuda.calls - calls, len(scales))
+    return len(scales), len(shapes), read_counts()[0]
+
+
+def check_serving_variants(smi):
+    """Phase 11; returns K1's launches."""
+    cfg = production_config("bfloat16")
+    model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED)).cuda()
+    ds = InMemoryEvents(VARIANT_EVENTS, SEED + 14)
+    norm = ds.norm()
+    norm_t = to_device(norm, "cuda")
+    batches = [to_device(b, "cuda") for b in Batcher(ds, batch_size=TRAIN_BATCH).epoch(0)]
+    launches = 0
+    reset_counts()
+    with torch.no_grad():              # BatchNorm statistics away from their starts
+        for batch in batches[:STAT_FORWARDS]:
+            model(batch, norm_t)
+    launches += read_counts()[0]
+    model.eval()
+
+    export_s, bucket_ms = check_export(model, norm, ds, smi)
+
+    # fold: raw, folded, folded, raw after a warm-up pass of each
+    for fold in (False, True):
+        _, _, k1 = timed_predict(model, ds, norm, fold_eval_bn=fold)
+        launches += k1
+    rates = {False: [], True: []}
+    outs = {}
+    for fold in (False, True, True, False):
+        outs[fold], rate, k1 = timed_predict(model, ds, norm, fold_eval_bn=fold)
+        rates[fold].append(rate)
+        launches += k1
+    fold_diff = prob_diffs(outs[True], outs[False])
+    for k, (diff, _) in fold_diff.items():
+        largest = outs[False][f"{k}_probabilities"].max()
+        assert diff <= FOLD_SHARE * largest, (k, diff, largest)
+    # what a folded pass spends on its folded copy, once a call
+    copy_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        folded_copy(model)
+        torch.cuda.synchronize()
+        copy_s.append(time.perf_counter() - t0)
+    copy_s = statistics.median(copy_s)
+    bare = [VARIANT_EVENTS / (VARIANT_EVENTS / r - copy_s) for r in rates[True]]
+    log(f"[fold] predict_split b{TRAIN_BATCH} over {VARIANT_EVENTS} events, in turns: raw "
+        f"{rates[False][0]:.1f}, {rates[False][1]:.1f} events/s; folded {rates[True][0]:.1f}, "
+        f"{rates[True][1]:.1f} events/s, of which the folded copy {copy_s:.4f} s a call "
+        f"(median of 3), so {bare[0]:.1f}, {bare[1]:.1f} events/s without it; folded "
+        f"against raw: event max diff {fold_diff['event'][0]:.3g} (argmax "
+        f"{fold_diff['event'][1]:.4f}), prong {fold_diff['prong'][0]:.3g} (argmax "
+        f"{fold_diff['prong'][1]:.4f}), bound {FOLD_SHARE} of the largest ({smi})")
+
+    # int8
+    reset_counts()
+    t0 = time.perf_counter()
+    scales = quant.calibrate_activation_scales(model, batches[:CALIBRATION_BATCHES], norm)
+    torch.cuda.synchronize()
+    calibrate_s = time.perf_counter() - t0
+    assert read_counts() == (2 * CALIBRATION_BATCHES, 0), read_counts()
+    launches += read_counts()[0]
+    convs = sum(isinstance(m, torch.nn.Conv2d) for m in model.modules())
+    assert len(scales) == convs, (len(scales), convs)
+    checked, distinct, k1 = check_int8_route(model, scales, batches[0], norm_t)
+    launches += k1
+    int8_rates, bf16_rates = [], []
+    calls = quant.conv_int32_cuda.calls
+    with quant.quantized_convs(model, scales):
+        int8_out, _, k1 = timed_predict(model, ds, norm)      # warm-up
+        launches += k1
+    for quantized in (True, False, False, True):
+        if quantized:
+            with quant.quantized_convs(model, scales):
+                int8_out, rate, k1 = timed_predict(model, ds, norm)
+            int8_rates.append(rate)
+        else:
+            bf16_out, rate, k1 = timed_predict(model, ds, norm)
+            bf16_rates.append(rate)
+        launches += k1
+    num_batches = math.ceil(VARIANT_EVENTS / TRAIN_BATCH)
+    assert quant.conv_int32_cuda.calls - calls == 3 * num_batches * len(scales)
+    int8_diff = prob_diffs(int8_out, bf16_out)
+    log(f"[int8] {len(scales)} convs calibrated on {CALIBRATION_BATCHES} batches in "
+        f"{calibrate_s:.2f} s; one quantized batch: {checked} int8 convolutions ({distinct} "
+        f"shapes) with _int_mm sums equal to the plain float64 route's, int32 for int32")
+    log(f"[int8] predict_split b{TRAIN_BATCH} over {VARIANT_EVENTS} events, in turns: int8 "
+        f"{int8_rates[0]:.1f}, {int8_rates[1]:.1f} events/s; bf16 {bf16_rates[0]:.1f}, "
+        f"{bf16_rates[1]:.1f} events/s; int8 against bf16: event argmax agreement "
+        f"{int8_diff['event'][1]:.4f}, max prob diff {int8_diff['event'][0]:.4g}; prong "
+        f"argmax {int8_diff['prong'][1]:.4f}, max diff {int8_diff['prong'][0]:.4g} ({smi})")
+    log(f"[serving variants] export {export_s:.2f} s, bucket_ms {bucket_ms}; K1 {launches} "
+        f"in phase 11")
+    del model, batches
+    free_memory()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1220,6 +1480,7 @@ def main():
     trainer_launches += check_data_parallel(smi)
     check_world_of_one()
     trainer_launches += check_families(smi)
+    trainer_launches += check_serving_variants(smi)
     kernels = []
     for (err, ms, plain_ms, lib_ms, bound_ms), name, source, replaces, launches in (
             (k1, "densify", "dune_transformercvn_torch/csrc/densify.cu",

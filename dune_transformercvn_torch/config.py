@@ -191,7 +191,7 @@ class Options:
         # files).  Carried with the same names and defaults so every option
         # file loads to the same Options in both packages; the port reads
         # every one of them, and raises where it meets
-        # model_parallel > 1 or fold_eval_bn (ROADMAP.md).
+        # model_parallel > 1 (ROADMAP.md).
         # =========================================================================
 
         # Compute dtype for the network ('bfloat16' or 'float32'); params stay fp32.

@@ -24,12 +24,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import quant
 from ..ops.masked import MaskedBatchNorm, PReLU, remat
 from .blocks import OutputBlock
 
 
 def conv_nhwc(x, weight, bias, dtype, stride=1, padding=0, groups=1):
-    """2-D convolution of NHWC ``x`` with an OIHW ``weight``, in ``dtype``."""
+    """2-D convolution of NHWC ``x`` with an OIHW ``weight``, in ``dtype``
+    (int8 inside a :func:`..ops.quant.quantized_convs` context that
+    quantizes this conv)."""
+    y = quant.intercept(x, weight, bias, stride, padding, groups, dtype)
+    if y is not None:
+        return y
     y = F.conv2d(
         x.to(dtype).permute(0, 3, 1, 2), weight.to(dtype),
         None if bias is None else bias.to(dtype), stride, padding, 1, groups,

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import quant
 from .blocks import dense
 
 GROUP_NORM_EPS = 1e-6
@@ -46,7 +47,13 @@ def group_norm(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 def conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``layer(x)`` with weight and bias cast to ``x``'s dtype."""
+    """``layer(x)`` with weight and bias cast to ``x``'s dtype (int8 inside a
+    :func:`..ops.quant.quantized_convs` context that quantizes ``layer``)."""
+    if quant.active():
+        y = quant.intercept(x.permute(0, 2, 3, 1), layer.weight, layer.bias,
+                            layer.stride, layer.padding, layer.groups, x.dtype)
+        if y is not None:
+            return y.permute(0, 3, 1, 2)
     return F.conv2d(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype),
                     layer.stride, layer.padding)
 

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .data import Batcher, split_current_targets
+from .ops.fold import folded_copy
 from .parallel import all_gather_rows, local_shard_ids, world
 
 
@@ -76,8 +77,9 @@ def predict_split(
     probabilities/targets for every *real* prong, plus each prong's owning
     event index.  The last batch is wrap-padded by the batcher and trimmed.
     ``prong_bucket_multipliers`` lays batches out as the ``Trainer``'s
-    batchers do.  ``fold_eval_bn`` (the options' eval-time
-    BatchNorm folding) is not ported and raises.
+    batchers do.  ``fold_eval_bn`` (the options' eval-time BatchNorm
+    folding, :mod:`.ops.fold`) predicts with a folded copy of ``model`` and
+    leaves ``model`` as it was.
 
     In a process group of more than one rank (:func:`.parallel.world`,
     read here as the train step reads it) every rank calls it: each global
@@ -87,9 +89,7 @@ def predict_split(
     returns the whole split.
     """
     if fold_eval_bn:
-        raise NotImplementedError(
-            "fold_eval_bn is not ported yet (ROADMAP.md §1 item 17, ops/fold.py); "
-            "turn the option off")
+        model = folded_copy(model)
     size, _ = world()
     batcher = Batcher(
         dataset,

@@ -128,14 +128,18 @@ class CheckpointManager:
     def latest_step(self) -> Optional[int]:
         return self._index.get("last")
 
-    def best_step(self) -> Optional[int]:
+    def ranked_best_step(self) -> Optional[int]:
+        """The step of the best metric; None when no checkpoint has one."""
         entries = [
             c for c in self._index["checkpoints"]
             if self._rank_metric(c) != -np.inf
         ]
-        if not entries:
-            return self.latest_step()
-        return max(entries, key=self._rank_metric)["step"]
+        return max(entries, key=self._rank_metric)["step"] if entries else None
+
+    def best_step(self) -> Optional[int]:
+        """The step of the best metric, else the latest step."""
+        best = self.ranked_best_step()
+        return self.latest_step() if best is None else best
 
     def restore(self, state, step: Optional[int] = None):
         """Load checkpoint ``step`` (default: the latest) into ``state`` (a

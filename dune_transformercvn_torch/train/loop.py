@@ -288,8 +288,11 @@ class Trainer:
         Returns event probabilities/targets for every event and prong
         probabilities/targets for every *real* prong, plus each prong's
         owning event index; in split mode the targets are remapped to the
-        4-way current head's.  Data-parallel, each rank predicts its shard
-        of every batch and every rank returns all rows, in order.
+        4-way current head's.  With ``options.fold_eval_bn`` it predicts with
+        a BatchNorm-folded copy of the model (the JAX Trainer's
+        ``_inference_state``); training and validation keep the raw state.
+        Data-parallel, each rank predicts its shard of every batch and every
+        rank returns all rows, in order.
         """
         dataset = {
             "training": self.training_dataset,

@@ -490,3 +490,86 @@ def test_sparse_ops_on_the_card_match_the_cpu(cuda, kernel, stride):
         torch.testing.assert_close(got.features.cpu(), want.features, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(sparse.sparse_global_avg_pool(card).cpu(),
                                sparse.sparse_global_avg_pool(cpu), rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# export and the serving variants: int8, export, folding
+# ---------------------------------------------------------------------------
+
+# (N, H, W, C_in, C_out, kernel, stride, padding): k = C_in * kernel^2 not a
+# multiple of 8 (147, 9 * 13, 35) and m <= 16 among them
+INT8_SHAPES = [(2, 19, 13, 3, 16, 7, 2, 3), (3, 11, 9, 13, 20, 3, 1, 1),
+               (1, 3, 4, 35, 8, 1, 1, 0), (2, 16, 12, 64, 32, 3, 2, 0),
+               (4, 10, 7, 322, 226, 1, 1, 0)]
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES)
+def test_int_mm_route_equals_plain_route(cuda, shape):
+    """The card's im2col + ``torch._int_mm`` route gives the plain float64
+    route's int32 sums bit for bit (both are exact)."""
+    from dune_transformercvn_torch.ops import quant
+
+    n, h, w, cin, cout, k, stride, padding = shape
+    gen = torch.Generator().manual_seed(sum(shape))
+    qx = torch.randint(-127, 128, (n, h, w, cin), generator=gen, dtype=torch.int8)
+    qw = torch.randint(-127, 128, (cout, cin, k, k), generator=gen, dtype=torch.int8)
+    before = quant.conv_int32_cuda.calls
+    got = quant.conv_int32_cuda(qx.to(cuda), qw.to(cuda), stride, padding)
+    assert quant.conv_int32_cuda.calls == before + 1
+    want = quant.conv_int32_plain(qx, qw, stride, padding)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+def tiny_serving_model(cuda_device=None):
+    cfg = ModelConfig(
+        hidden_dim=32, initial_feature_dim=8, initial_pixel_dim=8,
+        feature_embedding_dim=8, pixel_embedding_dim=16, position_embedding_dim=8,
+        num_encoder_layers=1, num_prong_decoder_layers=2, num_attention_heads=4,
+        densenet_structure=(1, 1), densenet_growth_rate=8, image_height=32,
+        image_width=32, compute_dtype="float32", features_dim=6, extra_dim=4)
+    model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(2)).eval()
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for name, buffer in model.named_buffers():
+            buffer.copy_(torch.rand(buffer.shape, generator=gen) + 0.5)
+    return model
+
+
+def test_exported_artifact_runs_on_the_card(cuda, tmp_path):
+    from dune_transformercvn_torch.export import (build_inference_fn, export_model,
+                                                  load_exported)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = tiny_serving_model().to(cuda)
+    norm = {"mean": np.zeros(6, np.float32), "std": np.ones(6, np.float32),
+            "extra_mean": np.float32(0.0), "extra_std": np.float32(1.0)}
+    paths = export_model(model, norm, str(tmp_path), prong_buckets=(4,), bench_buckets=True)
+    meta = (tmp_path / "transformercvn_export_meta.json").read_text()
+    assert '"platforms": [\n    "cuda"\n  ]' in meta and '"bucket_ms_platform": "cuda"' in meta
+    gen = torch.Generator().manual_seed(4)
+    pixels = ((torch.rand(21, 3, 32, 32, generator=gen) < 0.05) * 200.0).to(cuda)
+    n = torch.tensor(3, dtype=torch.int32, device=cuda)
+    got = load_exported(paths["combined"])(pixels, n)
+    with torch.no_grad():
+        want = build_inference_fn(model, "combined", norm)(pixels, n)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g, w, rtol=0.0, atol=1e-6)
+
+
+def test_folding_on_the_card_equals_the_cpu(cuda):
+    """The fold on the card against the fold on the CPU, float32, within the
+    bound the CPU tests hold it to JAX's (rtol 1e-6, atol 1e-7): the card's
+    and the host's float32 sqrt and divide may round a scale one ulp apart
+    (on an H100 some do)."""
+    from dune_transformercvn_torch.ops.fold import fold_eval_batchnorm
+
+    sd = tiny_serving_model().state_dict()
+    want, n = fold_eval_batchnorm(sd)
+    got, n_card = fold_eval_batchnorm({k: v.to(cuda) for k, v in sd.items()})
+    assert n == n_card == 6
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        assert got[key].device.type == "cuda"
+        torch.testing.assert_close(got[key].cpu(), value, rtol=1e-6, atol=1e-7, msg=key)

@@ -407,8 +407,24 @@ def test_no_quiet_fallback_to_the_cpu(monkeypatch):
 
 
 def test_fold_eval_bn_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 17"):
-        predict_split(None, InMemoryEvents(4, 0, (H, W)), {}, 4, "cpu", fold_eval_bn=True)
+    """The name dates from when the option raised.  ``predict_split`` with
+    ``fold_eval_bn`` now predicts with a folded copy (ops/fold.py): the
+    probabilities stay those of the raw model, and the caller's module is
+    left as it was."""
+    cfg = ModelConfig(**{k: v for k, v in TINY.items() if k in ModelConfig.__dataclass_fields__},
+                      image_height=H, image_width=W, max_prongs=20)
+    model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad():  # statistics a fold can see
+        for name, buffer in model.named_buffers():
+            buffer.copy_(torch.rand(buffer.shape) + 0.5)
+    raw = {k: v.clone() for k, v in model.state_dict().items()}
+    ds = InMemoryEvents(6, 0, (H, W))
+    plain = predict_split(model, ds, ds.norm(), 4, "cpu")
+    folded = predict_split(model, ds, ds.norm(), 4, "cpu", fold_eval_bn=True)
+    for key in ("event_probabilities", "prong_probabilities"):
+        np.testing.assert_allclose(folded[key], plain[key], atol=1e-5)
+    for name, tensor in model.state_dict().items():
+        assert torch.equal(tensor, raw[name]), name
 
 
 # ---------------------------------------------------------------------------
