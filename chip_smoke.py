@@ -7,7 +7,8 @@ Phases, each of which raises on failure:
 
 1. Device and build: the card's name and power limit from ``nvidia-smi``;
    every kernel under ``dune_transformercvn_torch/csrc`` is built with
-   ``nvcc``, one compiler process per source, all at once; TF32 is switched
+   ``nvcc`` and the host COO engine (``csrc/coo_engine.cpp``) with the C++
+   compiler, one compiler process per source, all at once; TF32 is switched
    off so the float32 comparisons below are float32.
 2. Kernel K1 (COO -> dense densify) against its plain PyTorch version on the
    card, at the serving path's shapes, float32 and bfloat16, plain and
@@ -95,7 +96,23 @@ Phases, each of which raises on failure:
    to the plain float64 route's, int32 equal.  K1 twice a batch on every
    path; the exported graphs take dense pixel maps and launch no K1.
    ``check_serving_variants(smi)`` runs it alone.
-12. A JSON line of every ported kernel, then, as the last line,
+12. The modules outside the main path, at the option file's width.  Each
+   of the eight optimizers (AdamW and the seven optax chains) steps the
+   dense network at batch 16 from the same starting weights (ms/step, peak
+   memory); lamb and lars fit 4 steps in a ``Trainer`` and a fresh Trainer
+   resumed at step 2 ends equal to it bit for bit.  The general COO
+   convolution on the batch-16 event bank, a 7x7/2 stem and a 3x3/1 layer:
+   the native kernel maps equal to numpy's (host ms of each) and
+   ``coo_conv_apply`` on the card against ``sparse_conv`` in float32.  The
+   native CSR gather against the numpy loop on ``InMemoryEvents`` at batch
+   16 and 64 (host ms).  ``DecoderLayer`` and the ISAB on the card against
+   the CPU in float32, forward and gradients.  One-hot pixels (768
+   channels): K1 against its plain version on a small bank and on a batch's
+   event and prong banks (times against the bound), ``predict_split`` at
+   batch 16, and the train step at batch 16, or the largest batch that
+   fits, with its out-of-memory readings.  ``check_remaining_modules(smi)``
+   runs it alone.
+13. A JSON line of every ported kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -103,6 +120,7 @@ Exits non-zero, printing no result, when CUDA is unavailable.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import datetime
 import gc
@@ -123,11 +141,14 @@ import torch
 
 from dune_transformercvn_torch import Options
 from dune_transformercvn_torch.data import Batcher, InMemoryEvents
-from dune_transformercvn_torch.models import TransformerCVN
+from dune_transformercvn_torch.models import (DecoderLayer, InducedSetAttentionBlock,
+                                              TransformerCVN)
 from dune_transformercvn_torch.models.densenet import densenet_post_stem
 from dune_transformercvn_torch.ops import coo_stem
 from dune_transformercvn_torch.ops.masked import sync_batch_norm
-from dune_transformercvn_torch.ops.coo_conv import coo_stem_conv_plain
+from dune_transformercvn_torch.ops.coo_conv import (build_conv_maps, build_conv_maps_numpy,
+                                                    coo_conv_apply, coo_stem_conv_plain)
+from dune_transformercvn_torch.ops.sparse import SparseGrid, sparse_conv
 from dune_transformercvn_torch.ops.densify import (
     densify_images_cuda, densify_images_plain)
 from dune_transformercvn_torch.evaluate import evaluate_run
@@ -142,7 +163,7 @@ from dune_transformercvn_torch.train import (
     make_train_step)
 from dune_transformercvn_torch.train.checkpoint import CheckpointManager, to_host
 from dune_transformercvn_torch.train.logging import read_history
-from dune_transformercvn_torch.utils.build import build, sources
+from dune_transformercvn_torch.utils.build import build, build_host, host_sources, sources
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
@@ -223,6 +244,34 @@ EXPORT_PROB_TOL, EXPORT_HIDDEN_SHARE = 2 ** -6, 2 ** -5
 # Folded against raw probabilities: 2^-5 of the largest (bf16 activations
 # of a folded and an unfolded conv round apart, PERF.md's bf16 bound).
 FOLD_SHARE = 2 ** -5
+# Phase 12.  The optimizers (each from the same starting weights): warm-up
+# and timed steps; lamb's and lars's Trainer fit and its checkpoint step.
+OPTIMIZERS = ("adamw", "adam", "sgd", "rmsprop", "adagrad", "lamb", "lars", "lion")
+OPT_WARMUP, OPT_STEPS = 1, 3
+RESUME_OPTIMIZERS, RESUME_FIT, RESUME_AT = ("lamb", "lars"), 4, 2
+# The COO convolution's layers on the b16 event bank: the 7x7/2 stem (3 ->
+# 64) and a 3x3/1 layer (64 -> 64) on the stem's output sites; the host
+# timings' repeats.  Against sparse_conv on the card, float32, TF32 off:
+# sums of up to 9 * 64 products of O(1) terms in other orders, so a few
+# 1e-6; the JAX package holds its two engines to 1e-5 on small grids.
+COO_LAYERS = (("stem 7x7/2", 7, 2, 64), ("3x3/1", 3, 1, 64))
+HOST_REPEATS = 20
+COO_CONV_TOL = dict(rtol=1e-4, atol=1e-4)
+# The CSR gather: events, and the batch sizes of the indices.
+GATHER_EVENTS, GATHER_BATCHES = 512, (16, 64)
+# DecoderLayer and ISAB, the card against the CPU in float32 (TF32 off):
+# batch, tokens, hidden, heads, inducing points; outputs within DECODER_TOL,
+# each gradient within DECODER_GRAD_SHARE of its largest element (sums over
+# 64 x 21 tokens in other orders).
+DECODER_SHAPE = (64, 21, 128, 8, 8)
+DECODER_TOL = dict(rtol=1e-4, atol=1e-4)
+DECODER_GRAD_SHARE = 1e-4
+# One-hot pixels (768 channels): serving events and passes, the train
+# step's batch sizes tried in turn until one fits, warm-up and timed steps,
+# the small bank's images, and the images a plain densify compares at once.
+ONE_HOT_EVENTS, ONE_HOT_PASSES = 64, 3
+ONE_HOT_TRAIN_BATCHES, ONE_HOT_WARMUP, ONE_HOT_STEPS = (16, 12, 8, 4), 1, 2
+ONE_HOT_SMALL, ONE_HOT_CHUNK = 2, 8
 
 
 def log(msg: str = ""):
@@ -252,10 +301,13 @@ def device_and_build():
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    names = sources()
-    with ThreadPoolExecutor(len(names)) as pool:
+    names, hosts = sources(), host_sources()
+    with ThreadPoolExecutor(len(names) + len(hosts)) as pool:
+        host_libs = [pool.submit(build_host, name) for name in hosts]
         outputs = dict(zip(names, pool.map(build, names)))
-    log(f"[build] {sorted(outputs)} built in {time.perf_counter() - t0:.2f} s")
+        host_libs = [os.path.basename(f.result()) for f in host_libs]
+    log(f"[build] {sorted(outputs)} built with nvcc, host {host_libs} with the C++ "
+        f"compiler, in {time.perf_counter() - t0:.2f} s")
     for name, text in outputs.items():
         for line in text.splitlines():
             if "ptxas info" in line and ("registers" in line or "Used" in line):
@@ -1458,6 +1510,323 @@ def check_serving_variants(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12
+# ---------------------------------------------------------------------------
+
+def median_ms(fn, repeats=HOST_REPEATS):
+    """Median host milliseconds of ``fn()`` over ``repeats`` calls (after one)."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def check_optimizers(smi):
+    """Each optimizer's b16 step on the option file's dense network from the
+    same starting weights; lamb and lars resumed in a Trainer bit for bit.
+    Returns K1's launches."""
+    cfg = production_config("bfloat16")
+    model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED)).cuda()
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    ds = InMemoryEvents(TRAIN_BATCH * (OPT_WARMUP + OPT_STEPS), SEED + 20)
+    batches = [to_device(b, "cuda") for b in Batcher(ds, batch_size=TRAIN_BATCH).epoch(0)]
+    launches, readings = 0, []
+    for name in OPTIMIZERS:
+        options = fit_options()
+        options.optimizer = name
+        model.load_state_dict(start)
+        state = create_train_state(model, options, ds.norm(), len(batches), seed=SEED)
+        step = make_train_step(model, options)
+        torch.cuda.synchronize()
+        reset_counts()
+        for batch in batches[:OPT_WARMUP]:
+            step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for batch in batches[OPT_WARMUP:]:
+            metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / OPT_STEPS
+        counts = read_counts()
+        assert counts == (2 * len(batches), 0), (name, counts)
+        launches += counts[0]
+        loss = float(metrics["train_loss"])
+        assert math.isfinite(loss), (name, loss)
+        moved = sum(not torch.equal(p, start[n]) for n, p in model.named_parameters())
+        assert moved > 0, name
+        readings.append(f"{name} ({type(state.optimizer).__name__}) {ms:.2f} ms, "
+                        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {moved} of "
+                        f"{len(list(model.parameters()))} parameters moved")
+        del state, step, metrics
+        free_memory()
+    log(f"[optimizers] dense b{TRAIN_BATCH}, {OPT_STEPS} steps after {OPT_WARMUP} from the "
+        f"same weights, ms/step and peak: " + "; ".join(readings) + f" ({smi})")
+    del model, start, batches
+    free_memory()
+
+    for name in RESUME_OPTIMIZERS:
+        run_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+        try:
+            options = fit_options()
+            options.optimizer = name
+            straight = Trainer(options, run_dir=run_dir, log_every_n_steps=FIT_LOG,
+                               datasets=fit_datasets(), verbose=False)
+            _, counts = counted(lambda: straight.fit(max_steps=RESUME_FIT,
+                                                     eval_interval=RESUME_AT))
+            launches += counts[0]
+            want = to_host(straight.state.state_dict())
+            assert want["step"] == RESUME_FIT and type(straight.state.optimizer).__name__ != \
+                "AdamW", type(straight.state.optimizer)
+            del straight
+            free_memory()
+            resumed = Trainer(options, run_dir=run_dir, log_every_n_steps=FIT_LOG,
+                              datasets=fit_datasets(), verbose=False)
+            resumed.resume(os.path.join(run_dir, "checkpoints", f"step_{RESUME_AT}"))
+            _, counts = counted(lambda: resumed.fit(max_steps=RESUME_FIT,
+                                                    eval_interval=RESUME_AT))
+            launches += counts[0]
+            assert_state_equal(to_host(resumed.state.state_dict()), want)
+            slots = sum(len(v) for v in want["optimizer"]["state"].values())
+            log(f"[optimizers] {name}: Trainer fit {RESUME_FIT} steps, a fresh Trainer "
+                f"resumed at step {RESUME_AT} and fit to {RESUME_FIT}: {len(want['model'])} "
+                f"model and {slots} optimizer tensors, the count, norm and generator equal "
+                f"bit for bit")
+            del resumed, want
+            free_memory()
+        finally:
+            shutil.rmtree(run_dir, ignore_errors=True)
+    return launches
+
+
+def event_sites(seed):
+    """The occupied sites ``[M, 3]`` (image, x, y) of one b16 batch's event
+    bank and their summed raw values ``[M, 3]`` float32 (duplicates added)."""
+    batch = Batcher(InMemoryEvents(TRAIN_BATCH, seed), batch_size=TRAIN_BATCH).build_batch(
+        np.arange(TRAIN_BATCH))
+    t = to_device(batch, "cpu")
+    grid = densify_images_plain(t["event_xy"], t["event_vals"] / 255.0, t["event_owner"],
+                                TRAIN_BATCH, H, W)
+    occupied = grid.abs().sum(-1) > 0
+    return occupied.nonzero().numpy(), grid[occupied].numpy()
+
+
+def check_coo_conv(smi):
+    """The general COO convolution: native maps equal to numpy's, host ms of
+    each, and ``coo_conv_apply`` on the card against ``sparse_conv``."""
+    coords, features = event_sites(SEED + 21)
+    rng = np.random.default_rng(SEED + 22)
+    features = torch.from_numpy(features).cuda()
+    height, width = H, W
+    for label, k, stride, c_out in COO_LAYERS:
+        c_in = features.shape[1]
+        maps = build_conv_maps(coords, k, stride, height, width)
+        plain = build_conv_maps_numpy(coords, k, stride, height, width)
+        assert maps.num_out == plain.num_out
+        for a, b in zip(maps[:1] + maps[2:], plain[:1] + plain[2:]):
+            assert a.dtype == b.dtype and np.array_equal(a, b), label
+        native_ms = median_ms(lambda: build_conv_maps(coords, k, stride, height, width))
+        numpy_ms = median_ms(lambda: build_conv_maps_numpy(coords, k, stride, height, width))
+        weights = torch.from_numpy((rng.normal(size=(k, k, c_in, c_out))
+                                    / math.sqrt(k * k * c_in)).astype(np.float32)).cuda()
+        in_maps = torch.from_numpy(maps.in_maps).cuda()
+        out_maps = torch.from_numpy(maps.out_maps).cuda()
+        got = coo_conv_apply(features, weights, in_maps, out_maps, maps.num_out)
+        sites = torch.from_numpy(coords).cuda()
+        dense = features.new_zeros((TRAIN_BATCH, height, width, c_in))
+        dense[sites[:, 0], sites[:, 1], sites[:, 2]] = features
+        occupancy = torch.zeros((TRAIN_BATCH, height, width), dtype=torch.bool, device="cuda")
+        occupancy[sites[:, 0], sites[:, 1], sites[:, 2]] = True
+        grid = SparseGrid(dense, occupancy)
+        torch_weight = weights.permute(3, 2, 0, 1).contiguous()
+        want = sparse_conv(grid, torch_weight, stride)
+        out_sites = torch.from_numpy(maps.out_coords).cuda()
+        expected = want.features[out_sites[:, 0], out_sites[:, 1], out_sites[:, 2]]
+        torch.testing.assert_close(got, expected, **COO_CONV_TOL)
+        assert int(want.occupancy.sum()) == maps.num_out
+        assert bool(want.occupancy[out_sites[:, 0], out_sites[:, 1], out_sites[:, 2]].all())
+        err = (got - expected).abs().max().item()
+        apply_ms = cuda_time_ms(
+            lambda: coo_conv_apply(features, weights, in_maps, out_maps, maps.num_out))
+        dense_ms = cuda_time_ms(lambda: sparse_conv(grid, torch_weight, stride))
+        pairs = int((maps.in_maps < len(coords)).sum())
+        log(f"[coo_conv] {label} ({c_in} -> {c_out}) on the b{TRAIN_BATCH} event bank: "
+            f"{len(coords)} sites -> {maps.num_out}, {pairs} pairs (maps [{k * k}, "
+            f"{maps.in_maps.shape[1]}]); maps native = numpy, host {native_ms:.3f} / "
+            f"{numpy_ms:.3f} ms; coo_conv_apply on the card {apply_ms:.4f} ms against "
+            f"sparse_conv {dense_ms:.4f} ms, max diff {err:.3g} (float32, bound "
+            f"{COO_CONV_TOL}) ({smi})")
+        coords, features = maps.out_coords, got.detach()
+        height, width = ((height - 1) // stride + 1, (width - 1) // stride + 1)
+        del grid, dense, want, expected
+    free_memory()
+
+
+def check_gather(smi):
+    """The CSR gather of RAM-held banks: native against numpy, host ms."""
+    ds = InMemoryEvents(GATHER_EVENTS, SEED + 23)
+    rng = np.random.default_rng(SEED + 24)
+    readings = []
+    for size in GATHER_BATCHES:
+        idx = rng.choice(GATHER_EVENTS, size, replace=False)
+        got, want = ds.gather_events(idx), ds.gather_events(idx, native=False)
+        assert sorted(got) == sorted(want)
+        for key in want:
+            assert got[key].dtype == want[key].dtype and np.array_equal(got[key], want[key]), key
+        native_ms = median_ms(lambda: ds.gather_events(idx))
+        numpy_ms = median_ms(lambda: ds.gather_events(idx, native=False))
+        readings.append(f"b{size} ({len(got['event_coords'])} + {len(got['prong_coords'])} "
+                        f"hits) native {native_ms:.4f} ms, numpy {numpy_ms:.4f} ms")
+    log("[gather] gather_events of InMemoryEvents, native = numpy array for array: "
+        + "; ".join(readings) + f" (host, median of {HOST_REPEATS}; {smi})")
+
+
+def check_decoder(smi):
+    """DecoderLayer and ISAB on the card against the CPU in float32:
+    forward, the inputs' and every parameter's gradient."""
+    batch, tokens, hidden, heads, indices = DECODER_SHAPE
+    rng = np.random.default_rng(SEED + 25)
+    x = torch.from_numpy(rng.normal(size=(batch, tokens, hidden)).astype(np.float32))
+    memory = torch.from_numpy(rng.normal(size=(batch, tokens, hidden)).astype(np.float32))
+    counts = torch.from_numpy(rng.integers(2, tokens + 1, batch))
+    mask = torch.arange(tokens)[None, :] < counts[:, None]
+    key_mask = mask[:, None, None, :]
+    cotangent = torch.from_numpy(rng.normal(size=(batch, tokens, hidden)).astype(np.float32))
+    generator = torch.Generator().manual_seed(SEED)
+    cases = (
+        ("DecoderLayer", DecoderLayer(hidden, heads, generator=generator),
+         lambda m, t, mem, k: m(t, mem, memory_mask=k, self_mask=k)),
+        (f"ISAB m={indices}", InducedSetAttentionBlock(hidden, hidden, heads, indices,
+                                                       generator=generator),
+         lambda m, t, mem, k: m(t, k[:, 0, 0])))
+    for name, module, call in cases:
+        results = []
+        for device in ("cpu", "cuda"):
+            m = copy.deepcopy(module).to(device)
+            t = x.detach().clone().to(device).requires_grad_()
+            out = call(m, t, memory.to(device), key_mask.to(device))
+            (out * cotangent.to(device)).sum().backward()
+            results.append((out.detach().cpu(), t.grad.cpu(),
+                            {n: p.grad.cpu() for n, p in m.named_parameters()}))
+        (want, want_x, want_p), (got, got_x, got_p) = results
+        torch.testing.assert_close(got, want, **DECODER_TOL)
+        worst = 0.0
+        for label, g, w in [("input", got_x, want_x)] + [(n, got_p[n], want_p[n])
+                                                          for n in want_p]:
+            diff = (g - w).abs().max().item()
+            bound = DECODER_GRAD_SHARE * w.abs().max().item() + 1e-7
+            assert diff <= bound, (name, label, diff, bound)
+            worst = max(worst, diff / bound)
+        log(f"[decoder] {name}, hidden {hidden}, {heads} heads, {tokens} tokens, b{batch}, "
+            f"float32: the card against the CPU, output max diff "
+            f"{(got - want).abs().max().item():.3g} (bound {DECODER_TOL}); {len(want_p) + 1} "
+            f"gradients within {DECODER_GRAD_SHARE} of their largest, the worst at "
+            f"{worst:.1%} of its bound ({smi})")
+
+
+def check_one_hot(smi):
+    """The option file's dense network with one-hot pixels (768 channels):
+    K1 at C = 768 against its plain version, b16 serving and the train step
+    (or the largest batch that fits).  Returns K1's launches."""
+    cfg = dataclasses.replace(production_config("bfloat16"), one_hot_pixels=True)
+    assert cfg.pixel_channels * 256 == 768
+    model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED)).cuda().eval()
+    ds = InMemoryEvents(ONE_HOT_EVENTS, SEED + 26)
+    batch = to_device(Batcher(ds, batch_size=TRAIN_BATCH).build_batch(
+        np.arange(TRAIN_BATCH)), "cuda")
+    readings, launches = [], 0
+    with torch.no_grad():
+        for key, n in (("small", ONE_HOT_SMALL), ("event", TRAIN_BATCH),
+                       ("prong", batch["slot_batch"].shape[0])):
+            bank = "event" if key == "small" else key
+            starts = batch[f"{bank}_starts"][:n + 1].contiguous()
+            rows = int(starts[-1]) if key == "small" else batch[f"{bank}_xy"].shape[0]
+            xy, owner = batch[f"{bank}_xy"][:rows], batch[f"{bank}_owner"][:rows]
+            vals = model.preprocess_values(batch[f"{bank}_vals"][:rows])
+            assert vals.shape[1] == 768 and vals.dtype == torch.bfloat16
+            reset_counts()
+            out = densify_images_cuda(xy, vals, starts, n, H, W, False)
+            torch.cuda.synchronize()
+            assert read_counts() == (1, 0) and out.shape == (n, H, W, 768)
+            err = 0.0
+            for i0 in range(0, n, ONE_HOT_CHUNK):
+                i1 = min(n, i0 + ONE_HOT_CHUNK)
+                sel = (owner >= i0) & (owner < i1)
+                ref = densify_images_plain(xy[sel], vals[sel], owner[sel] - i0, i1 - i0, H, W)
+                torch.testing.assert_close(out[i0:i1].float(), ref.float(),
+                                           **K1_TOL[torch.bfloat16])
+                err = max(err, (out[i0:i1].float() - ref.float()).abs().max().item())
+                del ref
+            used = int(starts[-1])
+            nbytes = out.numel() * out.element_size() + used * (8 + 768 * 2) + (n + 1) * 4
+            del out
+            free_memory()
+            bound = 1e3 * nbytes / HBM_BYTES_PER_S
+            k_ms = cuda_time_ms(lambda: densify_images_cuda(xy, vals, starts, n, H, W, False))
+            d_ms = cuda_time_ms(lambda: densify_images_cuda(xy, vals, starts, n, H, W, False),
+                                queued=True)
+            p_ms = cuda_time_ms(lambda: densify_images_plain(xy, vals, owner, n, H, W))
+            readings.append(f"{key} bank [{n}, {H}, {W}, 768] ({used} hits): max diff "
+                            f"{err:.3g}, kernel {k_ms:.4f} ms (device {d_ms:.4f}), plain "
+                            f"{p_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e9:.2f} GB), "
+                            f"{bound / k_ms:.1%} of it")
+            free_memory()
+    log("[one-hot] K1 at C = 768, bfloat16, against the plain version: "
+        + "; ".join(readings) + f" ({smi})")
+    del batch
+    free_memory()
+
+    _, counts = serve(model, ds, TRAIN_BATCH)                  # warm-up
+    launches += counts[0]
+    torch.cuda.reset_peak_memory_stats()
+    rates = []
+    for _ in range(ONE_HOT_PASSES):
+        seconds, counts = serve(model, ds, TRAIN_BATCH)
+        launches += counts[0]
+        rates.append(ONE_HOT_EVENTS / seconds)
+    log(f"[one-hot] predict_split b{TRAIN_BATCH}: {ONE_HOT_EVENTS} events x {ONE_HOT_PASSES} "
+        f"passes, median {statistics.median(rates):.2f} events/s, min {min(rates):.2f}, max "
+        f"{max(rates):.2f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"({smi})")
+    del model
+    free_memory()
+
+    failed = []
+    for size in ONE_HOT_TRAIN_BATCHES:
+        reading = None
+        try:
+            reading = train_reading(cfg, size, ONE_HOT_WARMUP, ONE_HOT_STEPS, SEED + 27)
+        except torch.cuda.OutOfMemoryError as e:      # the reading, not a failure
+            failed.append(f"b{size}: out of memory ({str(e).splitlines()[0][:160]})")
+        if reading is None:
+            free_memory()                             # the failed step's frames are gone
+            continue
+        ms, peak, k1 = reading
+        launches += k1
+        log("[one-hot] train step " + "".join(f"{f}; " for f in failed)
+            + f"b{size}: {ms:.2f} ms/step, {1e3 * size / ms:.2f} events/s, peak memory "
+            f"{peak:.2f} GiB ({ONE_HOT_STEPS} steps after {ONE_HOT_WARMUP}; {smi})")
+        break
+    else:
+        raise AssertionError(f"no one-hot train step fits: {failed}")
+    return launches
+
+
+def check_remaining_modules(smi):
+    """Phase 12; returns K1's launches."""
+    launches = check_optimizers(smi)
+    check_coo_conv(smi)
+    check_gather(smi)
+    check_decoder(smi)
+    launches += check_one_hot(smi)
+    log(f"[phase 12] K1 {launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1481,6 +1850,7 @@ def main():
     check_world_of_one()
     trainer_launches += check_families(smi)
     trainer_launches += check_serving_variants(smi)
+    trainer_launches += check_remaining_modules(smi)
     kernels = []
     for (err, ms, plain_ms, lib_ms, bound_ms), name, source, replaces, launches in (
             (k1, "densify", "dune_transformercvn_torch/csrc/densify.cu",

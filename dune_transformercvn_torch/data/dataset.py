@@ -16,9 +16,11 @@ There is no per-item ``__getitem__`` -> collate pipeline here: batches are
 assembled by :mod:`.batcher`, which slices the CSR banks for a whole batch of
 events at once.
 
-The port's own copy of ``dune_transformercvn_tpu/data/dataset.py``; it keeps
-only the numpy CSR gather (the JAX package tries a native C++ one first,
-which gives identical arrays).
+The port's own copy of ``dune_transformercvn_tpu/data/dataset.py``.  Banks
+loaded to RAM are gathered by the native C++ engine
+(:func:`..utils.native.native_gather_ranges`), as in the JAX package;
+memory-mapped banks, or ``gather_events(..., native=False)``, take the
+numpy loop, which gives the same arrays.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from ..utils.native import native_gather_ranges
 from .schema import remap_event_current_targets
 
 LimitIndex = Union[float, Tuple[float, float], Sequence[int], np.ndarray]
@@ -193,13 +196,14 @@ class EventDataset:
 
     # -------------------------------------------------------------------------
 
-    def gather_events(self, indices: np.ndarray):
+    def gather_events(self, indices: np.ndarray, native: bool = True):
         """Slice all per-event fields and COO banks for a batch of events.
 
         Returns a dict of numpy arrays; COO hits are concatenated with a
         per-hit owner column (position of the event within ``indices`` for
         event hits, running real-prong slot for prong hits is derived later
-        by the batcher).
+        by the batcher).  Banks in RAM go through the native gather unless
+        ``native`` is False.
         """
         indices = np.asarray(indices)
         # ranges are absolute into the memmapped banks (lazy path) or local
@@ -208,9 +212,8 @@ class EventDataset:
         pr_ranges = self.prong_compressed_index[indices]
 
         def slice_bank(coords, values, ranges):
-            # the numpy path of the JAX package's gather; its native C++
-            # counterpart is not ported yet (ROADMAP.md) and gives the same
-            # arrays
+            if native and self.load_full_dataset:
+                return native_gather_ranges(ranges, coords, values)
             parts_c, parts_v, owners = [], [], []
             for row, (lo, hi) in enumerate(ranges):
                 lo, hi = int(lo), int(hi)

@@ -23,7 +23,7 @@ class InMemoryEvents(EventDataset):
         rng = np.random.default_rng(seed)
         n = num_events
         H, W = image_shape
-        self.load_full_dataset = False
+        self.load_full_dataset = True     # banks in RAM: the native gather
         self.event_targets = rng.integers(0, 4, n).astype(np.int32)
         counts = np.clip(rng.poisson(5.0, n), 1, MAX_PRONGS)
         self.prong_targets = np.full((n, MAX_PRONGS), -1, np.int32)

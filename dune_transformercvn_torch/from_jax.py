@@ -10,7 +10,9 @@ does); the other families' embedders map by :class:`WeightMapper`'s method
 of the family's name.  Conv kernels go HWIO -> OIHW, Dense kernels
 ``[in, out]`` -> ``[out, in]``, attention q/k/v ``[D, h, hd]`` kernels and
 ``[h, hd]`` biases pack into ``in_proj_weight [3D, D]`` / ``in_proj_bias``,
-and ``out [h, hd, D]`` becomes ``out_proj``; BatchNorm scale/bias/mean/var,
+and ``out [h, hd, D]`` becomes ``out_proj`` (a cross-attention packs the same
+way: queries from the targets, keys and values from the memory);
+BatchNorm scale/bias/mean/var,
 GroupNorm and LayerNorm scale/bias, PReLU alpha and ConvNeXt's layer scale
 are copied.  :class:`WeightMapper` records which JAX leaves each tensor came
 from.
@@ -18,6 +20,10 @@ from.
 :func:`jax_leaf_names` gives, for each parameter of a port model, the name
 of the JAX leaf it is carried from (``kernel``, ``bias``, ``scale``,
 ``stem_bias``, ...); the optimizer's weight-decay rule reads it.
+:func:`jax_leaf_splits` gives how many JAX leaves each parameter packs;
+the optimizers' per-leaf trust ratios read it.  ``WeightMapper.decoder_layer``
+and ``WeightMapper.isab`` map the JAX package's ``DecoderLayer`` and
+``InducedSetAttentionBlock``, which no network holds.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from torch import nn
 
 from .models.coo_densenet import CooStemDenseNet
 from .models.densenet import SpaceToDepthStem
-from .models.encoder import SelfAttention
+from .models.encoder import MultiHeadAttention
 from .models.heads import linear_block_layers
 from .models.resnet import BLOCK_CONFIG as RESNET_BLOCK_CONFIG
 from .models.sparse_convnext import HIDDEN_DEPTHS as CONVNEXT_DEPTHS
@@ -328,21 +334,50 @@ class WeightMapper:
                 k += 1
         self.output_block(f"{N}output_block", path, index=1)
 
+    def attention(self, name, path, hidden_dim: int):
+        """A flax ``MultiHeadDotProductAttention``: its query, key and value
+        kernels pack into ``in_proj_weight`` in that order (queries from the
+        targets, keys and values from the memory in a cross-attention)."""
+        D, qkv = hidden_dim, ("query", "key", "value")
+        self.put(_join(".", name, "in_proj_weight"), np.concatenate(
+            [self.take(_join("/", path, q, "kernel")).reshape(D, D).T for q in qkv]))
+        self.put(_join(".", name, "in_proj_bias"), np.concatenate(
+            [self.take(_join("/", path, q, "bias")).reshape(D) for q in qkv]))
+        self.put(_join(".", name, "out_proj.weight"),
+                 self.take(_join("/", path, "out/kernel")).reshape(D, D).T)
+        self.put(_join(".", name, "out_proj.bias"), self.take(_join("/", path, "out/bias")))
+
     def encoder_layer(self, name, path, hidden_dim: int):
-        D = hidden_dim
-        mha = _join("/", path, "MultiHeadDotProductAttention_0")
-        qkv = ("query", "key", "value")
-        attn = _join(".", name, "self_attn")
-        self.put(f"{attn}.in_proj_weight", np.concatenate(
-            [self.take(f"{mha}/{q}/kernel").reshape(D, D).T for q in qkv]))
-        self.put(f"{attn}.in_proj_bias", np.concatenate(
-            [self.take(f"{mha}/{q}/bias").reshape(D) for q in qkv]))
-        self.put(f"{attn}.out_proj.weight", self.take(f"{mha}/out/kernel").reshape(D, D).T)
-        self.put(f"{attn}.out_proj.bias", self.take(f"{mha}/out/bias"))
+        self.attention(_join(".", name, "self_attn"),
+                       _join("/", path, "MultiHeadDotProductAttention_0"), hidden_dim)
         self.linear(_join(".", name, "linear1"), _join("/", path, "Dense_0"))
         self.linear(_join(".", name, "linear2"), _join("/", path, "Dense_1"))
         self.layer_norm(_join(".", name, "norm1"), _join("/", path, "LayerNorm_0"))
         self.layer_norm(_join(".", name, "norm2"), _join("/", path, "LayerNorm_1"))
+
+    def decoder_layer(self, name, path, hidden_dim: int):
+        """JAX ``DecoderLayer``: the self-attention, the attention to the
+        memory, the feed-forward and the three LayerNorms."""
+        for port, index in (("self_attn", 0), ("multihead_attn", 1)):
+            self.attention(_join(".", name, port),
+                           _join("/", path, f"MultiHeadDotProductAttention_{index}"),
+                           hidden_dim)
+        self.linear(_join(".", name, "linear1"), _join("/", path, "Dense_0"))
+        self.linear(_join(".", name, "linear2"), _join("/", path, "Dense_1"))
+        for i in range(3):
+            self.layer_norm(_join(".", name, f"norm{i + 1}"), _join("/", path, f"LayerNorm_{i}"))
+
+    def isab(self, name, path, hidden_dim: int):
+        """JAX ``InducedSetAttentionBlock``: the input projection where the
+        tree has one, the inducing points and the two decoder layers."""
+        if self.has(_join("/", path, "input_projection/kernel")):
+            self.linear(_join(".", name, "input_projection"),
+                        _join("/", path, "input_projection"))
+        self.put(_join(".", name, "inducing_points"),
+                 self.take(_join("/", path, "inducing_points")))
+        for i in range(2):
+            self.decoder_layer(_join(".", name, f"layers.{i}"),
+                               _join("/", path, f"DecoderLayer_{i}"), hidden_dim)
 
     def transformer_encoder(self, name, path, hidden_dim: int):
         i = 0
@@ -402,7 +437,7 @@ _LEAF_NAMES = (
     ((MaskedBatchNorm, nn.LayerNorm, nn.GroupNorm), {"weight": "scale", "bias": "bias"}),
     ((PReLU,), {"weight": "alpha"}),
     ((ConvNeXtBlock,), {"gamma": "layer_scale"}),
-    ((SelfAttention,), {"in_proj_weight": "kernel", "in_proj_bias": "bias"}),
+    ((MultiHeadAttention,), {"in_proj_weight": "kernel", "in_proj_bias": "bias"}),
 )
 
 
@@ -425,6 +460,18 @@ def jax_leaf_names(model: nn.Module) -> Dict[str, str]:
             table = next((t for types, t in _LEAF_NAMES if isinstance(module, types)), {})
             names[full] = table.get(p_name, p_name)
     return names
+
+
+def jax_leaf_splits(model: nn.Module) -> Dict[str, int]:
+    """For each parameter of ``model``, the number of JAX leaves stacked
+    along its first axis: 3 for an attention's ``in_proj_weight`` and
+    ``in_proj_bias`` (query, key, value), 1 for every other parameter."""
+    splits = {}
+    for mod_name, module in model.named_modules():
+        for p_name, _ in module.named_parameters(recurse=False):
+            packed = isinstance(module, MultiHeadAttention) and p_name.startswith("in_proj")
+            splits[_join(".", mod_name, p_name)] = 3 if packed else 1
+    return splits
 
 
 def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> torch.nn.Module:

@@ -8,6 +8,7 @@ reference ``state_dict`` (``linear``, ``norm``, ``activation``).
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional
 
 import torch
@@ -15,6 +16,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.masked import MaskedBatchNorm, PReLU
+
+
+def lecun_normal_(tensor: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator]):
+    """flax's ``lecun_normal``: truncated normal (2 std) of variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(tensor, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        tensor.mul_(std)
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -20,7 +20,6 @@ torch's ``module.train()``: batch statistics, dropout and pixel noise.
 
 from __future__ import annotations
 
-import math
 import warnings
 from dataclasses import dataclass
 from functools import partial
@@ -32,10 +31,10 @@ from torch.utils.checkpoint import CheckpointPolicy
 
 from ..ops.masked import remat
 from ..ops.scatter import densify_images, pack_rows, pad_rows
-from .blocks import FeatureEmbedding, LinearBlock, make_divisible
+from .blocks import FeatureEmbedding, LinearBlock, lecun_normal_, make_divisible
 from .coo_densenet import CooStemDenseNet
 from .densenet import DenseNet, SpaceToDepthStem
-from .encoder import SelfAttention, TransformerEncoder
+from .encoder import MultiHeadAttention, TransformerEncoder
 from .heads import EventDecoder, ProngDecoder
 from .mobilenet import DEFAULT_STRUCTURE, MobileNetV2
 from .resnet import ResNetStack
@@ -488,15 +487,6 @@ class TransformerCVN(nn.Module):
         )
 
 
-def _lecun_normal_(tensor: torch.Tensor, fan_in: int,
-                   generator: Optional[torch.Generator]):
-    """flax's ``lecun_normal``: truncated normal (2 std) of variance 1/fan_in."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    with torch.no_grad():
-        nn.init.trunc_normal_(tensor, 0.0, 1.0, -2.0, 2.0, generator=generator)
-        tensor.mul_(std)
-
-
 def init_parameters(model: nn.Module, generator: Optional[torch.Generator] = None):
     """Draw every randomly initialised weight of ``model`` from ``generator``
     with flax's default initialisers; biases start at zero.  BatchNorm,
@@ -504,13 +494,13 @@ def init_parameters(model: nn.Module, generator: Optional[torch.Generator] = Non
     for module in model.modules():
         if isinstance(module, (nn.Linear, nn.Conv2d, SpaceToDepthStem)):
             w = module.weight
-            _lecun_normal_(w, w[0].numel(), generator)
+            lecun_normal_(w, w[0].numel(), generator)
             if module.bias is not None:
                 nn.init.zeros_(module.bias)
-        elif isinstance(module, SelfAttention):
+        elif isinstance(module, MultiHeadAttention):
             # q, k, v each a [D, D] projection with fan-in D
             for w in module.in_proj_weight.chunk(3):
-                _lecun_normal_(w, w.shape[1], generator)
+                lecun_normal_(w, w.shape[1], generator)
             nn.init.zeros_(module.in_proj_bias)
         elif isinstance(module, ProngEmbedding):
             for p in (module.event_position_embedding, module.prong_position_embedding):

@@ -1,8 +1,9 @@
 """Tensor ops of the port: masked primitives, scatter/gather, losses, the
-sparse-grid engine (``ops.sparse``), kernel K1 (densify) and kernel K2 (the
-sparse stem's scatter)."""
+sparse-grid engine (``ops.sparse``), the general COO convolution, kernel K1
+(densify) and kernel K2 (the sparse stem's scatter)."""
 
-from .coo_conv import coo_stem_conv
+from .coo_conv import (ConvMaps, build_conv_maps, build_conv_maps_numpy, coo_conv_apply,
+                       coo_stem_conv)
 from .coo_stem import (ScatterPatches, coo_stem_conv_cuda, scatter_patches_cuda,
                        scatter_patches_plain, stem_patches)
 from .densify import densify_images_cuda, densify_images_plain
@@ -10,9 +11,13 @@ from .masked import MaskedBatchNorm, PReLU
 from .scatter import densify_images, pack_rows, pad_rows
 
 __all__ = [
+    "ConvMaps",
     "MaskedBatchNorm",
     "PReLU",
     "ScatterPatches",
+    "build_conv_maps",
+    "build_conv_maps_numpy",
+    "coo_conv_apply",
     "coo_stem_conv",
     "coo_stem_conv_cuda",
     "densify_images",

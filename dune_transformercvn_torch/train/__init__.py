@@ -1,5 +1,5 @@
 """Training of the port, on one device or data-parallel over processes:
-losses in :mod:`..ops.losses`, schedules, AdamW, the train state, metrics,
+losses in :mod:`..ops.losses`, schedules, the optimizers, the train state, metrics,
 the train/eval steps, checkpoints, metric logging and the :class:`Trainer`
 loop (``python -m dune_transformercvn_torch.train`` is its CLI)."""
 

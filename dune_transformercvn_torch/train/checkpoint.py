@@ -5,10 +5,11 @@ Port of ``dune_transformercvn_tpu/train/checkpoint.py`` with ``torch.save``
 in place of orbax.  It replaces Lightning's ModelCheckpoint configuration
 (train.py:107-114): a checkpoint every validation, the top-k by
 ``val_epoch_AUC`` kept plus the most recent one ("last"), and a restore of
-the full train state -- parameters, BatchNorm buffers, AdamW's moments and
-step counts, the step, the dataset normalization statistics and the
-generator's state -- so resume continues exactly (epoch shuffling is
-re-derived deterministically from (seed, epoch)).
+the full train state -- parameters, BatchNorm buffers, the optimizer's
+state (AdamW's moments and step counts, or an optax chain's slots and
+count), the step, the dataset normalization statistics and the generator's
+state -- so resume continues exactly (epoch shuffling is re-derived
+deterministically from (seed, epoch)).
 
 Layout, as the JAX package's: ``<dir>/step_{N}/`` per save (here holding
 ``state.pt``) and ``<dir>/index.json`` = ``{"checkpoints": [{"step",

@@ -1,36 +1,53 @@
-"""The optimizer: AdamW with the reference's decay rule, after global-norm
-clipping, at the scheduled learning rate.
+"""The optimizers: the JAX package's optax chains with the reference's decay
+rule, after global-norm clipping, at the scheduled learning rate.
 
-Port of ``dune_transformercvn_tpu/train/optimizer.py`` for AdamW, the
-production optimizer (the option files' "AdamW", and the reference's
-"apex_adam" alias).
+Port of ``dune_transformercvn_tpu/train/optimizer.py``: ``adamw`` (the
+option files' "AdamW"), ``adam``, ``sgd``, ``rmsprop``, ``adagrad``,
+``lamb``, ``lars`` and ``lion``, with the reference's aliases
+(``apex_adam`` -> adamw, ``apex_lamb`` -> lamb, ``apex_sgd`` -> sgd); an
+unknown name falls back to AdamW with the JAX package's message.
 
 * **Decay rule.**  Weight decay applies to every parameter whose JAX leaf
   is not named ``bias`` (the live reference excludes biases only).  So
   norm scales, PReLU alphas, position vectors and the coo stem's
   ``stem_bias``, whose leaf name is not ``bias``, are decayed.  The JAX
   names come from :func:`..from_jax.jax_leaf_names`; a rule on the port's
-  own names would exempt the coo stem's ``conv0.bias``.
+  own names would exempt the coo stem's ``conv0.bias``.  The parameters
+  sit in two groups, decayed and not, and ``weight_decay`` is the masked
+  ``add_decayed_weights`` of each chain.
 * **Clipping** is optax's ``clip_by_global_norm``: ``g / ||g|| * max`` when
   ``||g|| >= max``, with no epsilon (``torch.nn.utils.clip_grad_norm_`` adds
   one).
-* **Update.**  ``torch.optim.AdamW`` (betas 0.9 / 0.999, eps 1e-8) computes
-  optax's ``adamw``: ``p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``.
-  optax updates every leaf, so a parameter that got no gradient gets a zero
-  one here (its Adam moments stay zero, its decay still applies).
+* **Learning rate.**  The train step sets ``group["lr"]`` to
+  ``base_lr * schedule(step)`` before every update; each chain applies it
+  where optax's ``scale_by_learning_rate`` sits (for lars, before the
+  momentum, so the trace accumulates lr-scaled updates).
+* **AdamW** is ``torch.optim.AdamW`` (betas 0.9 / 0.999, eps 1e-8), which
+  computes optax's ``adamw``: ``p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd
+  * p)``, with its bias corrections in float64 where optax's are float32
+  (an update differs by up to 6.5e-6 of its size at the first steps).  The other seven are :class:`OptaxChain` subclasses that compute
+  optax 0.2.6's chains with its defaults, not ``torch.optim``'s (rmsprop's
+  decay 0.9 and adagrad's initial accumulator 0.1, each with its epsilon
+  inside the square root; L2 decay added to the gradient before adam, sgd,
+  rmsprop and adagrad).
+* **Trust ratios** (lamb, lars) are per JAX leaf: a port parameter that
+  packs several leaves along its first axis (the attention's q/k/v
+  ``in_proj_weight`` / ``in_proj_bias``) takes one ratio per leaf
+  (:func:`..from_jax.jax_leaf_splits`).
+* optax updates every leaf, so a parameter that got no gradient gets a zero
+  one here (its moments stay zero, its decay still applies).
 """
 
 from __future__ import annotations
 
 from typing import Dict, List
 
+import numpy as np
 import torch
 from torch import nn
 
-from ..from_jax import jax_leaf_names
+from ..from_jax import jax_leaf_names, jax_leaf_splits
 
-# optax factories of the JAX package that the port does not run yet
-_NOT_PORTED = {"adam", "sgd", "rmsprop", "adagrad", "lamb", "lars", "lion"}
 _ALIASES = {"apex_adam": "adamw", "apex_lamb": "lamb", "apex_sgd": "sgd"}
 
 
@@ -39,19 +56,163 @@ def decay_mask(model: nn.Module) -> Dict[str, bool]:
     return {name: leaf != "bias" for name, leaf in jax_leaf_names(model).items()}
 
 
-def create_optimizer(options, model: nn.Module) -> torch.optim.AdamW:
-    """AdamW over ``model``'s parameters in two groups, decayed and not,
-    with ``lr`` set to the base rate (the train step scales it by the
-    schedule before every update)."""
+def _decayed(g, p, group):
+    """optax's ``add_decayed_weights`` of the group (0 where masked off)."""
+    wd = group["weight_decay"]
+    return g + wd * p if wd else g
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """optax's ``1 - decay ** count`` in float32: 0.999 is no float32, so
+    at small counts this differs from the float64 value by up to 1.3e-5 of
+    itself (numpy's float32 power gives XLA's bits)."""
+    return float(np.float32(1) - np.float32(decay) ** np.float32(count))
+
+
+def _adam(g, state, count: int, b1: float, b2: float, eps: float):
+    """optax's ``scale_by_adam`` (eps outside the square root), its moments
+    updated in place."""
+    mu, nu = state["mu"], state["nu"]
+    mu.mul_(b1).add_(g, alpha=1 - b1)
+    nu.mul_(b2).addcmul_(g, g, value=1 - b2)
+    mu_hat = mu / _bias_correction(b1, count)
+    nu_hat = nu / _bias_correction(b2, count)
+    return mu_hat / (nu_hat.sqrt() + eps)
+
+
+def _trust_ratio(u, p, leaves: int, coefficient: float):
+    """optax's ``scale_by_trust_ratio`` on each of the ``leaves`` JAX leaves
+    stacked along the first axis: ``u * c * ||p|| / ||u||``, ratio 1 where
+    either norm is zero."""
+    uv, pv = u.reshape(leaves, -1), p.reshape(leaves, -1)
+    p_norm = torch.linalg.vector_norm(pv, dim=1, keepdim=True)
+    u_norm = torch.linalg.vector_norm(uv, dim=1, keepdim=True)
+    ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
+                        coefficient * p_norm / u_norm)
+    return (uv * ratio).reshape(u.shape)
+
+
+class OptaxChain(torch.optim.Optimizer):
+    """One of the JAX package's optax chains.  Each group holds ``lr`` (the
+    step's rate), ``weight_decay`` and ``count`` (optax's step count, in
+    the checkpoint with the groups); ``slots`` names each parameter's state
+    tensors and their initial values; ``leaves`` maps a parameter to the
+    JAX leaves it packs.  Each subclass's ``update(p, g, state, group)``
+    gives the increment added to a parameter."""
+
+    slots: Dict[str, float] = {}
+
+    def __init__(self, groups, lr: float, leaves: Dict[nn.Parameter, int]):
+        super().__init__(groups, dict(lr=lr, weight_decay=0.0, count=0))
+        self.leaves = leaves
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            group["count"] += 1
+            for p in group["params"]:
+                state = self.state[p]
+                if not state:
+                    for name, value in self.slots.items():
+                        state[name] = torch.full_like(p, value,
+                                                      memory_format=torch.preserve_format)
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                p.add_(self.update(p, g, state, group))
+
+
+class Adam(OptaxChain):
+    """``chain(add_decayed_weights(wd, mask), adam(lr))``."""
+
+    slots = {"mu": 0.0, "nu": 0.0}
+
+    def update(self, p, g, state, group):
+        return -group["lr"] * _adam(_decayed(g, p, group), state, group["count"],
+                                    0.9, 0.999, 1e-8)
+
+
+class SGD(OptaxChain):
+    """``chain(add_decayed_weights(wd, mask), sgd(lr))``: no momentum."""
+
+    def update(self, p, g, state, group):
+        return -group["lr"] * _decayed(g, p, group)
+
+
+class RMSprop(OptaxChain):
+    """``chain(add_decayed_weights(wd, mask), rmsprop(lr))``: decay 0.9,
+    ``g / sqrt(nu + 1e-8)``."""
+
+    slots = {"nu": 0.0}
+
+    def update(self, p, g, state, group):
+        g = _decayed(g, p, group)
+        nu = state["nu"]
+        nu.mul_(0.9).addcmul_(g, g, value=1 - 0.9)
+        return -group["lr"] * (g * torch.rsqrt(nu + 1e-8))
+
+
+class Adagrad(OptaxChain):
+    """``chain(add_decayed_weights(wd, mask), adagrad(lr))``: the sum of
+    squares starts at 0.1, ``g / sqrt(sum + 1e-7)``."""
+
+    slots = {"sum_of_squares": 0.1}
+
+    def update(self, p, g, state, group):
+        g = _decayed(g, p, group)
+        total = state["sum_of_squares"]
+        total.addcmul_(g, g)
+        scale = torch.where(total > 0, torch.rsqrt(total + 1e-7), torch.zeros_like(total))
+        return -group["lr"] * (scale * g)
+
+
+class Lamb(OptaxChain):
+    """``lamb(lr, weight_decay, mask)``: ``scale_by_adam(eps=1e-6)``, the
+    masked decay, the trust ratio of each leaf, then ``-lr``."""
+
+    slots = {"mu": 0.0, "nu": 0.0}
+
+    def update(self, p, g, state, group):
+        u = _decayed(_adam(g, state, group["count"], 0.9, 0.999, 1e-6), p, group)
+        return -group["lr"] * _trust_ratio(u, p, self.leaves[p], 1.0)
+
+
+class Lars(OptaxChain):
+    """``lars(lr, weight_decay, mask)``: the masked decay, a trust ratio on
+    every leaf (coefficient 1e-3, eps 0), ``-lr``, then ``trace(0.9)``."""
+
+    slots = {"trace": 0.0}
+
+    def update(self, p, g, state, group):
+        u = -group["lr"] * _trust_ratio(_decayed(g, p, group), p, self.leaves[p], 1e-3)
+        return state["trace"].mul_(0.9).add_(u)
+
+
+class Lion(OptaxChain):
+    """``lion(lr, weight_decay=wd, mask)``: ``sign(0.1 g + 0.9 m)``, then
+    ``m = 0.01 g + 0.99 m``, the masked decay and ``-lr``."""
+
+    slots = {"mu": 0.0}
+
+    def update(self, p, g, state, group):
+        mu = state["mu"]
+        u = torch.sign((1 - 0.9) * g + 0.9 * mu)
+        mu.mul_(0.99).add_(g, alpha=1 - 0.99)
+        return -group["lr"] * _decayed(u, p, group)
+
+
+CHAINS = {"adam": Adam, "sgd": SGD, "rmsprop": RMSprop, "adagrad": Adagrad,
+          "lamb": Lamb, "lars": Lars, "lion": Lion}
+
+
+def create_optimizer(options, model: nn.Module) -> torch.optim.Optimizer:
+    """``options.optimizer`` over ``model``'s parameters in two groups,
+    decayed and not, with ``lr`` set to the base rate (the train step scales
+    it by the schedule before every update)."""
     name = _ALIASES.get(options.optimizer.lower(), options.optimizer.lower())
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {options.optimizer!r} is not ported yet (ROADMAP.md): "
-            "the port runs AdamW")
-    if name != "adamw":
+    if name != "adamw" and name not in CHAINS:
         # the JAX package's fallback for a name it does not know
         print(f"Unable to load desired optimizer: {options.optimizer}. "
               "Using AdamW as a default.")
+        name = "adamw"
     mask = decay_mask(model)
     params = dict(model.named_parameters())
     groups = [
@@ -60,8 +221,12 @@ def create_optimizer(options, model: nn.Module) -> torch.optim.AdamW:
         {"params": [p for n, p in params.items() if not mask[n]],
          "weight_decay": 0.0},
     ]
-    return torch.optim.AdamW(groups, lr=options.learning_rate, betas=(0.9, 0.999),
-                             eps=1e-8)
+    if name == "adamw":
+        return torch.optim.AdamW(groups, lr=options.learning_rate, betas=(0.9, 0.999),
+                                 eps=1e-8)
+    splits = jax_leaf_splits(model)
+    return CHAINS[name](groups, options.learning_rate,
+                        {p: splits[n] for n, p in params.items()})
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:

@@ -27,7 +27,7 @@ from .schedules import from_options
 class TrainState:
     step: int                            # optimizer steps taken
     model: nn.Module                     # parameters and BatchNorm buffers
-    optimizer: torch.optim.Optimizer     # AdamW and its moments
+    optimizer: torch.optim.Optimizer     # the option file's optimizer and its state
     schedule: Callable[[int], float]     # learning-rate multiplier of the step
     base_lr: float
     norm: Dict[str, torch.Tensor]        # dataset statistics, frozen
@@ -35,7 +35,8 @@ class TrainState:
 
     def state_dict(self) -> Dict[str, Any]:
         """What a checkpoint holds: the step, the model's parameters and
-        BatchNorm buffers, AdamW's moments and step counts, the norm
+        BatchNorm buffers, the optimizer's state (AdamW's moments and step
+        counts, an optax chain's slots and count), the norm
         statistics and the generator's state.  Tensors are the live ones
         (the checkpoint manager copies them to the host); the schedule and
         base rate are rebuilt from the options."""
@@ -71,7 +72,7 @@ class TrainState:
 
 def create_train_state(model: nn.Module, options, norm: Mapping[str, np.ndarray],
                        steps_per_epoch: int, seed: int = 0) -> TrainState:
-    """A fresh state for ``model`` (already on its device): AdamW from
+    """A fresh state for ``model`` (already on its device): the optimizer of
     ``options``, the schedule of ``options`` over ``steps_per_epoch``."""
     device = next(model.parameters()).device
     return TrainState(

@@ -21,7 +21,7 @@ batch, as the JAX package's ``shard_map`` over the data axis does:
 * A train step: forward in train mode (batch statistics, pixel noise,
   dropout, BatchNorm running statistics updated), backward, the gradients'
   global norm (returned as ``grad_norm``, taken before clipping), optax's
-  global-norm clipping, then AdamW at ``base_lr * schedule(step)`` with
+  global-norm clipping, then the optimizer at ``base_lr * schedule(step)`` with
   ``step`` counted before the update.
 * Noise and dropout draw from the default generators, seeded for the step
   from ``state.generator`` inside ``torch.random.fork_rng``: a step is

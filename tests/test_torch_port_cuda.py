@@ -17,7 +17,9 @@ checkpoints restores onto the card bit for bit.  Each of the other families'
 tiny networks on the card against the CPU (K1 twice a forward), sdxl's
 chunked embedder on the card against its full bank (forward and
 gradients, with the save-spatial policy too), and the sparse-grid ops on
-the card against the CPU.
+the card against the CPU.  K1 at 768 channels (one-hot pixels) at
+production width, the general COO convolution on the card against
+``sparse_conv``, and one lamb step on the card against the CPU.
 """
 
 import numpy as np
@@ -573,3 +575,64 @@ def test_folding_on_the_card_equals_the_cpu(cuda):
     for key, value in want.items():
         assert got[key].device.type == "cuda"
         torch.testing.assert_close(got[key].cpu(), value, rtol=1e-6, atol=1e-7, msg=key)
+
+
+def test_kernel_at_768_channels_matches_plain(cuda):
+    """K1 on one-hot pixels (768 channels, bfloat16) at production width:
+    values 0 and 1 and duplicates sum to small integers, exact in bf16."""
+    N, H, W, C = 2, 400, 280, 768
+    xy, _, owner, starts = bank(C, H, W, [160, 60], 256, 8, cuda)
+    rng = np.random.default_rng(9)
+    hot = np.zeros((256, C), np.float32)
+    for c in range(3):
+        hot[np.arange(256), 256 * c + rng.integers(0, 256, 256)] = 1.0
+    vals = torch.from_numpy(hot).to(cuda, torch.bfloat16)
+    out = k1.densify_images_cuda(xy, vals, starts, N, H, W, False)
+    ref = k1.densify_images_plain(xy, vals, owner, N, H, W, False)
+    assert out.shape == (N, H, W, C) and out.dtype == torch.bfloat16
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("kernel,stride", [(3, 1), (7, 2)])
+def test_coo_conv_apply_on_the_card_matches_sparse_conv(cuda, kernel, stride):
+    from dune_transformercvn_torch.ops import build_conv_maps, coo_conv_apply
+    from dune_transformercvn_torch.ops.sparse import SparseGrid, sparse_conv
+
+    rng = np.random.default_rng(kernel)
+    occupied = rng.uniform(size=(2, 24, 20)) < 0.1
+    dense = rng.normal(size=(2, 24, 20, 5)).astype(np.float32) * occupied[..., None]
+    weights = rng.normal(size=(kernel, kernel, 5, 6)).astype(np.float32)
+    maps = build_conv_maps(np.argwhere(occupied), kernel, stride, 24, 20, pad_to=400)
+    features = torch.from_numpy(dense[occupied]).to(cuda).requires_grad_()
+    w = torch.from_numpy(weights).to(cuda).requires_grad_()
+    got = coo_conv_apply(features, w, torch.from_numpy(maps.in_maps).to(cuda),
+                         torch.from_numpy(maps.out_maps).to(cuda), maps.num_out)
+    want = sparse_conv(SparseGrid(torch.from_numpy(dense).to(cuda),
+                                  torch.from_numpy(occupied).to(cuda)),
+                       w.detach().permute(3, 2, 0, 1), stride)
+    owner, x, y = torch.from_numpy(maps.out_coords).to(cuda).T
+    torch.testing.assert_close(got, want.features[owner, x, y], rtol=1e-4, atol=1e-4)
+    got.square().sum().backward()
+    assert torch.isfinite(features.grad).all() and torch.isfinite(w.grad).all()
+
+
+def test_lamb_step_on_the_card_matches_the_cpu(cuda):
+    """One lamb step (per-leaf trust ratios over a packed q/k/v projection)
+    on the card against the same step on the CPU."""
+    from dune_transformercvn_torch.models import DecoderLayer
+    from dune_transformercvn_torch.train import create_optimizer
+
+    options = Options()
+    options.update_options(dict(optimizer="lamb", learning_rate=1e-2, l2_penalty=0.1))
+    results = []
+    for device in ("cpu", cuda):
+        model = DecoderLayer(16, 4, generator=torch.Generator().manual_seed(0)).to(device)
+        optimizer = create_optimizer(options, model)
+        for p in model.parameters():
+            p.grad = torch.from_numpy(
+                np.random.default_rng(p.numel()).normal(size=tuple(p.shape)).astype(
+                    np.float32)).to(device)
+        optimizer.step()
+        results.append({n: p.detach().cpu() for n, p in model.named_parameters()})
+    for name, want in results[0].items():
+        torch.testing.assert_close(results[1][name], want, rtol=1e-6, atol=1e-7)

@@ -432,7 +432,10 @@ def test_fold_eval_bn_is_not_ported():
 # ---------------------------------------------------------------------------
 
 def run_cli(module, *args, cwd, expect=0):
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    # the CLI reduces over as many threads as this process (the evaluate CLI
+    # has no --threads and would take the host's core count): the same
+    # summation order keeps its predictions bit-equal to this process's
+    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": str(torch.get_num_threads())}
     proc = subprocess.run([sys.executable, "-m", f"dune_transformercvn_torch.{module}", *args],
                           cwd=cwd, env=env, capture_output=True, text=True, timeout=400)
     assert proc.returncode == expect, proc.stdout[-3000:] + proc.stderr[-3000:]

@@ -11,6 +11,7 @@ re-normalising over a handful of rows.
 """
 
 import dataclasses
+import itertools
 import os
 from functools import partial
 
@@ -35,6 +36,7 @@ from dune_transformercvn_torch.profile_serving import OPTION_FILE, production_co
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+ORDER_MULTIPLE = 2.0
 SIZE = 32
 
 VARIANTS = {
@@ -177,19 +179,56 @@ def test_network_eval_matches_jax(setup):
         np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), **TOL)
 
 
-def test_network_train_mode_matches_jax(setup):
+def order_spread(apply, variables, shrunk, jn, want):
+    """The largest change in JAX's own train-mode logits when only the order
+    of the batch's 4 events changes: each of the other 23 permutations goes
+    through the same jitted function and its outputs are put back in order.
+    The arithmetic is the same, so this is float32 summation order alone."""
+    batcher = Batcher(shrunk, batch_size=4, coo_granularity=512)
+    spread = [0.0, 0.0]
+    for perm in itertools.permutations(range(4)):
+        if perm == (0, 1, 2, 3):
+            continue
+        batch = batcher.build_batch(np.asarray(perm))
+        outputs, _ = apply(variables, {k: jnp.asarray(v) for k, v in batch.items()}, jn)
+        inverse = np.argsort(perm)
+        for i, (got, ref) in enumerate(zip(outputs, want)):
+            spread[i] = max(spread[i], float(np.abs(np.asarray(got)[inverse] - ref).max()))
+    return spread
+
+
+def test_network_train_mode_matches_jax(setup, data):
     """Train-mode BatchNorm: logits from batch statistics, and the running
-    statistics after one forward."""
+    statistics after one forward.
+
+    The logits are held to ``ORDER_MULTIPLE`` times JAX's own spread under a
+    reordering of the batch's events (``order_spread``), not to a fixed
+    tolerance.  Both frameworks compute the statistics with the same one-pass
+    ``sum_sq / count - mean**2`` in float32; where a channel's mean is large
+    against its spread that subtraction cancels most digits, so the summation
+    order alone moves the normalised values, and at a batch of 4 nothing
+    averages it out.  The port's order is one more order: its distance from
+    JAX is bounded by its distance from the float32 result of some order
+    plus JAX's (each at most one spread), hence the factor 2.  The measured
+    spreads on this batch: production 2.1e-5 (event) and 1.6e-4 (prong)
+    against the port's 1.7e-5 and 1.4e-4; smart 2.6e-5 and 2.2e-4 against
+    7.8e-6 and 8.1e-5.  The running statistics keep ``TOL``.  This bound
+    still fails the port when it normalises with the unbiased variance,
+    drops the mask from the statistics or skips the running-stat update.
+    """
     jax_model, variables, model, jb, jn, batch, norm = setup
-    (event_logits, prong_logits), updated = jax.jit(partial(
-        jax_model.apply, train=True, mutable=["batch_stats"]))(variables, jb, jn)
+    apply = jax.jit(partial(jax_model.apply, train=True, mutable=["batch_stats"]))
+    (event_logits, prong_logits), updated = apply(variables, jb, jn)
+    want_logits = (np.asarray(event_logits), np.asarray(prong_logits))
+    spread = order_spread(apply, variables, data[0], jn, want_logits)
     model.load_state_dict(state_dict_from_jax(variables, model.cfg))
     model.train()
     with torch.no_grad():
-        got_event, got_prong = model(to_device(batch, "cpu"), to_device(norm, "cpu"))
+        got_logits = model(to_device(batch, "cpu"), to_device(norm, "cpu"))
     model.eval()
-    np.testing.assert_allclose(got_event.numpy(), np.asarray(event_logits), **TOL)
-    np.testing.assert_allclose(got_prong.numpy(), np.asarray(prong_logits), **TOL)
+    for got, want, s in zip(got_logits, want_logits, spread):
+        assert s > 0.0
+        np.testing.assert_allclose(got.numpy(), want, rtol=0.0, atol=ORDER_MULTIPLE * s)
     want = state_dict_from_jax(
         {"params": variables["params"], "batch_stats": jax.device_get(updated["batch_stats"])},
         model.cfg)

@@ -46,7 +46,7 @@ from dune_transformercvn_torch.train import (create_optimizer, create_train_stat
                                              decay_mask, finalize_metrics,
                                              init_metric_state, make_eval_step,
                                              make_train_step, schedules)
-from dune_transformercvn_torch.train.optimizer import clip_by_global_norm_, global_norm
+from dune_transformercvn_torch.train.optimizer import OptaxChain, clip_by_global_norm_, global_norm
 from _torch_families import batches_and_norm, family_configs  # same-dir test helpers
 from test_torch_port_coo import Scaled, tiny_coo_config
 from test_torch_port_network import random_variables
@@ -218,6 +218,9 @@ def test_clipping_matches_optax(scale):
 
 
 def test_only_adamw_is_ported():
+    """AdamW (and its alias) is ``torch.optim.AdamW``; the other optimizers
+    are ported too, as the port's optax chains
+    (``tests/test_torch_port_optimizers.py`` holds each to optax)."""
     model = torch.nn.Linear(3, 2)
     opts = Options()
     for name in ("AdamW", "apex_adam"):
@@ -225,8 +228,7 @@ def test_only_adamw_is_ported():
         assert isinstance(create_optimizer(opts, model), torch.optim.AdamW)
     for name in ("lamb", "sgd", "apex_sgd", "lion"):
         opts.optimizer = name
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_optimizer(opts, model)
+        assert isinstance(create_optimizer(opts, model), OptaxChain)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,7 @@
 import ast
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 from functools import partial
@@ -212,7 +213,9 @@ def test_port_imports_no_jax_and_only_framework_free_modules():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) >= 25 and {
         PORT / "parallel" / "mesh.py", PORT / "export.py", PORT / "torch_import.py",
-        PORT / "ops" / "fold.py", PORT / "ops" / "quant.py"} <= set(files)
+        PORT / "ops" / "fold.py", PORT / "ops" / "quant.py", PORT / "ops" / "coo_conv.py",
+        PORT / "utils" / "native.py", PORT / "models" / "encoder.py",
+        PORT / "train" / "optimizer.py"} <= set(files)
     names = set()
     for path in files:
         for name in imported_modules(path):
@@ -220,6 +223,37 @@ def test_port_imports_no_jax_and_only_framework_free_modules():
                 f"{path.relative_to(REPO)} imports {name}")
             names.add(name)
     assert "torch" in names and "numpy" in names
+
+
+def code_strings(path: Path):
+    """The string constants of a Python file's code (docstrings left out)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docstrings = {id(node.value) for node in ast.walk(tree)
+                  if isinstance(node, ast.Expr) and isinstance(node.value, ast.Constant)}
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docstrings]
+
+
+def test_port_loads_nothing_of_the_jax_package():
+    """No string the port's code or the smoke uses names the JAX package or
+    its native build product (``native/_coo_engine.so``): the port builds its
+    own engine from ``csrc/coo_engine.cpp``; its C++ and CUDA sources
+    include nothing of the JAX package's."""
+    # the smoke's JSON line cites each TPU kernel it replaces by file:line
+    citation = re.compile(r"dune_transformercvn_tpu/[\w/]+\.py:\d+")
+    for path in sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        for text in code_strings(path):
+            if citation.fullmatch(text):
+                continue
+            assert "_coo_engine" not in text and "dune_transformercvn_tpu" not in text \
+                and "native/" not in text, f"{path.relative_to(REPO)}: {text!r}"
+    sources = sorted((PORT / "csrc").glob("*.c*"))
+    assert {p.name for p in sources} >= {"coo_engine.cpp", "densify.cu", "coo_stem.cu"}
+    for path in sources:
+        includes = [line for line in path.read_text().splitlines()
+                    if line.startswith("#include")]
+        assert all("native" not in line and "tpu" not in line for line in includes), path
 
 
 def test_chip_smoke_imports_no_jax():
@@ -247,6 +281,8 @@ def test_importing_the_port_builds_and_loads_no_cuda(tmp_path):
         "('jax', 'flax', 'optax', 'orbax', 'dune_transformercvn_tpu')], 'jax imported'\n"
         "assert not torch.cuda.is_initialized()\n"
         "assert build._loaded == {}\n"
+        "from dune_transformercvn_torch.utils import native\n"
+        "assert native._lib is None\n"
         "assert densify._kernel.cache_info().currsize == 0\n"
         "assert densify.densify_images_cuda.launches == 0\n"
         "assert coo_stem._kernel.cache_info().currsize == 0\n"
