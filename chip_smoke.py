@@ -95,7 +95,7 @@ Phases, each of which raises on failure:
    batch in which every int8 convolution's ``torch._int_mm`` sums are held
    to the plain float64 route's, int32 equal.  K1 twice a batch on every
    path; the exported graphs take dense pixel maps and launch no K1.
-   ``check_serving_variants(smi)`` runs it alone.
+   ``check_serving_variants(smi, export_dir)`` runs it alone.
 12. The modules outside the main path, at the option file's width.  Each
    of the eight optimizers (AdamW and the seven optax chains) steps the
    dense network at batch 16 from the same starting weights (ms/step, peak
@@ -112,7 +112,27 @@ Phases, each of which raises on failure:
    batch 16, and the train step at batch 16, or the largest batch that
    fits, with its out-of-memory readings.  ``check_remaining_modules(smi)``
    runs it alone.
-13. A JSON line of every ported kernel, then, as the last line,
+13. The AOTInductor serving package at full width: phase 11's ``pid``
+   programs at P = 4 and 20 packaged for the card (``aoti.package_run_dir``:
+   each package's compile seconds, its per-event ``aoti_bucket_ms`` beside
+   the eager program's ``bucket_ms``); the C++ loader
+   (``csrc/aoti_loader.cpp``, built with ``build_loader``) run as a
+   subprocess on one real event's pixel maps at ``num_prongs`` 3 and 17: the
+   rung ``export.select_bucket`` picks on those costs, outputs with the
+   eager graph's argmax and within 2^-5 of its probabilities, its load time
+   and time a run.  Inductor's kernels in the package are Inductor's; no
+   ported kernel runs.
+14. Tensor-parallel training (DP x TP on DTensor): dp1 x mp2 over 2 ranks,
+   ``gloo`` with CUDA tensors on the one card (``nccl`` where there are 2
+   cards; dp2 x mp2 over ``nccl`` on 4); the option file's dense network,
+   bfloat16, ``DP_BATCH`` a data shard: ``fit`` of 4 steps with one
+   validation and a checkpoint, a fresh Trainer resumed from it; every
+   sharded parameter's piece 1/mp of the whole, the ranks' whole states
+   equal bit for bit and equal to the resumed one, the losses against a
+   world-of-one Trainer on the same global batches and seed, K1 twice a
+   step and a validation batch on each rank; ms/step and peak memory per
+   rank.  ``check_tensor_parallel(smi)`` runs it alone.
+15. A JSON line of every ported kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -130,6 +150,7 @@ import math
 import os
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -152,8 +173,9 @@ from dune_transformercvn_torch.ops.sparse import SparseGrid, sparse_conv
 from dune_transformercvn_torch.ops.densify import (
     densify_images_cuda, densify_images_plain)
 from dune_transformercvn_torch.evaluate import evaluate_run
+from dune_transformercvn_torch.aoti import package_run_dir
 from dune_transformercvn_torch.export import (build_inference_fn, export_model, load_exported,
-                                              with_max_prongs)
+                                              select_bucket, with_max_prongs)
 from dune_transformercvn_torch.ops import quant
 from dune_transformercvn_torch.ops.fold import folded_copy
 from dune_transformercvn_torch.predict import predict_split, to_device
@@ -163,7 +185,8 @@ from dune_transformercvn_torch.train import (
     make_train_step)
 from dune_transformercvn_torch.train.checkpoint import CheckpointManager, to_host
 from dune_transformercvn_torch.train.logging import read_history
-from dune_transformercvn_torch.utils.build import build, build_host, host_sources, sources
+from dune_transformercvn_torch.utils.build import (build, build_host, build_loader,
+                                                   host_sources, sources)
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
@@ -272,6 +295,22 @@ DECODER_GRAD_SHARE = 1e-4
 ONE_HOT_EVENTS, ONE_HOT_PASSES = 64, 3
 ONE_HOT_TRAIN_BATCHES, ONE_HOT_WARMUP, ONE_HOT_STEPS = (16, 12, 8, 4), 1, 2
 ONE_HOT_SMALL, ONE_HOT_CHUNK = 2, 8
+# Phase 13: the rungs packaged from phase 11's export (4 and the full 20),
+# the prong counts the C++ loader serves (3 takes rung 4 when it is the
+# cheaper, 17 only fits 20), the loader's timed runs after its first, and
+# its time limit.  Against the eager graph the package runs Inductor's
+# fusions of the same bf16 ops: argmax equal, probabilities within
+# FOLD_SHARE.
+AOTI_RUNGS, AOTI_PRONGS, AOTI_REPEAT, AOTI_TIMEOUT_S = (4, 20), (3, 17), 20, 300
+# Phase 14: the TP degree, the steps (one validation and a checkpoint at the
+# last), the bare steps timed after, and the ranks' time limit.  Losses
+# against a world-of-one Trainer on the same global batches and seed: the
+# first step's is a forward of the same weights on the same batch
+# (PATH_TOL); the later ones follow updates whose float-order differences
+# (cuDNN's weight gradients sum in no fixed order) the bf16 activations and
+# AdamW's normalised steps carry, so within bf16's rounding, 2^-7.
+TP_MP, TP_STEPS, TP_BARE_WARMUP, TP_BARE_STEPS, TP_TIMEOUT_S = 2, 4, 1, 4, 600
+TP_LOSS_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
 
 
 def log(msg: str = ""):
@@ -1302,59 +1341,56 @@ def event_pixel_maps(ds, index, max_prongs):
     return pixels.permute(0, 3, 1, 2).contiguous().cuda(), num_prongs
 
 
-def check_export(model, norm, ds, smi):
-    """``export_model`` on the card; every artifact against the eager graph."""
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_export_")
-    try:
-        torch.cuda.synchronize()
-        reset_counts()
+def check_export(model, norm, ds, smi, out_dir):
+    """``export_model`` on the card into ``out_dir``; every artifact against
+    the eager graph."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    paths = export_model(model, norm, out_dir, prong_buckets=EXPORT_LADDER,
+                         bench_buckets=True)
+    seconds = time.perf_counter() - t0
+    assert read_counts() == (0, 0), read_counts()
+    with open(os.path.join(out_dir, "transformercvn_export_meta.json")) as f:
+        meta = json.load(f)
+    rungs = [int(p) for p in meta["prong_buckets"]]
+    device = next(model.parameters()).device
+    assert rungs == [4, 20] and meta["platforms"] == [device.type], meta
+    sizes = sum(os.path.getsize(p) for p in paths.values()) / 1e6
+    log(f"[export] {len(paths)} artifacts ({sizes:.1f} MB) for rungs {rungs} in "
+        f"{seconds:.2f} s, bucket_ms timed included; pid bucket_ms per event "
+        + ", ".join(f"P={p}: {meta['bucket_ms'][str(p)]:.4f}" for p in rungs)
+        + f" ({smi})")
+    # an event with at most 4 prongs, so every rung serves it
+    index = next(i for i in range(len(ds)) if int((ds.prong_targets[i] >= 0).sum()) <= 4)
+    full, num_prongs = event_pixel_maps(ds, index, model.cfg.max_prongs)
+    n = torch.tensor(num_prongs, dtype=torch.int32, device=full.device)
+    worst = 0.0
+    for key, path in paths.items():
+        capacity = int(key.rsplit("_p", 1)[1]) if "_p" in key else model.cfg.max_prongs
+        variant = key.split("_")[0]
+        pixels = full[:1 + capacity]
         t0 = time.perf_counter()
-        paths = export_model(model, norm, out_dir, prong_buckets=EXPORT_LADDER,
-                             bench_buckets=True)
-        seconds = time.perf_counter() - t0
-        assert read_counts() == (0, 0), read_counts()
-        with open(os.path.join(out_dir, "transformercvn_export_meta.json")) as f:
-            meta = json.load(f)
-        rungs = [int(p) for p in meta["prong_buckets"]]
-        device = next(model.parameters()).device
-        assert rungs == [4, 20] and meta["platforms"] == [device.type], meta
-        sizes = sum(os.path.getsize(p) for p in paths.values()) / 1e6
-        log(f"[export] {len(paths)} artifacts ({sizes:.1f} MB) for rungs {rungs} in "
-            f"{seconds:.2f} s, bucket_ms timed included; pid bucket_ms per event "
-            + ", ".join(f"P={p}: {meta['bucket_ms'][str(p)]:.4f}" for p in rungs)
-            + f" ({smi})")
-        # an event with at most 4 prongs, so every rung serves it
-        index = next(i for i in range(len(ds)) if int((ds.prong_targets[i] >= 0).sum()) <= 4)
-        full, num_prongs = event_pixel_maps(ds, index, model.cfg.max_prongs)
-        n = torch.tensor(num_prongs, dtype=torch.int32, device=full.device)
-        worst = 0.0
-        for key, path in paths.items():
-            capacity = int(key.rsplit("_p", 1)[1]) if "_p" in key else model.cfg.max_prongs
-            variant = key.split("_")[0]
-            pixels = full[:1 + capacity]
-            t0 = time.perf_counter()
-            loaded = load_exported(path)
-            load_s = time.perf_counter() - t0
-            got = loaded(pixels, n)
-            with torch.inference_mode():
-                want = build_inference_fn(with_max_prongs(model, capacity), variant,
-                                          norm)(pixels, n)
-            diffs = []
-            for g, w, kind in zip(got, want, OUTPUT_KINDS[variant]):
-                assert g.shape == w.shape and torch.isfinite(g).all(), (key, g.shape)
-                bound = (EXPORT_PROB_TOL if kind == "probabilities"
-                         else EXPORT_HIDDEN_SHARE * w.float().abs().max().item())
-                diff = max_diff(g, w)
-                assert diff <= bound, (key, diff, bound)
-                diffs.append(diff)
-                worst = max(worst, diff / bound)
-            log(f"[export] {key}: loaded in {load_s:.2f} s; against the eager graph on an "
-                f"event of {num_prongs} prongs, max diffs {[f'{d:.3g}' for d in diffs]}")
-        log(f"[export] every artifact within its bound (probabilities {EXPORT_PROB_TOL}, "
-            f"hidden {EXPORT_HIDDEN_SHARE} of the largest); the worst used {worst:.1%}")
-        return seconds, meta["bucket_ms"]
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
+        loaded = load_exported(path)
+        load_s = time.perf_counter() - t0
+        got = loaded(pixels, n)
+        with torch.inference_mode():
+            want = build_inference_fn(with_max_prongs(model, capacity), variant,
+                                      norm)(pixels, n)
+        diffs = []
+        for g, w, kind in zip(got, want, OUTPUT_KINDS[variant]):
+            assert g.shape == w.shape and torch.isfinite(g).all(), (key, g.shape)
+            bound = (EXPORT_PROB_TOL if kind == "probabilities"
+                     else EXPORT_HIDDEN_SHARE * w.float().abs().max().item())
+            diff = max_diff(g, w)
+            assert diff <= bound, (key, diff, bound)
+            diffs.append(diff)
+            worst = max(worst, diff / bound)
+        log(f"[export] {key}: loaded in {load_s:.2f} s; against the eager graph on an "
+            f"event of {num_prongs} prongs, max diffs {[f'{d:.3g}' for d in diffs]}")
+    log(f"[export] every artifact within its bound (probabilities {EXPORT_PROB_TOL}, "
+        f"hidden {EXPORT_HIDDEN_SHARE} of the largest); the worst used {worst:.1%}")
+    return seconds, meta["bucket_ms"]
 
 
 def timed_predict(model, ds, norm, **kwargs):
@@ -1416,8 +1452,10 @@ def check_int8_route(model, scales, batch, norm):
     return len(scales), len(shapes), read_counts()[0]
 
 
-def check_serving_variants(smi):
-    """Phase 11; returns K1's launches."""
+def check_serving_variants(smi, export_dir):
+    """Phase 11, its programs exported into ``export_dir``; returns K1's
+    launches and what phase 13 packages: the model (in eval mode), its norm
+    statistics and the events."""
     cfg = production_config("bfloat16")
     model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED)).cuda()
     ds = InMemoryEvents(VARIANT_EVENTS, SEED + 14)
@@ -1432,7 +1470,7 @@ def check_serving_variants(smi):
     launches += read_counts()[0]
     model.eval()
 
-    export_s, bucket_ms = check_export(model, norm, ds, smi)
+    export_s, bucket_ms = check_export(model, norm, ds, smi, export_dir)
 
     # fold: raw, folded, folded, raw after a warm-up pass of each
     for fold in (False, True):
@@ -1505,9 +1543,9 @@ def check_serving_variants(smi):
         f"argmax {int8_diff['prong'][1]:.4f}, max diff {int8_diff['prong'][0]:.4g} ({smi})")
     log(f"[serving variants] export {export_s:.2f} s, bucket_ms {bucket_ms}; K1 {launches} "
         f"in phase 11")
-    del model, batches
+    del batches
     free_memory()
-    return launches
+    return launches, (model, norm, ds)
 
 
 # ---------------------------------------------------------------------------
@@ -1826,11 +1864,273 @@ def check_remaining_modules(smi):
     log(f"[phase 12] K1 {launches}")
     return launches
 
+# ---------------------------------------------------------------------------
+# phase 13
+# ---------------------------------------------------------------------------
+
+def read_loader_outputs(path):
+    """The C++ loader's out.bin: u32 count, then per output u32 rank, i64
+    dims, u32 PJRT dtype code (11: float32) and the raw bytes."""
+    outs = []
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<I", f.read(4))
+        for _ in range(n):
+            (rank,) = struct.unpack("<I", f.read(4))
+            dims = struct.unpack(f"<{rank}q", f.read(8 * rank))
+            (dtype,) = struct.unpack("<I", f.read(4))
+            assert dtype == 11, dtype
+            outs.append(np.frombuffer(f.read(4 * int(np.prod(dims))), "<f4").reshape(dims))
+    return outs
+
+
+def loader_reading(stderr, prefix):
+    """The loader's stderr line starting with ``prefix``."""
+    return next(line for line in stderr.splitlines() if line.startswith(prefix))
+
+
+def check_aoti_serving(smi, served, export_dir):
+    """Phase 13: phase 11's ``pid`` programs at P = 4 and 20 packaged with
+    AOTInductor for the card (``package_run_dir`` with its bench), then the
+    C++ loader built and run as a subprocess on one real event, each output
+    held to the eager graph of the rung it chose."""
+    model, norm, ds = served
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paths = package_run_dir(None, export_dir, variants=("pid",), prong_buckets=AOTI_RUNGS,
+                            device="cuda", bench=True)
+    package_s = time.perf_counter() - t0
+    meta_path = os.path.join(export_dir, "transformercvn_export_meta.json")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    assert meta["aoti_platform"] == "cuda" and meta["aoti_prong_buckets"] == list(AOTI_RUNGS)
+    compile_s, aoti_ms, eager_ms = meta["aoti_compile_s"], meta["aoti_bucket_ms"], meta["bucket_ms"]
+    log(f"[aoti] pid packaged for cuda at P = {AOTI_RUNGS} in {package_s:.2f} s, timing "
+        f"included: compile " + ", ".join(f"{k} {v:.2f} s" for k, v in compile_s.items())
+        + f" ({smi})")
+    for p in AOTI_RUNGS:
+        log(f"[aoti] P={p}: package {aoti_ms[str(p)]:.4f} ms an event against the eager "
+            f"program's bucket_ms {eager_ms[str(p)]:.4f} ms "
+            f"({eager_ms[str(p)] / aoti_ms[str(p)]:.1f}x; export._time_bucket_ms, {smi})")
+    t0 = time.perf_counter()
+    loader = build_loader()
+    log(f"[aoti] C++ loader {os.path.basename(loader)} built in {time.perf_counter() - t0:.2f} s")
+
+    index = next(i for i in range(len(ds)) if int((ds.prong_targets[i] >= 0).sum()) <= 3)
+    full, real = event_pixel_maps(ds, index, model.cfg.max_prongs)
+    pixels_bin = os.path.join(export_dir, "event.bin")
+    full.cpu().numpy().tofile(pixels_bin)
+    costs = {int(k): v for k, v in aoti_ms.items()}
+    for n in AOTI_PRONGS:
+        out_bin = os.path.join(export_dir, f"out_{n}.bin")
+        proc = subprocess.run(
+            [str(loader), os.path.join(export_dir, "transformercvn_pid"), meta_path, pixels_bin,
+             str(n), out_bin, "--device", "cuda", "--repeat", str(AOTI_REPEAT)],
+            capture_output=True, text=True, timeout=AOTI_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the loader exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        chosen = int(loader_reading(proc.stderr, "num_prongs").split("bucket ")[1].split()[0])
+        assert chosen == select_bucket(AOTI_RUNGS, n, costs) and chosen >= n, (n, chosen, costs)
+        got = read_loader_outputs(out_bin)
+        count = torch.tensor(n, dtype=torch.int32, device="cuda")
+        with torch.inference_mode():
+            want = [w.float().cpu().numpy() for w in build_inference_fn(
+                with_max_prongs(model, chosen), "pid", norm)(full[:1 + chosen], count)]
+        assert [g.shape for g in got] == [w.shape for w in want], ([g.shape for g in got],)
+        event_diff = float(np.abs(got[0] - want[0]).max())
+        prong_diff = float(np.abs(got[1][:n] - want[1][:n]).max())
+        assert np.isfinite(got[0]).all() and np.isfinite(got[1]).all()
+        assert got[0].argmax() == want[0].argmax(), (got[0], want[0])
+        assert (got[1][:n].argmax(-1) == want[1][:n].argmax(-1)).all(), n
+        assert max(event_diff, prong_diff) <= FOLD_SHARE, (event_diff, prong_diff)
+        log(f"[aoti] loader, num_prongs {n} (the event has {real}): "
+            f"{loader_reading(proc.stderr, 'num_prongs')}; "
+            f"{loader_reading(proc.stderr, 'loaded')}; "
+            f"{loader_reading(proc.stderr, 'first run')}; "
+            f"{loader_reading(proc.stderr, 'run:')}; against the eager graph: argmax equal, "
+            f"max prob diff event {event_diff:.3g}, prongs {prong_diff:.3g} (bound "
+            f"{FOLD_SHARE}; {smi})")
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 14
+# ---------------------------------------------------------------------------
+
+def tp_options(data_shards, mp=TP_MP):
+    """The option file's network at ``DP_BATCH`` a data shard over
+    ``data_shards * mp`` ranks.  With one data shard the options' dropout and
+    pixel noise stay (a world of one draws the same); with more each shard
+    draws its own, so they are off for the comparison."""
+    options = fit_options()
+    options.batch_size = DP_BATCH
+    options.num_gpu = data_shards * mp
+    options.model_parallel = mp
+    if data_shards > 1:
+        options.dropout, options.pixel_noise_std = 0.0, 0.0
+    return options
+
+
+def tp_datasets():
+    return (InMemoryEvents(DP_EVENTS, SEED + 30), InMemoryEvents(DP_VAL_EVENTS, SEED + 31),
+            None)
+
+
+def host_digest(state):
+    """sha256 of the tensors of a host state (``to_host`` of a state dict),
+    in order."""
+    digest = hashlib.sha256()
+    stack = [state]
+    while stack:
+        node = stack.pop(0)
+        if isinstance(node, dict):
+            stack = [node[k] for k in node] + stack
+        elif isinstance(node, (list, tuple)):
+            stack = list(node) + stack
+        elif torch.is_tensor(node):
+            digest.update(node.reshape(-1).contiguous().view(torch.uint8).numpy().tobytes())
+    return digest.hexdigest()
+
+
+def tensor_parallel_rank(rank, ranks, backend, rendezvous, work, out_path):
+    """One rank of phase 14 (a process of its own): fits with tensor
+    parallelism, checkpoints, resumes in a fresh Trainer, times its step,
+    and writes what the parent checks to ``out_path``."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{rendezvous}",
+                            world_size=ranks, rank=rank,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    dist.all_reduce(torch.zeros(1, device=device))   # the ranks meet once, in step
+    try:
+        options = tp_options(ranks // TP_MP)
+        run_dir = os.path.join(work, "run")
+        trainer = Trainer(options, run_dir=run_dir, log_every_n_steps=1, device=device,
+                          verbose=False, datasets=tp_datasets())
+        assert trainer.mesh.mp == TP_MP and trainer.num_shards == ranks // TP_MP
+        pieces = {name: [p.to_local().numel(), p.numel()]
+                  for name, p in trainer.state.model.named_parameters()
+                  if isinstance(p, DTensor)}
+        torch.cuda.reset_peak_memory_stats(device)
+        result, fit_counts = counted(lambda: trainer.fit(max_steps=TP_STEPS,
+                                                         eval_interval=TP_STEPS))
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        digest = host_digest(to_host(trainer.state.state_dict()))
+        losses = ([v for _, v in read_history(run_dir)["train_loss"]] if rank == 0 else [])
+        resumed = Trainer(options, debug=True, device=device, verbose=False,
+                          datasets=tp_datasets())
+        resumed.resume(os.path.join(run_dir, "checkpoints", f"step_{TP_STEPS}"))
+        resumed_digest = host_digest(to_host(resumed.state.state_dict()))
+        del resumed
+        bare_ms = bare_step_ms(trainer, TP_BARE_WARMUP, TP_BARE_STEPS)
+        out = dict(rank=rank, device=str(device), mesh=[trainer.mesh.dp, trainer.mesh.mp,
+                                                       trainer.mesh.data_index],
+                   pieces=pieces, fit_counts=fit_counts, peak_gib=peak, state=digest,
+                   resumed=resumed_digest, losses=losses, val_loss=result["val_loss"],
+                   val_auc=result["val_epoch_AUC"], ms_per_step=bare_ms,
+                   global_batch=trainer.global_batch)
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def check_tensor_parallel(smi, ranks=None):
+    """Phase 14: dp x mp ranks of a tensor-parallel Trainer (dp1 x mp2 on
+    one card, over gloo with CUDA tensors; over nccl, one card a rank, where
+    there are enough; dp2 x mp2 on 4 cards), then a world-of-one Trainer on
+    the same global batches; returns K1's launches over the ranks."""
+    cards = torch.cuda.device_count()
+    ranks = ranks or (2 * TP_MP if cards >= 2 * TP_MP else TP_MP)
+    backend = "nccl" if cards >= ranks else "gloo"
+    dp = ranks // TP_MP
+    where = (f"nccl, one card each ({cards} cards)" if backend == "nccl"
+             else "gloo with CUDA tensors, every rank on the one card")
+    log(f"[tp] dp{dp} x mp{TP_MP}: {ranks} ranks over {where}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        outs = [os.path.join(work, f"rank{r}.json") for r in range(ranks)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.tensor_parallel_rank("
+             "*map(int, sys.argv[1:3]), *sys.argv[3:])",
+             str(r), str(ranks), backend, os.path.join(work, "rendezvous"), work, outs[r]],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": str(ranks)})
+            for r in range(ranks)]
+        t0 = time.perf_counter()
+        try:
+            texts = [p.communicate(timeout=TP_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        seconds = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, texts)):
+            if p.returncode != 0:
+                raise RuntimeError(f"tensor-parallel rank {r} exited {p.returncode}:\n"
+                                   + text[-6000:])
+        results = []
+        for path in outs:
+            with open(path) as f:
+                results.append(json.load(f))
+        val_batches = math.ceil(DP_VAL_EVENTS / (dp * DP_BATCH))
+        for r in results:
+            assert r["mesh"] == [dp, TP_MP, r["rank"] // TP_MP], r["mesh"]
+            assert r["fit_counts"] == [2 * (TP_STEPS + val_batches), 0], r["fit_counts"]
+            assert r["pieces"] and all(local * TP_MP == whole
+                                       for local, whole in r["pieces"].values()), r["pieces"]
+            assert r["resumed"] == r["state"], "the resumed state differs"
+            assert math.isfinite(r["val_loss"]) and math.isfinite(r["val_auc"]), r
+        assert len({r["state"] for r in results}) == 1, "the ranks' whole states differ"
+        losses = results[0]["losses"]
+        assert len(losses) == TP_STEPS and all(math.isfinite(v) for v in losses), losses
+
+        # a world of one on the same global batches, seed and weights
+        run_dir = os.path.join(work, "one")
+        options = tp_options(dp)
+        options.batch_size = results[0]["global_batch"]
+        options.num_gpu, options.model_parallel = 1, 1
+        one = Trainer(options, run_dir=run_dir, log_every_n_steps=1, verbose=False,
+                      datasets=tp_datasets())
+        one.fit(max_steps=TP_STEPS, eval_interval=TP_STEPS)
+        single = [v for _, v in read_history(run_dir)["train_loss"]]
+        del one
+        free_memory()
+        np.testing.assert_allclose(losses[0], single[0], **PATH_TOL)
+        np.testing.assert_allclose(losses, single, **TP_LOSS_TOL)
+        sharded = len(results[0]["pieces"])
+        whole = sum(w for _, w in results[0]["pieces"].values())
+        log(f"[tp] dp{dp} x mp{TP_MP} ({backend}): fit {TP_STEPS} steps + 1 validation of "
+            f"{val_batches} batches and a checkpoint, a fresh Trainer resumed from it, in "
+            f"{seconds:.1f} s of the processes' life; {sharded} parameters sharded over "
+            f"\"model\" ({whole} elements, 1/{TP_MP} a rank), the ranks' whole states equal "
+            f"bit for bit and equal to the resumed one; train_loss "
+            f"{[round(v, 5) for v in losses]} against a world of one's "
+            f"{[round(v, 5) for v in single]}; K1 per rank {results[0]['fit_counts'][0]}, K2 0")
+        for r in results:
+            log(f"[tp] rank {r['rank']} on {r['device']}: {r['ms_per_step']:.2f} ms/step "
+                f"({TP_BARE_STEPS} steps bare after {TP_BARE_WARMUP}), "
+                f"{r['global_batch'] / r['ms_per_step'] * 1e3:.2f} events/s over the ranks; "
+                f"peak memory {r['peak_gib']:.2f} GiB ({smi})")
+        return sum(r["fit_counts"][0] for r in results)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
 
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this smoke "
                  "test needs an NVIDIA GPU")
+    start = time.perf_counter()
+
+    def done(phases):
+        log(f"[time] phases {phases} done at {time.perf_counter() - start:.1f} s")
+
     smi = device_and_build()
     k1 = check_k1()
     dense_model, dense_counts = check_serving("dense")
@@ -1842,15 +2142,32 @@ def main():
     del dense_model, conv0
     gc.collect()
     torch.cuda.empty_cache()
+    done("1-7")
     trainer_launches = check_trainer(smi)
     remat_readings(smi)
     gc.collect()
     torch.cuda.empty_cache()
+    done("8")
     trainer_launches += check_data_parallel(smi)
     check_world_of_one()
+    done("9")
     trainer_launches += check_families(smi)
-    trainer_launches += check_serving_variants(smi)
-    trainer_launches += check_remaining_modules(smi)
+    done("10")
+    export_dir = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        launches, served = check_serving_variants(smi, export_dir)
+        trainer_launches += launches
+        done("11")
+        trainer_launches += check_remaining_modules(smi)
+        done("12")
+        check_aoti_serving(smi, served, export_dir)
+        done("13")
+    finally:
+        shutil.rmtree(export_dir, ignore_errors=True)
+    del served
+    free_memory()
+    trainer_launches += check_tensor_parallel(smi)
+    done("14")
     kernels = []
     for (err, ms, plain_ms, lib_ms, bound_ms), name, source, replaces, launches in (
             (k1, "densify", "dune_transformercvn_torch/csrc/densify.cu",

@@ -190,8 +190,8 @@ class Options:
         # Execution options of the JAX package (absent from reference option
         # files).  Carried with the same names and defaults so every option
         # file loads to the same Options in both packages; the port reads
-        # every one of them, and raises where it meets
-        # model_parallel > 1 (ROADMAP.md).
+        # every one of them, model_parallel included (tensor parallelism on
+        # DTensor, parallel/mesh.py).
         # =========================================================================
 
         # Compute dtype for the network ('bfloat16' or 'float32'); params stay fp32.

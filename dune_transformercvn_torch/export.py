@@ -23,7 +23,10 @@ artifact.  A program exported on the card runs on the card.
 CLI::
 
     python -m dune_transformercvn_torch.export <run_dir> [--check]
-        [--buckets 4,8,12 | none] [--bench_buckets] [--device cuda|cpu]
+        [--buckets 4,8,12 | none] [--bench_buckets] [--device cuda|cpu] [--aoti]
+
+``--aoti`` then compiles every written program into an AOTInductor package
+for the same device (:mod:`.aoti`), timed too with ``--bench_buckets``.
 """
 
 from __future__ import annotations
@@ -397,6 +400,11 @@ def main(argv=None):
                              "record per-event bucket_ms in the export meta")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="device to export for (default cuda; no fallback)")
+    parser.add_argument("--aoti", action="store_true",
+                        help="also compile each program into an AOTInductor package "
+                             "(<name>.aoti.pt2) for the same device, read back from its "
+                             ".pt2 file; with --bench_buckets each rung's pid package "
+                             "is timed too (aoti_bucket_ms in the meta)")
     args = parser.parse_args(argv)
     embedder = "sparse" if args.sparse else "sdxl" if args.sdxl else args.embedder
     if args.buckets is None:
@@ -410,6 +418,13 @@ def main(argv=None):
                            device=args.device)
     for variant, path in paths.items():
         print(f"{variant}: {path}")
+    if args.aoti:
+        from .aoti import package_run_dir
+
+        packages = package_run_dir(args.run_dir, os.path.dirname(next(iter(paths.values()))),
+                                   device=args.device, bench=args.bench_buckets)
+        for variant, path in packages.items():
+            print(f"{variant} package: {path}")
 
     if args.check:
         export_dir = os.path.dirname(next(iter(paths.values())))

@@ -21,7 +21,10 @@ from.
 of the JAX leaf it is carried from (``kernel``, ``bias``, ``scale``,
 ``stem_bias``, ...); the optimizer's weight-decay rule reads it.
 :func:`jax_leaf_splits` gives how many JAX leaves each parameter packs;
-the optimizers' per-leaf trust ratios read it.  ``WeightMapper.decoder_layer``
+the optimizers' per-leaf trust ratios read it.  :func:`jax_channel_axes`
+gives the shape of each parameter's JAX leaf and the port dimension that
+holds the leaf's last axis; the tensor-parallel layout
+(``parallel.state_shardings``) reads it.  ``WeightMapper.decoder_layer``
 and ``WeightMapper.isab`` map the JAX package's ``DecoderLayer`` and
 ``InducedSetAttentionBlock``, which no network holds.
 """
@@ -472,6 +475,36 @@ def jax_leaf_splits(model: nn.Module) -> Dict[str, int]:
             packed = isinstance(module, MultiHeadAttention) and p_name.startswith("in_proj")
             splits[_join(".", mod_name, p_name)] = 3 if packed else 1
     return splits
+
+
+def jax_channel_axes(model: nn.Module) -> Dict[str, tuple]:
+    """For each parameter of ``model``, ``(shape, dim)``: the shape of the
+    JAX leaf it is carried from by :func:`state_dict_from_jax` (one of the
+    leaves it packs) and the port dimension holding that leaf's last,
+    output-channel axis.  A conv kernel ``[kh, kw, in, out]`` and a dense
+    kernel ``[in, out]`` sit in dim 0 of the port's OIHW / ``[out, in]``
+    weight; the attention's q/k/v kernels ``[D, heads, head_dim]`` and
+    biases ``[heads, head_dim]`` in dim 0 of the packed ``in_proj_*``; norm
+    scales and biases, PReLU alphas and layer scales are 1-D; position,
+    classifier and inducing vectors keep JAX's shape."""
+    coo_stems = {f"{name}.features.conv0" for name, module in model.named_modules()
+                 if isinstance(module, CooStemDenseNet)}
+    axes = {}
+    for mod_name, module in model.named_modules():
+        for p_name, p in module.named_parameters(recurse=False):
+            full, shape = _join(".", mod_name, p_name), tuple(p.shape)
+            if isinstance(module, MultiHeadAttention) and p_name.startswith("in_proj"):
+                hidden, heads = shape[0] // 3, module.num_heads
+                leaf = (heads, hidden // heads)
+                axes[full] = ((hidden,) + leaf if p_name == "in_proj_weight" else leaf, 0)
+            elif (isinstance(module, (nn.Conv2d, SpaceToDepthStem)) or mod_name in coo_stems
+                  ) and p_name == "weight":
+                axes[full] = (shape[2:] + shape[1::-1], 0)
+            elif isinstance(module, nn.Linear) and p_name == "weight":
+                axes[full] = (shape[::-1], 0)
+            else:
+                axes[full] = (shape, len(shape) - 1)
+    return axes
 
 
 def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> torch.nn.Module:

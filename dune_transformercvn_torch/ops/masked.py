@@ -22,7 +22,10 @@ loads as it is.
   selective-checkpoint policy (JAX's ``save_only_these_names``).  The
   backward re-runs it with the random state of the first run, and the
   BatchNorms inside leave their running statistics alone during that
-  re-run: JAX's functional remat updates them once.
+  re-run: JAX's functional remat updates them once.  Under tensor
+  parallelism the re-run gathers the module's sharded parameters again
+  (``parallel.gathered_parameters``); the first run reads those the model's
+  forward gathered.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+from ..parallel.mesh import gathered_parameters
 
 
 class PReLU(nn.Module):
@@ -188,11 +193,15 @@ def remat(module: nn.Module, *args, call: Optional[Callable] = None,
         return call(*args)
     norms = [m for m in module.modules() if isinstance(m, MaskedBatchNorm)]
 
+    def run(*inputs):
+        with gathered_parameters(module):
+            return call(*inputs)
+
     def contexts():
         if policy is None:
             return nullcontext(), _frozen(norms)
         forward, recompute = create_selective_checkpoint_contexts(policy)
         return forward, _frozen(norms, recompute)
 
-    return checkpoint(call, *args, use_reentrant=False, preserve_rng_state=True,
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=True,
                       context_fn=contexts)

@@ -3,9 +3,10 @@
 Port of ``make_predict_step`` (``dune_transformercvn_tpu/train/step.py``) and
 ``Trainer.predict_split`` (``dune_transformercvn_tpu/train/loop.py``).
 :func:`predict_split` serves on one device, or on every rank of a
-data-parallel process group, each rank assembling and predicting its shard
-of every batch and the ranks' rows gathered in rank order.  Batches come
-from the port's :class:`.data.Batcher`.
+data-parallel process group, each rank assembling and predicting its data
+shard of every batch and the shards' rows gathered in order (with tensor
+parallelism over the "data" group, so a TP row's shard comes once).
+Batches come from the port's :class:`.data.Batcher`.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 from .data import Batcher, split_current_targets
 from .ops.fold import folded_copy
-from .parallel import all_gather_rows, local_shard_ids, world
+from .parallel import Mesh, all_gather_rows, default_mesh, local_shard_ids, unsharded_copy
 
 
 def to_device(arrays: Mapping[str, np.ndarray], device,
@@ -69,6 +70,7 @@ def predict_split(
     fixed_shape: bool = False,
     prong_bucket_multipliers: Optional[Sequence[int]] = None,
     fold_eval_bn: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, np.ndarray]:
     """Batched inference over ``dataset`` (an ``EventDataset``, or anything
     with what ``Batcher.build_batch`` reads).
@@ -81,16 +83,19 @@ def predict_split(
     folding, :mod:`.ops.fold`) predicts with a folded copy of ``model`` and
     leaves ``model`` as it was.
 
-    In a process group of more than one rank (:func:`.parallel.world`,
-    read here as the train step reads it) every rank calls it: each global
-    batch of ``batch_size`` events is laid out in one shard per rank, this
-    rank assembles and predicts only its own shard, and the probabilities
-    and targets of all ranks are gathered in rank order, so every rank
-    returns the whole split.
+    In a process group of more than one rank (``mesh``, by default every
+    rank a data shard) every rank calls it: each global batch of
+    ``batch_size`` events is laid out in one piece per data shard, this rank
+    assembles and predicts only its own, and the probabilities and targets
+    of the shards are gathered in order over the mesh's data group, so
+    every rank returns the whole split.  A tensor-parallel model predicts
+    through a copy of it with whole parameters, gathered once.
     """
+    mesh = mesh or default_mesh()
+    model = unsharded_copy(model)
     if fold_eval_bn:
         model = folded_copy(model)
-    size, _ = world()
+    size = mesh.dp
     batcher = Batcher(
         dataset,
         batch_size=batch_size,
@@ -99,7 +104,7 @@ def predict_split(
         num_shards=size,
         drop_last=False,
         fixed_shape=fixed_shape,
-        local_shards=local_shard_ids() if size > 1 else None,
+        local_shards=local_shard_ids(mesh) if size > 1 else None,
     )
     step = make_predict_step(model)
     norm_t = to_device(norm, device)
@@ -111,10 +116,10 @@ def predict_split(
         if size == 1:
             probs_e, probs_p = (p.cpu().numpy() for p in probs)
             event_targets, prong_targets = batch["event_targets"], batch["prong_targets"]
-        else:  # this rank's rows -> the global batch's, in rank order
+        else:  # this shard's rows -> the global batch's, in shard order
             probs_e, probs_p, event_targets, prong_targets = all_gather_rows([
                 *probs, torch.from_numpy(batch["event_targets"]),
-                torch.from_numpy(batch["prong_targets"])])
+                torch.from_numpy(batch["prong_targets"])], mesh.data_group)
         take = min(batch_size, len(dataset) - seen)
         mask = prong_targets[:take] >= 0
         ev_probs.append(probs_e[:take])

@@ -17,6 +17,12 @@ Layout, as the JAX package's: ``<dir>/step_{N}/`` per save (here holding
 Files are read with ``torch.load(weights_only=True)``: tensors, numbers,
 strings and containers only, never arbitrary pickled objects.
 
+With tensor parallelism (``parallel.shard_parameters``) a checkpoint holds
+whole tensors, as the JAX package's do, so it stays independent of the
+layout: :func:`to_host` gathers the sharded parameters and moments, which
+every rank of a TP row must join (the Trainer makes the copy on every rank
+and rank 0 writes it), and a restore cuts each rank's pieces back out.
+
 Not ported: the JAX package's restore that tolerates a PRNG-impl change
 (its ``_restore_rng_tolerant``).  It exists because raw JAX key shapes
 differ between XLA's PRNG implementations; the port's generator state has
@@ -32,6 +38,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from ..parallel import full_tensors
 
 STATE_FILE = "state.pt"
 
@@ -39,14 +48,13 @@ STATE_FILE = "state.pt"
 def to_host(tree):
     """A copy of ``tree`` with every tensor copied to host memory (a new
     tensor even where it already is there), so the caller may go on
-    updating the live state while the copy is kept."""
-    if torch.is_tensor(tree):
-        return tree.detach().to("cpu", copy=True)
-    if isinstance(tree, dict):
-        return {k: to_host(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(to_host(v) for v in tree)
-    return tree
+    updating the live state while the copy is kept.  Sharded tensors are
+    gathered whole, in one collective of their TP row."""
+    leaves, spec = tree_flatten(tree)
+    where = [i for i, leaf in enumerate(leaves) if torch.is_tensor(leaf)]
+    for i, whole in zip(where, full_tensors([leaves[i] for i in where])):
+        leaves[i] = whole.detach().to("cpu", copy=True)
+    return tree_unflatten(leaves, spec)
 
 
 def restore_from_path(path: str, state):
@@ -82,9 +90,11 @@ class CheckpointManager:
         with open(self._index_path, "w") as f:
             json.dump(self._index, f, indent=2)
 
-    def save(self, state, step: int, metric_value: Optional[float] = None):
+    def save(self, state, step: int, metric_value: Optional[float] = None, host=None):
         """Write ``state`` (a ``TrainState``) as checkpoint ``step``, index
-        it and prune beyond top-k (never pruning 'last').
+        it and prune beyond top-k (never pruning 'last').  ``host``: the
+        state's :func:`to_host` copy when the caller made it (a sharded
+        state's copy is made on every rank of its TP row).
 
         The write is synchronous: at the production width (~70 MB) it takes
         about half a second on an H100 host, a small share of an eval
@@ -94,7 +104,7 @@ class CheckpointManager:
             shutil.rmtree(path)
         os.makedirs(path)
         target = os.path.join(path, STATE_FILE)
-        torch.save(to_host(state.state_dict()), target + ".tmp")
+        torch.save(to_host(state.state_dict()) if host is None else host, target + ".tmp")
         os.replace(target + ".tmp", target)
         entry = {"step": int(step), "metric": metric_value, "path": path}
         self._index["checkpoints"] = [

@@ -11,9 +11,13 @@ resolved ``options.json`` dumped beside the logs (train.py:145-149).
 Data parallelism (:mod:`..parallel`): one process per device, the group
 initialised by the caller.  ``options.num_gpu`` is the device count, clamped
 to the world size as the JAX package's ``create_mesh`` clamps it; the global
-batch is ``batch_size`` times the world size, each rank assembles and steps
-on its own shard of it, and only rank 0 writes the run dir.  Tensor
-parallelism (``model_parallel > 1``) is not ported (ROADMAP.md §1 item 19).
+batch is ``batch_size`` times the number of data shards, each data shard is
+assembled and stepped on by its own ranks, and only rank 0 writes the run
+dir.  Tensor parallelism (``model_parallel`` mp > 1) is the JAX package's
+hybrid mesh: the world is ``world // mp`` data shards of ``mp`` adjacent
+ranks, each rank holding 1/mp of every channel-sharded parameter and its
+moments (``parallel.shard_parameters``); an mp above the world runs
+without tensor parallelism, with JAX's note.
 """
 
 from __future__ import annotations
@@ -31,10 +35,11 @@ from ..data import Batcher
 from ..data.dataset import create_datasets
 from ..models.network import ModelConfig, TransformerCVN
 from ..ops.masked import sync_batch_norm
-from ..parallel import barrier, data_parallel_size, local_rank, local_shard_ids, world
+from ..parallel import (barrier, create_mesh, data_axis_size, is_hybrid, local_rank,
+                        local_shard_ids, shard_parameters)
 from ..predict import pinned, predict_split, to_device
 from ..utils.rundir import create_run_dir
-from .checkpoint import CheckpointManager, restore_from_path
+from .checkpoint import CheckpointManager, restore_from_path, to_host
 from .logging import MetricLogger
 from .metrics import finalize_metrics, init_metric_state, reduce_metric_state
 from .state import create_train_state
@@ -101,19 +106,15 @@ class Trainer:
         # network/sherpa/*.py); any tuner can subscribe here.
         self.callbacks = list(callbacks or [])
 
-        # ---- processes: one device each --------------------------------------
-        self.num_shards = data_parallel_size(options.num_gpu)
-        self.rank = world()[1]
-        mp = max(1, int(options.model_parallel))
-        if mp > self.num_shards:
-            # checkpoints are layout-independent, so a TP-trained run's
-            # options.json still evaluates on fewer devices
-            print(f"model_parallel={mp} exceeds the {self.num_shards} available "
-                  "device(s); running without tensor parallelism.")
-        elif mp > 1:
-            raise NotImplementedError(
-                f"model_parallel={mp}: tensor parallelism is not ported yet "
-                "(ROADMAP.md §1 item 19)")
+        # ---- processes: one device each, dp data shards of mp ranks ----------
+        # model_parallel > 1 adds the "model" axis (tensor parallelism);
+        # batches shard over the data axis only, so num_shards (per-shard
+        # batch layout, step accounting) is dp.  An mp above the devices
+        # falls back to no TP (checkpoints are layout-independent, so a
+        # TP-trained run's options.json still evaluates on one device).
+        self.mesh = create_mesh(options.num_gpu, options.model_parallel, self.device.type)
+        self.num_shards = data_axis_size(self.mesh)
+        self.rank = self.mesh.rank
 
         # ---- data ------------------------------------------------------------
         self.training_dataset, self.validation_dataset, self.testing_dataset = (
@@ -153,9 +154,9 @@ class Trainer:
             coo_granularity=options.coo_bucket_granularity,
             seed=options.seed,
             fixed_shape=options.static_batch_shapes or self.steps_per_dispatch > 1,
-            # each rank assembles only its shard; the bucket sizes come from
-            # the global index list, so every rank builds the same shapes
-            local_shards=local_shard_ids() if self.num_shards > 1 else None,
+            # each rank assembles only its data shard; the bucket sizes come
+            # from the global index list, so every rank builds the same shapes
+            local_shards=local_shard_ids(self.mesh) if self.num_shards > 1 else None,
         )
         self.train_batcher = Batcher(self.training_dataset, shuffle=True, **batcher_kwargs)
         # drop_last=False: validation splits smaller than the global batch
@@ -190,7 +191,11 @@ class Trainer:
             self.model_config, generator=torch.Generator().manual_seed(options.seed)
         ).to(self.device)
         if options.sync_batch_norm and self.num_shards > 1:
-            sync_batch_norm(model, torch.distributed.group.WORLD)
+            sync_batch_norm(model, self.mesh.data_group)
+        if is_hybrid(self.mesh):
+            # tensor parallelism: channel-shard the parameters over the
+            # model axis before the optimizer makes their moments
+            shard_parameters(model, self.mesh)
         self.state = create_train_state(
             model, options, self.norm, self.steps_per_epoch, seed=options.seed
         )
@@ -200,11 +205,11 @@ class Trainer:
 
             print(summarize_params(model, max_depth=2))
             print(f"Parameters: {param_count(model):,}")
-            print(f"Device: {self.device} ({self.num_shards} process(es)); "
-                  f"global batch {self.global_batch}")
+            print(f"Device: {self.device} ({self.num_shards} data shard(s) of "
+                  f"{self.mesh.mp} process(es)); global batch {self.global_batch}")
 
         # ---- step functions --------------------------------------------------
-        self.train_step = make_train_step(model, options)
+        self.train_step = make_train_step(model, options, self.mesh)
         self.eval_step = make_eval_step(model, options)
 
         # ---- run dir / logging / checkpoints: rank 0 writes -------------------
@@ -280,7 +285,7 @@ class Trainer:
         )
         for batch in self._device_prefetch(self._host_batches(self.val_batcher, 0)):
             totals = self.eval_step(self.state, batch, totals)
-        return finalize_metrics(reduce_metric_state(totals))
+        return finalize_metrics(reduce_metric_state(totals, self.mesh.data_group))
 
     def predict_split(self, split: str = "validation"):
         """Batched inference over a split (the Evaluate.ipynb cell-14 loop).
@@ -291,8 +296,8 @@ class Trainer:
         4-way current head's.  With ``options.fold_eval_bn`` it predicts with
         a BatchNorm-folded copy of the model (the JAX Trainer's
         ``_inference_state``); training and validation keep the raw state.
-        Data-parallel, each rank predicts its shard of every batch and every
-        rank returns all rows, in order.
+        Data-parallel, each rank predicts its data shard of every batch and
+        every rank returns all rows, in order.
         """
         dataset = {
             "training": self.training_dataset,
@@ -312,6 +317,7 @@ class Trainer:
             fixed_shape=options.static_batch_shapes or self.num_shards > 1,
             prong_bucket_multipliers=options.prong_bucket_multipliers,
             fold_eval_bn=options.fold_eval_bn,
+            mesh=self.mesh,
         )
 
     def _log_confusions(self, metrics: Dict[str, float], step: int):
@@ -334,8 +340,10 @@ class Trainer:
     def _after_validation(self, metrics: Dict[str, float], step: int):
         self.logger.log_scalars(metrics, step)
         self._log_confusions(metrics, step)
+        # a sharded state is gathered whole on every rank of its TP row
+        host = to_host(self.state.state_dict()) if is_hybrid(self.mesh) else None
         if self.checkpoints is not None and self.is_master:
-            self.checkpoints.save(self.state, step, metrics.get("val_epoch_AUC"))
+            self.checkpoints.save(self.state, step, metrics.get("val_epoch_AUC"), host)
         barrier()  # the save lands before any rank goes on
         for callback in self.callbacks:
             callback(step, metrics)

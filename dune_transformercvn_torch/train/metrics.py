@@ -7,9 +7,11 @@ scores of positives and negatives, confusion matrices, the loss sum) that
 each eval step adds to; :func:`finalize_metrics` turns it into accuracies
 and macro one-vs-rest AUCs.  With B bins the AUC's discretisation error is
 below 1/B.  In data-parallel training every rank adds its own shard's rows,
-and :func:`reduce_metric_state` sums the statistics over the ranks once per
-validation, before :func:`finalize_metrics` (the JAX package psums them per
-batch; sums are linear, so the totals are the same).
+and :func:`reduce_metric_state` sums the statistics over the data shards
+once per validation, before :func:`finalize_metrics` (the JAX package psums
+them per batch; sums are linear, so the totals are the same).  With tensor
+parallelism the ranks of a TP row hold the same shard's statistics, so the
+sum runs over the "data" group.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..parallel import all_reduce_, world
+from ..parallel import all_reduce_
 
 
 def init_metric_state(num_event_classes: int, num_prong_classes: int, bins: int,
@@ -103,11 +106,12 @@ def update_metric_state(
     return state
 
 
-def reduce_metric_state(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """``state`` summed over the ranks of the process group in place (one
-    all-reduce), and returned; a world of one leaves it as it is."""
-    if world()[0] > 1:
-        all_reduce_(list(state.values()))
+def reduce_metric_state(state: Dict[str, torch.Tensor], group=None) -> Dict[str, torch.Tensor]:
+    """``state`` summed over the ranks of ``group`` (a mesh's data group,
+    one rank a data shard; ``None``: every rank) in place, with one
+    all-reduce, and returned; a group of one leaves it as it is."""
+    if dist.is_initialized() and dist.get_world_size(group) > 1:
+        all_reduce_(list(state.values()), group)
     return state
 
 

@@ -36,6 +36,12 @@ unknown name falls back to AdamW with the JAX package's message.
   (:func:`..from_jax.jax_leaf_splits`).
 * optax updates every leaf, so a parameter that got no gradient gets a zero
   one here (its moments stay zero, its decay still applies).
+* **Tensor parallelism** (``parallel.shard_parameters``): a sharded
+  parameter's slots are made from it, so they are sharded alike; the optax
+  chains update each rank's pieces, a trust ratio sums its norms' squares
+  over the TP row, and :func:`global_norm` counts each sharded gradient
+  once.  ``torch.optim.AdamW`` steps a mix of sharded and plain parameters
+  under DTensor's ``implicit_replication`` (the train step enters it).
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ import torch
 from torch import nn
 
 from ..from_jax import jax_leaf_names, jax_leaf_splits
+from ..parallel.mesh import local, shard_spec
 
 _ALIASES = {"apex_adam": "adamw", "apex_lamb": "lamb", "apex_sgd": "sgd"}
 
@@ -80,16 +87,33 @@ def _adam(g, state, count: int, b1: float, b2: float, eps: float):
     return mu_hat / (nu_hat.sqrt() + eps)
 
 
-def _trust_ratio(u, p, leaves: int, coefficient: float):
+def _trust_ratio(u, p, leaves: int, coefficient: float, shard=None):
     """optax's ``scale_by_trust_ratio`` on each of the ``leaves`` JAX leaves
     stacked along the first axis: ``u * c * ||p|| / ||u||``, ratio 1 where
-    either norm is zero."""
-    uv, pv = u.reshape(leaves, -1), p.reshape(leaves, -1)
-    p_norm = torch.linalg.vector_norm(pv, dim=1, keepdim=True)
-    u_norm = torch.linalg.vector_norm(uv, dim=1, keepdim=True)
+    either norm is zero.  ``u`` and ``p`` are this rank's pieces of a
+    parameter sharded as ``shard`` (:func:`..parallel.mesh.shard_spec`), or
+    the whole of a plain one."""
+    if shard is None:
+        uv, pv = u.reshape(leaves, -1), p.reshape(leaves, -1)
+        p_norm = torch.linalg.vector_norm(pv, dim=1, keepdim=True)
+        u_norm = torch.linalg.vector_norm(uv, dim=1, keepdim=True)
+        ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
+                            coefficient * p_norm / u_norm)
+        return (uv * ratio).reshape(u.shape)
+    # each local row's leaf, by its row of the whole parameter
+    dim, group, index, count = shard
+    rows = u.shape[0]
+    first = index * rows if dim == 0 else 0
+    whole_rows = rows * count if dim == 0 else rows
+    leaf = (torch.arange(rows, device=u.device) + first) // (whole_rows // leaves)
+    squares = torch.zeros(2, leaves, device=u.device, dtype=torch.float32)
+    squares[0].index_add_(0, leaf, p.reshape(rows, -1).float().square().sum(1))
+    squares[1].index_add_(0, leaf, u.reshape(rows, -1).float().square().sum(1))
+    torch.distributed.all_reduce(squares, group=group)
+    p_norm, u_norm = squares.sqrt().to(u.dtype)
     ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
                         coefficient * p_norm / u_norm)
-    return (uv * ratio).reshape(u.shape)
+    return u * ratio[leaf].reshape((rows,) + (1,) * (u.ndim - 1))
 
 
 class OptaxChain(torch.optim.Optimizer):
@@ -117,7 +141,9 @@ class OptaxChain(torch.optim.Optimizer):
                         state[name] = torch.full_like(p, value,
                                                       memory_format=torch.preserve_format)
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
-                p.add_(self.update(p, g, state, group))
+                pieces = {name: local(value) for name, value in state.items()}
+                local(p).add_(self.update(local(p), local(g), pieces, group,
+                                          (self.leaves[p], shard_spec(p))))
 
 
 class Adam(OptaxChain):
@@ -125,7 +151,7 @@ class Adam(OptaxChain):
 
     slots = {"mu": 0.0, "nu": 0.0}
 
-    def update(self, p, g, state, group):
+    def update(self, p, g, state, group, leaves):
         return -group["lr"] * _adam(_decayed(g, p, group), state, group["count"],
                                     0.9, 0.999, 1e-8)
 
@@ -133,7 +159,7 @@ class Adam(OptaxChain):
 class SGD(OptaxChain):
     """``chain(add_decayed_weights(wd, mask), sgd(lr))``: no momentum."""
 
-    def update(self, p, g, state, group):
+    def update(self, p, g, state, group, leaves):
         return -group["lr"] * _decayed(g, p, group)
 
 
@@ -143,7 +169,7 @@ class RMSprop(OptaxChain):
 
     slots = {"nu": 0.0}
 
-    def update(self, p, g, state, group):
+    def update(self, p, g, state, group, leaves):
         g = _decayed(g, p, group)
         nu = state["nu"]
         nu.mul_(0.9).addcmul_(g, g, value=1 - 0.9)
@@ -156,7 +182,7 @@ class Adagrad(OptaxChain):
 
     slots = {"sum_of_squares": 0.1}
 
-    def update(self, p, g, state, group):
+    def update(self, p, g, state, group, leaves):
         g = _decayed(g, p, group)
         total = state["sum_of_squares"]
         total.addcmul_(g, g)
@@ -170,9 +196,9 @@ class Lamb(OptaxChain):
 
     slots = {"mu": 0.0, "nu": 0.0}
 
-    def update(self, p, g, state, group):
+    def update(self, p, g, state, group, leaves):
         u = _decayed(_adam(g, state, group["count"], 0.9, 0.999, 1e-6), p, group)
-        return -group["lr"] * _trust_ratio(u, p, self.leaves[p], 1.0)
+        return -group["lr"] * _trust_ratio(u, p, leaves[0], 1.0, leaves[1])
 
 
 class Lars(OptaxChain):
@@ -181,8 +207,8 @@ class Lars(OptaxChain):
 
     slots = {"trace": 0.0}
 
-    def update(self, p, g, state, group):
-        u = -group["lr"] * _trust_ratio(_decayed(g, p, group), p, self.leaves[p], 1e-3)
+    def update(self, p, g, state, group, leaves):
+        u = -group["lr"] * _trust_ratio(_decayed(g, p, group), p, leaves[0], 1e-3, leaves[1])
         return state["trace"].mul_(0.9).add_(u)
 
 
@@ -192,7 +218,7 @@ class Lion(OptaxChain):
 
     slots = {"mu": 0.0}
 
-    def update(self, p, g, state, group):
+    def update(self, p, g, state, group, leaves):
         mu = state["mu"]
         u = torch.sign((1 - 0.9) * g + 0.9 * mu)
         mu.mul_(0.99).add_(g, alpha=1 - 0.99)
@@ -231,8 +257,17 @@ def create_optimizer(options, model: nn.Module) -> torch.optim.Optimizer:
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     """``sqrt(sum of squares)`` over every gradient (float32 gradients), in
-    a few multi-tensor launches rather than a few per parameter."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    a few multi-tensor launches rather than a few per parameter.  A sharded
+    gradient counts once: its pieces' squares are summed over the TP row."""
+    sharded = [g for g in grads if shard_spec(g) is not None]
+    if not sharded:
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    squares = torch.stack(torch._foreach_norm([local(g) for g in sharded])).square().sum()
+    torch.distributed.all_reduce(squares, group=shard_spec(sharded[0])[1])
+    plain = [g for g in grads if shard_spec(g) is None]
+    if plain:
+        squares = squares + torch.stack(torch._foreach_norm(plain)).square().sum()
+    return squares.sqrt()
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
@@ -241,4 +276,4 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
     ``g * (max_norm / norm)`` when ``norm >= max_norm``, else ``g`` (optax
     computes ``g / norm * max_norm``: the same to a float32 rounding)."""
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    torch._foreach_mul_(grads, scale)
+    torch._foreach_mul_([local(g) for g in grads], scale)

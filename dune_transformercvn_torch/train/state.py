@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel import reshard_optimizer_state
 from ..predict import to_device
 from .optimizer import create_optimizer
 from .schedules import from_options
@@ -51,10 +52,13 @@ class TrainState:
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
         """Restore :meth:`state_dict`'s contents in place, bit for bit.
         The optimizer must have been built over the same parameters in the
-        same groups (``create_optimizer`` on the same model config)."""
+        same groups (``create_optimizer`` on the same model config).  Whole
+        tensors saved from any layout load into a sharded state as this
+        rank's pieces."""
         self.step = int(state["step"])
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
+        reshard_optimizer_state(self.optimizer)
         # torch.load's map_location moved AdamW's step counts to the
         # parameters' device; unless capturable or fused, AdamW keeps them
         # on the host (one device read per parameter and step otherwise)

@@ -13,8 +13,20 @@ batch, as the JAX package's ``shard_map`` over the data axis does:
 * without sync-BN (``options.sync_batch_norm`` off) the BatchNorm running
   statistics are averaged over ranks after the step (also in it), so every
   rank keeps the same state;
-* each rank draws its own noise and dropout: the rank is folded into the
-  step's seed, while ``state.generator`` advances alike on every rank.
+* each data shard draws its own noise and dropout: the shard's index is
+  folded into the step's seed, while ``state.generator`` advances alike on
+  every rank.
+
+With tensor parallelism (a :class:`..parallel.Mesh` of ``mp > 1``) the ranks
+of a TP row step on the same data shard with the same seed, so they draw
+the same dropout and noise, as JAX's per-data-shard folds do; the loss
+carries ``1 / world``, a sharded gradient arrives reduce-scattered over the
+row and is summed over the "data" group, and the replicated gradients, the
+metrics and unsynced statistics are summed over every rank (the row's equal
+copies and the scale make that the mean over the data shards, and keep the
+row's replicas equal bit for bit; ``parallel/mesh.py``).  ``grad_norm``
+counts each sharded gradient once, and the optimizer steps the sharded
+parameters' pieces.
 
 * The loss is the weighted event/prong focal loss; padding rows (target
   ``-1``) drop out by weight.
@@ -33,7 +45,8 @@ batch, as the JAX package's ``shard_map`` over the data axis does:
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from contextlib import nullcontext
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -41,12 +54,12 @@ from torch.profiler import record_function
 from ..ops.losses import (binary_event_loss, class_balanced_loss,
                           softmax_focal_loss, split_event_targets)
 from ..ops.masked import MaskedBatchNorm
-from ..parallel import all_reduce_, world
+from ..parallel import Mesh, all_reduce_, default_mesh, local, shard_spec
 from .metrics import update_metric_state
 from .optimizer import clip_by_global_norm_, global_norm
 from .state import TrainState
 
-# folds the rank into a step's seed (rank 0 keeps it): the 64-bit golden ratio
+# folds the data shard into a step's seed (shard 0 keeps it): the 64-bit golden ratio
 _RANK_STRIDE = 0x9E3779B97F4A7C15
 
 
@@ -133,18 +146,20 @@ def _loss_kwargs(options, model) -> Dict:
     )
 
 
-def make_train_step(model, options) -> Callable[[TrainState, Dict], Dict[str, torch.Tensor]]:
+def make_train_step(model, options, mesh: Optional[Mesh] = None
+                    ) -> Callable[[TrainState, Dict], Dict[str, torch.Tensor]]:
     """``step(state, batch) -> metrics``: one optimizer step of
     ``state.model`` (``model`` fixes the loss variant) on a batch of tensors
-    on the model's device -- this rank's shard of the global batch when the
-    process group (:func:`..parallel.world`, read here) has more than one
-    rank.  Updates ``state`` in place; the metrics are 0-d tensors on the
-    device (no synchronisation on one device), ``grad_norm`` included."""
+    on the model's device -- this rank's data shard of the global batch when
+    ``mesh`` (default: the process group, every rank a data shard) has more
+    than one.  Updates ``state`` in place; the metrics are 0-d tensors on
+    the device (no synchronisation on one device), ``grad_norm`` included."""
     gamma = options.loss_gamma
     event_scale = options.event_prong_loss_proportion
     loss_kwargs = _loss_kwargs(options, model)
     clip = float(options.gradient_clip or 0.0)
-    size, rank = world()
+    mesh = mesh or default_mesh()
+    size, shard = mesh.world_size, mesh.data_index
     # with sync-BN the statistics are already the global batch's
     stats = ([] if size == 1 or options.sync_batch_norm else
              [t for m in model.modules() if isinstance(m, MaskedBatchNorm)
@@ -157,7 +172,7 @@ def make_train_step(model, options) -> Callable[[TrainState, Dict], Dict[str, to
         device = params[0].device
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=state.generator))
         with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
-            torch.manual_seed((seed + rank * _RANK_STRIDE) % 2 ** 64)
+            torch.manual_seed((seed + shard * _RANK_STRIDE) % 2 ** 64)
             with record_function("train_step.forward"):
                 event_logits, prong_logits = net(batch, state.norm)
                 total, metrics = compute_losses(
@@ -174,14 +189,19 @@ def make_train_step(model, options) -> Callable[[TrainState, Dict], Dict[str, to
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             grads = [p.grad for p in params]
+            sharded = [local(g) for g in grads if shard_spec(g) is not None]
             if size > 1:
                 # the gradients summed (each rank's loss carries 1/size),
-                # the metrics and unsynced statistics averaged
+                # the metrics and unsynced statistics averaged; a sharded
+                # gradient, already summed over its TP row, over the data
+                # shards
                 keys = list(metrics)
                 values = torch.stack([metrics[k] for k in keys]) / size
                 if stats:
                     torch._foreach_div_(stats, size)
-                all_reduce_(grads + [values] + stats)
+                all_reduce_([g for g in grads if shard_spec(g) is None] + [values] + stats)
+                if sharded and mesh.dp > 1:
+                    all_reduce_(sharded, mesh.data_group)
                 metrics = dict(zip(keys, values.unbind()))
             norm = global_norm(grads)
             if clip > 0:
@@ -189,12 +209,21 @@ def make_train_step(model, options) -> Callable[[TrainState, Dict], Dict[str, to
             lr = state.base_lr * state.schedule(state.step)
             for group in state.optimizer.param_groups:
                 group["lr"] = lr
-            state.optimizer.step()
+            with _mixed_layouts() if sharded else nullcontext():
+                state.optimizer.step()
         state.step += 1
         metrics["grad_norm"] = norm
         return metrics
 
     return step
+
+
+def _mixed_layouts():
+    """torch's optimizers step sharded and plain parameters in one list
+    with the plain ones taken as replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
 
 
 def make_eval_step(model, options) -> Callable[[TrainState, Dict, Dict], Dict]:

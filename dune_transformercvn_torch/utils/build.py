@@ -7,10 +7,13 @@ rebuilt when its source is newer.  Each ``csrc/<name>.cpp`` is host code
 (the COO engine of :mod:`.native`), compiled by the host's C++ compiler
 (``$CXX``, else ``g++``) into ``build/torch_kernels/lib<name>-<key>.so``,
 where the key hashes the source, the flags and the machine, so a library
-built on another host is never loaded.  A failed build raises with the
-compiler's output.  Nothing is built when this module is imported:
-:func:`load_library` builds on its first call, and ``chip_smoke.py`` builds
-each of :func:`sources` up front.
+built on another host is never loaded.  ``csrc/aoti_loader.cpp`` is the one
+program among them: :func:`build_loader` links it against the installed
+torch's libraries into ``build/torch_kernels/aoti_loader-<key>``.  A failed
+build raises with the compiler's output.  Nothing is built when this module
+is imported: :func:`load_library` builds on its first call, and
+``chip_smoke.py`` builds each of :func:`sources`, :func:`host_sources` and
+the loader up front.
 """
 
 from __future__ import annotations
@@ -36,6 +39,9 @@ NVCC_FLAGS = (
 
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-Wall")
 
+# the AOTInductor package loader: a program, linked against libtorch
+LOADER = "aoti_loader"
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -45,8 +51,8 @@ def sources():
 
 
 def host_sources():
-    """Host library names: one per ``csrc/*.cpp``."""
-    return sorted(p.stem for p in CSRC_DIR.glob("*.cpp"))
+    """Host library names: one per ``csrc/*.cpp`` but the loader."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cpp") if p.stem != LOADER)
 
 
 def library_path(name: str) -> Path:
@@ -63,13 +69,13 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _compile(command, src: Path, lib: Path) -> str:
-    """Run ``command + [-o tmp, src]`` and move the result to ``lib``;
-    raise with the compiler's output if it fails."""
+def _compile(command, src: Path, lib: Path, link=()) -> str:
+    """Run ``command + [-o tmp, src] + link`` and move the result to
+    ``lib``; raise with the compiler's output if it fails."""
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     try:
-        proc = subprocess.run([*command, "-o", str(tmp), str(src)],
+        proc = subprocess.run([*command, "-o", str(tmp), str(src), *link],
                               capture_output=True, text=True)
     except OSError as e:
         raise RuntimeError(f"{command[0]} could not run on {src}: {e}") from None
@@ -105,6 +111,43 @@ def build_host(name: str, src_dir: Path = CSRC_DIR, build_dir: Path = BUILD_DIR)
     if not lib.exists():
         _compile([compiler, *HOST_FLAGS], src, lib)
     return lib
+
+
+def _loader_flags():
+    """Compile and link flags of the loader against the installed torch:
+    its headers and libraries, its C++ ABI, an rpath to its libraries, and
+    with a CUDA build of torch its CUDA libraries, kept with
+    ``--no-as-needed`` (the loader calls none of their symbols, and without
+    them libtorch has no CUDA backend to run a ``cuda`` package on)."""
+    import torch
+    from torch.utils import cpp_extension
+
+    compile_flags = ["-O2", "-std=c++17",
+                     f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+                     *(f"-I{p}" for p in cpp_extension.include_paths())]
+    lib_dirs = cpp_extension.library_paths()
+    link = [*(f"-L{p}" for p in lib_dirs), *(f"-Wl,-rpath,{p}" for p in lib_dirs),
+            "-ltorch", "-ltorch_cpu", "-lc10"]
+    if torch.version.cuda:
+        link += ["-Wl,--no-as-needed", "-ltorch_cuda", "-lc10_cuda", "-Wl,--as-needed"]
+    return compile_flags, link, torch.__version__
+
+
+def build_loader(src_dir: Path = CSRC_DIR, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile ``<src_dir>/aoti_loader.cpp`` into a program with the host's
+    C++ compiler (``$CXX``, else ``g++``) unless one of the same source,
+    flags, torch and machine exists; return its path.  Raises with the
+    compiler's output when the build fails."""
+    src = Path(src_dir) / f"{LOADER}.cpp"
+    compiler = os.environ.get("CXX", "g++")
+    compile_flags, link, version = _loader_flags()
+    key = hashlib.sha256(b"\0".join(
+        [src.read_bytes(), " ".join((compiler, *compile_flags, *link, version)).encode(),
+         " ".join(platform.uname()).encode()])).hexdigest()[:16]
+    program = Path(build_dir) / f"{LOADER}-{key}"
+    if not program.exists():
+        _compile([compiler, *compile_flags], src, program, link)
+    return program
 
 
 def load_library(name: str) -> ctypes.CDLL:

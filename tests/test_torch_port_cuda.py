@@ -19,8 +19,18 @@ chunked embedder on the card against its full bank (forward and
 gradients, with the save-spatial policy too), and the sparse-grid ops on
 the card against the CPU.  K1 at 768 channels (one-hot pixels) at
 production width, the general COO convolution on the card against
-``sparse_conv``, and one lamb step on the card against the CPU.
+``sparse_conv``, and one lamb step on the card against the CPU.  An
+AOTInductor package compiled for the card against the eager graph, and the
+C++ loader with ``--device cuda`` against the package; one tensor-parallel
+train step of 2 ranks over ``gloo`` on the one card against a world of one.
 """
+
+import json
+import os
+import struct
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -636,3 +646,116 @@ def test_lamb_step_on_the_card_matches_the_cpu(cuda):
         results.append({n: p.detach().cpu() for n, p in model.named_parameters()})
     for name, want in results[0].items():
         torch.testing.assert_close(results[1][name], want, rtol=1e-6, atol=1e-7)
+
+
+def test_aoti_package_and_loader_on_the_card(cuda, tmp_path):
+    from dune_transformercvn_torch.aoti import load_package, package_run_dir
+    from dune_transformercvn_torch.export import (build_inference_fn, export_model,
+                                                  select_bucket, with_max_prongs)
+    from dune_transformercvn_torch.utils.build import build_loader
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = tiny_serving_model().to(cuda)
+    norm = {"mean": np.zeros(6, np.float32), "std": np.ones(6, np.float32),
+            "extra_mean": np.float32(0.0), "extra_std": np.float32(1.0)}
+    export_model(model, norm, str(tmp_path), prong_buckets=(4,))
+    paths = package_run_dir(None, str(tmp_path), variants=("pid",), device="cuda", bench=True)
+    meta_path = tmp_path / "transformercvn_export_meta.json"
+    meta = json.loads(meta_path.read_text())
+    assert meta["aoti_platform"] == "cuda" and sorted(meta["aoti_bucket_ms"]) == ["20", "4"]
+    gen = torch.Generator().manual_seed(4)
+    pixels = ((torch.rand(21, 3, 32, 32, generator=gen) < 0.05) * 200.0)
+    pixels.numpy().tofile(tmp_path / "pixels.bin")
+    costs = {int(k): v for k, v in meta["aoti_bucket_ms"].items()}
+    loader = build_loader()
+    for n in (3, 17):
+        rung = select_bucket((4, 20), n, costs)
+        count = torch.tensor(n, dtype=torch.int32, device=cuda)
+        rows = pixels[:1 + rung].to(cuda)
+        package = load_package(paths["pid" if rung == 20 else f"pid_p{rung}"])(rows, count)
+        with torch.no_grad():
+            want = build_inference_fn(with_max_prongs(model, rung), "pid", norm)(rows, count)
+        for g, w in zip(package, want):
+            assert g.device.type == "cuda"
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+        proc = subprocess.run(
+            [str(loader), str(tmp_path / "transformercvn_pid"), str(meta_path),
+             str(tmp_path / "pixels.bin"), str(n), str(tmp_path / "out.bin")],
+            capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert f"num_prongs {n} -> bucket {rung} [cost-aware" in proc.stderr
+        with open(tmp_path / "out.bin", "rb") as f:
+            assert struct.unpack("<I", f.read(4)) == (2,)
+            for g in package:
+                (rank,) = struct.unpack("<I", f.read(4))
+                dims = struct.unpack(f"<{rank}q", f.read(8 * rank))
+                assert dims == tuple(g.shape) and struct.unpack("<I", f.read(4)) == (11,)
+                got = np.frombuffer(f.read(4 * g.numel()), "<f4").reshape(dims)
+                np.testing.assert_allclose(got, g.cpu().numpy(), rtol=0.0, atol=1e-6)
+
+
+TP_RANK = """
+import datetime, json, sys
+import torch, torch.distributed as dist
+sys.path.insert(0, sys.argv[4])
+import test_torch_port_cuda as t
+rank, rendezvous, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.cuda.set_device(0)
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("gloo", init_method="file://" + rendezvous, world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=300))
+loss, norm, state = t.tp_step(model_parallel=2)
+dist.destroy_process_group()
+json.dump(dict(loss=loss, norm=norm, state=state), open(out, "w"))
+"""
+
+
+def tp_step(model_parallel):
+    """One train step of the tiny Trainer on the card (dropout and noise
+    off) on the first global batch; its loss, grad norm and whole
+    parameters."""
+    from dune_transformercvn_torch.parallel import full_tensors
+    from dune_transformercvn_torch.predict import to_device
+
+    options = Options()
+    options.update_options(dict(
+        densenet_structure=[1, 1], densenet_growth_rate=8, initial_pixel_dim=8,
+        pixel_embedding_dim=16, feature_embedding_dim=8, position_embedding_dim=16,
+        hidden_dim=32, num_encoder_layers=1, num_prong_decoder_layers=2,
+        num_attention_heads=2, dropout=0.0, pixel_noise_std=0.0, batch_size=4,
+        compute_dtype="float32", num_dataloader_workers=1, verbose_output=False,
+        num_gpu=model_parallel, model_parallel=model_parallel))
+    datasets = (InMemoryEvents(16, 1, (48, 40)), InMemoryEvents(8, 2, (48, 40)), None)
+    trainer = Trainer(options, debug=True, datasets=datasets)
+    assert trainer.mesh.mp == model_parallel
+    batch = to_device(trainer.train_batcher.build_batch(np.arange(4)), trainer.device)
+    metrics = trainer.train_step(trainer.state, batch)
+    params = dict(trainer.state.model.named_parameters())
+    whole = full_tensors([p.detach() for p in params.values()])
+    return (float(metrics["train_loss"]), float(metrics["grad_norm"]),
+            {n: w.cpu().tolist() for n, w in zip(params, whole)})
+
+
+def test_tensor_parallel_step_on_the_card(cuda, tmp_path):
+    here = str(Path(__file__).resolve().parent)
+    outs = [tmp_path / f"rank{r}.json" for r in range(2)]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(Path(here).parent), os.environ.get("PYTHONPATH", "")])}
+    procs = [subprocess.Popen([sys.executable, "-c", TP_RANK, str(r),
+                               str(tmp_path / "rendezvous"), str(outs[r]), here],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env) for r in range(2)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, text in zip(procs, logs):
+        assert p.returncode == 0, text[-4000:]
+    ranks = [json.loads(o.read_text()) for o in outs]
+    assert ranks[0] == ranks[1]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    loss, norm, state = tp_step(model_parallel=1)
+    np.testing.assert_allclose(ranks[0]["loss"], loss, rtol=1e-5)
+    np.testing.assert_allclose(ranks[0]["norm"], norm, rtol=1e-4)
+    for name, values in state.items():
+        np.testing.assert_allclose(ranks[0]["state"][name], values, atol=1e-5, err_msg=name)
