@@ -3,7 +3,11 @@
 
     python3 chip_smoke.py
 
-Phases, each of which raises on failure:
+Phases, each of which raises on failure.  Phases 1-7, 10 and one-hot
+pixels in 12 run the option file's network whole; phases 8, 9, 11-15 run
+its widths at a cut depth (``CUT_DEPTH``: one dense block of one
+bottleneck, one encoder layer), so that the smoke, with the compiles of
+phases 13 and 15 and the bench, fits its time limit:
 
 1. Device and build: the card's name and power limit from ``nvidia-smi``;
    every kernel under ``dune_transformercvn_torch/csrc`` is built with
@@ -24,7 +28,7 @@ Phases, each of which raises on failure:
    card, at the coo path's shapes (event banks of 16 and 64 images, prong
    banks of 128 and 384, the real batch's two banks, production stem
    weights), float32 and bfloat16 output, the same edge cases; its binning
-   pass against the plain binning; gradients through ``ScatterPatches``
+   pass against the plain binning; gradients through ``tcvn::coo_stem_scatter``
    against autograd of the plain version; the same times as K1 (library
    call: ``zeros().index_add_``, the bias, the cast), and the device time
    of its binning pass alone.
@@ -42,7 +46,7 @@ Phases, each of which raises on failure:
    against dense logits with the same weights; each coo embedder through K2
    against the plain stem; the card against the CPU at batch 4, both
    families.
-8. The Trainer on the card: the production option file as it stands
+8. The Trainer on the card: the production option file at ``CUT_DEPTH``
    (``num_gpu`` 4, clamped to one device), dense family, bfloat16, batch
    16, events made in memory (512 training, 64 validation), a run dir in a
    temporary directory; ``fit(max_steps=24, eval_interval=12)`` with a
@@ -112,7 +116,10 @@ Phases, each of which raises on failure:
    batch 16, and the train step at batch 16, or the largest batch that
    fits, with its out-of-memory readings.  ``check_remaining_modules(smi)``
    runs it alone.
-13. The AOTInductor serving package at full width: phase 11's ``pid``
+13. The AOTInductor serving package at the option file's widths and a cut
+   depth (``CUT_DEPTH``: one bottleneck a dense block, one encoder layer,
+   so that Inductor compiles each package in a fraction of the full
+   network's minutes): that network exported as in phase 11 and its ``pid``
    programs at P = 4 and 20 packaged for the card (``aoti.package_run_dir``:
    each package's compile seconds, its per-event ``aoti_bucket_ms`` beside
    the eager program's ``bucket_ms``); the C++ loader
@@ -132,7 +139,29 @@ Phases, each of which raises on failure:
    world-of-one Trainer on the same global batches and seed, K1 twice a
    step and a validation batch on each rank; ms/step and peak memory per
    rank.  ``check_tensor_parallel(smi)`` runs it alone.
-15. A JSON line of every ported kernel, then, as the last line,
+15. The compiled steps (``compile=True``, Inductor; the counterpart of the
+   JAX package's ``jax.jit``), on the option file's dense network at
+   ``CUT_DEPTH``, full width.  First the eight graphs below and the
+   bench's compile side by side into an empty cache, one process each
+   (``warm_compile_cache``).  Then the port's bench
+   (``python -m dune_transformercvn_torch.bench``) as a subprocess on the
+   option file at ``CUT_DEPTH``; its JSON line is logged (serving at batch
+   16 and 64 and the train step at batch 16 and 64, eager and compiled,
+   with peak memory, compile seconds and MFU).  Then, each graph from the
+   cache (the log gives each first call's hits and misses): bf16
+   ``predict_split`` compiled against eager at batch 16 and 64 on the
+   bench's events and static shapes (probabilities within 2^-5, argmax
+   equal where eager's is clear; events/s of each, in turns); the bf16
+   train step compiled at batch 16 with the option file's dropout and
+   noise, 3 warm-up and 10 timed steps (ms/step, peak memory), and one
+   compiled eval pass against eager's; the coo family's forward compiled
+   at batch 16 with K2 inside the graph against eager; and, in float32
+   with TF32 off, dropout and noise 0, the compiled predict step's
+   probabilities and the compiled train step's first loss and gradient
+   norm against eager's within PATH_TOL.  K1 and K2 launch twice a forward
+   from inside the compiled graphs, and those launches count in the
+   kernels' line.  ``check_compiled(smi)`` runs it alone.
+16. A JSON line of every ported kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -140,6 +169,7 @@ Exits non-zero, printing no result, when CUDA is unavailable.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import datetime
@@ -187,6 +217,9 @@ from dune_transformercvn_torch.train.checkpoint import CheckpointManager, to_hos
 from dune_transformercvn_torch.train.logging import read_history
 from dune_transformercvn_torch.utils.build import (build, build_host, build_loader,
                                                    host_sources, sources)
+from dune_transformercvn_torch.utils.cache import enable_compile_cache
+from dune_transformercvn_torch import bench
+from dune_transformercvn_torch.predict import make_predict_step
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
@@ -311,6 +344,26 @@ AOTI_RUNGS, AOTI_PRONGS, AOTI_REPEAT, AOTI_TIMEOUT_S = (4, 20), (3, 17), 20, 300
 # AdamW's normalised steps carry, so within bf16's rounding, 2^-7.
 TP_MP, TP_STEPS, TP_BARE_WARMUP, TP_BARE_STEPS, TP_TIMEOUT_S = 2, 4, 1, 4, 600
 TP_LOSS_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
+# Phases 13 and 15 compile with Inductor, which takes minutes a graph at
+# full depth (the b16 serving graph compiled cold in 328-363 s on the H100
+# host, PERF.md): they, and phases 8, 9, 11, 12 and 14 to leave them the
+# time, run the option file's widths at a cut depth, one dense block of
+# one bottleneck and one encoder layer.
+CUT_DEPTH = dict(densenet_structure=(1,), num_encoder_layers=1)
+# Phase 15: the graphs compiled side by side into the cache before the
+# bench and the checks, one process each, with this many Inductor compile
+# workers each, and their time limit; the bench's time limit; the compiled
+# bf16 train step's warm-up and timed steps.  Compiled against eager in
+# bfloat16: the
+# compiled kernels keep float32 inside each fused kernel where eager
+# rounds every op to bf16, so probabilities within FOLD_SHARE, and argmax
+# equal wherever eager's two largest probabilities lie more than
+# 2 FOLD_SHARE apart (closer ones may swap within the tolerance).
+WARM_GRAPHS = ("serve_b16", "serve_b64", "train_b16", "train_b64", "eval_b16", "coo_b16",
+               "float32_predict", "float32_train")
+WARM_THREADS, WARM_TIMEOUT_S = 2, 600
+BENCH_TIMEOUT_S = 600
+COMPILED_WARMUP, COMPILED_STEPS = 3, 10
 
 
 def log(msg: str = ""):
@@ -588,8 +641,9 @@ def check_k2(stem_weight, stem_bias):
 
 
 def check_k2_gradients(patches, xy, starts, bias, n):
-    """Gradients wrt patches and bias: ``ScatterPatches`` (K2 forward, the
-    hand-written gather backward) against autograd of the plain version."""
+    """Gradients wrt patches and bias: the op ``tcvn::coo_stem_scatter`` (K2
+    forward, the registered gather backward) against autograd of the plain
+    version."""
     cot = torch.randn((n,) + coo_stem.out_shape(H, W) + (patches.shape[-1],),
                       device="cuda", generator=torch.Generator("cuda").manual_seed(SEED))
 
@@ -598,8 +652,8 @@ def check_k2_gradients(patches, xy, starts, bias, n):
         (fn(p, b) * cot).sum().backward()
         return p.grad, b.grad
 
-    got = grads(lambda p, b: coo_stem.ScatterPatches.apply(p, b, xy, starts, n, H, W,
-                                                           torch.float32))
+    got = grads(lambda p, b: coo_stem.scatter_patches(p, b, xy, starts, n, H, W,
+                                                      torch.float32))
     want = grads(lambda p, b: coo_stem.scatter_patches_plain(p, xy, starts, b, n, H, W,
                                                              torch.float32))
     for g, w, name in zip(got, want, ("patches", "bias")):
@@ -828,10 +882,18 @@ def fit_datasets():
 
 
 def fit_options():
-    """The production option file as it stands, bfloat16 (train's -fp16)."""
+    """The production option file, bfloat16 (train's -fp16), at
+    ``CUT_DEPTH`` (its widths as they stand)."""
     options = Options.load(OPTION_FILE)
     options.compute_dtype = "bfloat16"
+    options.update_options({k: list(v) if isinstance(v, tuple) else v
+                            for k, v in CUT_DEPTH.items()})
     return options
+
+
+def cut_config(dtype):
+    """The option file's network at ``CUT_DEPTH``, in ``dtype``."""
+    return dataclasses.replace(production_config(dtype), **CUT_DEPTH)
 
 
 def assert_state_equal(got, want):
@@ -1001,7 +1063,7 @@ def remat_readings(smi):
     batches = [to_device(b, "cuda") for b in Batcher(ds, batch_size=TRAIN_BATCH).epoch(0)]
     readings = []
     for flags in ({}, {"remat_cnn": True}, {"remat_embedder": True}):
-        cfg = dataclasses.replace(production_config("bfloat16"), **flags)
+        cfg = dataclasses.replace(cut_config("bfloat16"), **flags)
         model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED)).cuda()
         state = create_train_state(model, options, ds.norm(), len(batches), seed=SEED)
         step = make_train_step(model, options)
@@ -1455,9 +1517,10 @@ def check_int8_route(model, scales, batch, norm):
 def check_serving_variants(smi, export_dir):
     """Phase 11, its programs exported into ``export_dir``; returns K1's
     launches and what phase 13 packages: the model (in eval mode), its norm
-    statistics and the events."""
-    cfg = production_config("bfloat16")
-    model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED)).cuda()
+    statistics and the events.  The network is the option file's at
+    ``CUT_DEPTH``."""
+    model = TransformerCVN(cut_config("bfloat16"),
+                           generator=torch.Generator().manual_seed(SEED)).cuda()
     ds = InMemoryEvents(VARIANT_EVENTS, SEED + 14)
     norm = ds.norm()
     norm_t = to_device(norm, "cuda")
@@ -1567,8 +1630,8 @@ def check_optimizers(smi):
     """Each optimizer's b16 step on the option file's dense network from the
     same starting weights; lamb and lars resumed in a Trainer bit for bit.
     Returns K1's launches."""
-    cfg = production_config("bfloat16")
-    model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED)).cuda()
+    model = TransformerCVN(cut_config("bfloat16"),
+                           generator=torch.Generator().manual_seed(SEED)).cuda()
     start = {k: v.clone() for k, v in model.state_dict().items()}
     ds = InMemoryEvents(TRAIN_BATCH * (OPT_WARMUP + OPT_STEPS), SEED + 20)
     batches = [to_device(b, "cuda") for b in Batcher(ds, batch_size=TRAIN_BATCH).epoch(0)]
@@ -1889,10 +1952,11 @@ def loader_reading(stderr, prefix):
 
 
 def check_aoti_serving(smi, served, export_dir):
-    """Phase 13: phase 11's ``pid`` programs at P = 4 and 20 packaged with
-    AOTInductor for the card (``package_run_dir`` with its bench), then the
-    C++ loader built and run as a subprocess on one real event, each output
-    held to the eager graph of the rung it chose."""
+    """Phase 13: phase 11's ``pid`` programs (the option file's network at
+    ``CUT_DEPTH``) at P = 4 and 20 packaged with AOTInductor for the card
+    (``package_run_dir`` with its bench), then the C++ loader built and run
+    as a subprocess on one real event, each output held to the eager graph
+    of the rung it chose."""
     model, norm, ds = served
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1904,9 +1968,9 @@ def check_aoti_serving(smi, served, export_dir):
         meta = json.load(f)
     assert meta["aoti_platform"] == "cuda" and meta["aoti_prong_buckets"] == list(AOTI_RUNGS)
     compile_s, aoti_ms, eager_ms = meta["aoti_compile_s"], meta["aoti_bucket_ms"], meta["bucket_ms"]
-    log(f"[aoti] pid packaged for cuda at P = {AOTI_RUNGS} in {package_s:.2f} s, timing "
-        f"included: compile " + ", ".join(f"{k} {v:.2f} s" for k, v in compile_s.items())
-        + f" ({smi})")
+    log(f"[aoti] pid at depth {CUT_DEPTH} packaged for cuda at P = {AOTI_RUNGS} in "
+        f"{package_s:.2f} s, timing included: compile "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in compile_s.items()) + f" ({smi})")
     for p in AOTI_RUNGS:
         log(f"[aoti] P={p}: package {aoti_ms[str(p)]:.4f} ms an event against the eager "
             f"program's bucket_ms {eager_ms[str(p)]:.4f} ms "
@@ -2122,6 +2186,389 @@ def check_tensor_parallel(smi, ranks=None):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 15
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def bench_precision():
+    """torch's default float32 matmul setting, as the bench runs.  Inductor's
+    FX-graph cache keys on ``torch.backends.cuda.matmul.fp32_precision``,
+    which phase 1's TF32 switch turns from "none" to "ieee" (the same
+    arithmetic: matmul TF32 is off by default), so the bf16 graphs compiled
+    here meet the bench's cache entries only under the bench's setting."""
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.fp32_precision
+    matmul.fp32_precision = "none"
+    try:
+        yield
+    finally:
+        matmul.fp32_precision = saved
+
+
+def cache_counts():
+    """Inductor's FX-graph cache hits and misses in this process so far."""
+    stats = torch._dynamo.utils.counters["inductor"]
+    return stats["fxgraph_cache_hit"], stats["fxgraph_cache_miss"]
+
+
+def cache_reading(before):
+    hits, misses = (now - then for now, then in zip(cache_counts(), before))
+    return f"FX-graph cache {hits} hit(s), {misses} miss(es)"
+
+
+def serving_model(embedder="dense"):
+    cfg = dataclasses.replace(cut_config("bfloat16"), embedder=embedder)
+    return TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED)).cuda()
+
+
+def serving_events(batch_size):
+    """The bench's serving events at ``batch_size``."""
+    return InMemoryEvents(bench.SERVE_EVENTS[batch_size], bench.SEED + 1)
+
+
+def bf16_train_setup():
+    """The bench's b16 train row: the option file at ``CUT_DEPTH`` in bf16,
+    its batch, a fresh model and train state."""
+    options = fit_options()
+    ds = InMemoryEvents(TRAIN_BATCH, bench.SEED + 2)
+    batch = to_device(Batcher(ds, batch_size=TRAIN_BATCH).build_batch(
+        np.arange(TRAIN_BATCH)), "cuda")
+    model = serving_model()
+    state = create_train_state(model, options, ds.norm(), 100, seed=SEED)
+    return options, model, state, batch
+
+
+def eval_batches():
+    """The bench's b16 serving events as validation batches, static shapes."""
+    val = serving_events(TRAIN_BATCH)
+    return val, [to_device(b, "cuda") for b in Batcher(
+        val, batch_size=TRAIN_BATCH, drop_last=False, fixed_shape=True).epoch(0)]
+
+
+def eval_pass(model, options, state, batches, compile):
+    eval_step = make_eval_step(model, options, compile=compile)
+    totals = init_metric_state(4, 8, options.auc_bins, "cuda")
+    for b in batches:
+        eval_step(state, b, totals)
+    return totals
+
+
+def coo_serving(model, compile):
+    ds = serving_events(TRAIN_BATCH)
+    return predict_split(model, ds, ds.norm(), TRAIN_BATCH, "cuda", fixed_shape=True,
+                         compile=compile)
+
+
+def float32_setup():
+    """float32 (TF32 off), dropout and noise 0, the option file's widths at
+    ``CUT_DEPTH``: the config, the options, the events and their batch of 16."""
+    cfg = dataclasses.replace(cut_config("float32"), dropout=0.0, pixel_noise_std=0.0)
+    options = fit_options()
+    options.dropout, options.pixel_noise_std = 0.0, 0.0
+    ds = InMemoryEvents(TRAIN_BATCH, SEED + 40)
+    batch = to_device(Batcher(ds, batch_size=TRAIN_BATCH).build_batch(
+        np.arange(TRAIN_BATCH)), "cuda")
+    return cfg, options, ds, batch
+
+
+def warm_graph(name):
+    """Compile graph ``name`` of ``WARM_GRAPHS`` into the compile cache and
+    run it once, in a process of its own (``warm_compile_cache``): the
+    bench's compiled rows through the bench's own functions, the others
+    through the functions the checks below call, so that each cache key is
+    the one they look up; float32 graphs with phase 1's TF32 switch, bf16
+    ones under torch's default (``bench_precision``)."""
+    enable_compile_cache()
+    cuda = torch.device("cuda")
+    if name.startswith("float32"):
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    if name.startswith("serve_b"):
+        bench.serve_row(cut_config("bfloat16"), cuda, int(name[7:]), True)
+    elif name.startswith("train_b"):
+        bench.train_row(cut_config("bfloat16"), fit_options(), cuda, int(name[7:]), True, None)
+    elif name == "eval_b16":
+        options, model, state, _ = bf16_train_setup()
+        eval_pass(model, options, state, eval_batches()[1], True)
+    elif name == "coo_b16":
+        coo_serving(serving_model("coo"), True)
+    else:
+        cfg, options, ds, batch = float32_setup()
+        model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED)).cuda()
+        if name == "float32_predict":
+            make_predict_step(model, compile=True)(batch, to_device(ds.norm(), "cuda"))
+        else:
+            state = create_train_state(model, options, ds.norm(), 100, seed=SEED)
+            make_train_step(model, options, compile=True)(state, batch)
+    torch.cuda.synchronize()
+    print(json.dumps({"graph": name, "seconds": time.perf_counter() - t0,
+                      "fx_graph_cache": cache_counts()}), flush=True)
+
+
+def warm_compile_cache(smi, work):
+    """Every graph of phase 15 and of the bench compiled at once, one
+    process each (``warm_graph``, ``WARM_THREADS`` compile workers each).
+    Inductor spends a graph's compile in Python on one core (lowering,
+    scheduling and code generation: 25 of a cut-depth serving graph's 36 s
+    on the H100 host, Triton's own compiles 1.3 s), so the graphs compile
+    side by side in about the time of the slowest, and the bench and the
+    checks below load them from the cache.  Their first calls share the
+    card, and nothing here is timed but the wall clock."""
+    env = {**os.environ, "TORCHINDUCTOR_COMPILE_THREADS": str(WARM_THREADS)}
+    here = os.path.dirname(os.path.abspath(__file__))
+    logs = {name: os.path.join(work, f"warm_{name}.log") for name in WARM_GRAPHS}
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for name, path in logs.items():
+            with open(path, "w") as out:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-c", f"import chip_smoke; chip_smoke.warm_graph({name!r})"],
+                    cwd=here, env=env, stdout=out, stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + WARM_TIMEOUT_S
+        for proc in procs.values():
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    readings = []
+    for name, proc in procs.items():
+        with open(logs[name]) as f:
+            text = f.read()
+        if proc.returncode != 0:
+            raise RuntimeError(f"warming {name} exited {proc.returncode}:\n{text[-6000:]}")
+        reading = json.loads([line for line in text.splitlines()
+                              if line.startswith('{"graph"')][-1])
+        readings.append(f"{name} {reading['seconds']:.1f} s")
+    log(f"[compiled] {len(procs)} graphs at depth {CUT_DEPTH} compiled side by side "
+        f"into an empty cache in {seconds:.1f} s (each process's compile and first "
+        f"call: {'; '.join(readings)}) ({smi})")
+
+
+def run_bench(work):
+    """``python -m dune_transformercvn_torch.bench`` as a subprocess on the
+    option file at ``CUT_DEPTH``, with this process's compile cache;
+    returns its JSON record."""
+    with open(OPTION_FILE) as f:
+        fields = json.load(f)
+    fields.update({k: list(v) if isinstance(v, tuple) else v for k, v in CUT_DEPTH.items()})
+    path = os.path.join(work, "cut_options.json")
+    with open(path, "w") as f:
+        json.dump(fields, f)
+    free_memory()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dune_transformercvn_torch.bench",
+                           "--options", path],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        raise RuntimeError(f"the bench exited {proc.returncode} with {len(lines)} stdout "
+                           f"lines:\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    record = json.loads(lines[0])
+    log(f"[bench] {json.dumps(record)}")
+    assert "error" not in record and record["value"] > 0, record
+    assert record["metric"] == "inference_events_per_second", record
+    rows = [line for line in proc.stderr.splitlines() if line.startswith("# ")]
+    log(f"[bench] depth {CUT_DEPTH}, {seconds:.1f} s, its compiled graphs from the "
+        f"cache warmed above; rows: " + "; ".join(r[2:].split(" {")[0] for r in rows))
+    return record
+
+
+def compiled_agrees(eager, compiled, label):
+    """bf16 predictions, compiled against eager: probabilities within
+    FOLD_SHARE, argmax equal where eager's top two are more than
+    2 FOLD_SHARE apart; returns the diffs and argmax agreements."""
+    out = {}
+    for key in ("event", "prong"):
+        e, c = eager[f"{key}_probabilities"], compiled[f"{key}_probabilities"]
+        assert np.isfinite(c).all() and c.shape == e.shape, (label, key)
+        diff = float(np.abs(e - c).max())
+        top = np.sort(e, -1)
+        clear = top[:, -1] - top[:, -2] > 2 * FOLD_SHARE
+        same = e.argmax(-1) == c.argmax(-1)
+        assert diff <= FOLD_SHARE and same[clear].all(), (label, key, diff)
+        out[key] = (diff, float(same.mean()))
+    return out
+
+
+def compiled_serving(smi):
+    """bf16 ``predict_split`` compiled against eager at batch 16 and 64 on
+    the bench's events and static shapes (its graphs from the cache);
+    events/s of each in turns.  Returns K1's launches in the compiled
+    passes."""
+    model = serving_model()
+    k1 = 0
+    for b in bench.BATCH_SIZES:
+        ds = serving_events(b)
+        batches = math.ceil(len(ds) / b)
+
+        def run(compile):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, counts = counted(lambda: predict_split(
+                model, ds, ds.norm(), b, "cuda", fixed_shape=True, compile=compile))
+            assert counts == (2 * batches, 0), counts
+            return out, len(ds) / (time.perf_counter() - t0), counts[0]
+
+        before = cache_counts()
+        t0 = time.perf_counter()
+        compiled, _, launches = run(True)
+        first_s = time.perf_counter() - t0
+        eager, _, _ = run(False)
+        agree = compiled_agrees(eager, compiled, f"b{b}")
+        rates = {True: [], False: []}
+        for compile in (False, True, True, False):
+            _, rate, launches_ = run(compile)
+            rates[compile].append(rate)
+            launches += launches_ if compile else 0
+        k1 += launches
+        log(f"[compiled] serving b{b} (bf16, {len(ds)} events, static shapes): first "
+            f"compiled pass {first_s:.1f} s ({cache_reading(before)}); compiled "
+            f"against eager: event prob diff {agree['event'][0]:.3g} (argmax agreement "
+            f"{agree['event'][1]:.4f}), prong {agree['prong'][0]:.3g} "
+            f"({agree['prong'][1]:.4f}); events/s in turns eager "
+            f"{rates[False][0]:.1f}, compiled {rates[True][0]:.1f}, compiled "
+            f"{rates[True][1]:.1f}, eager {rates[False][1]:.1f}: compiled/eager "
+            f"{statistics.mean(rates[True]) / statistics.mean(rates[False]):.2f}x; K1 "
+            f"{launches} in the compiled passes, 2 a batch ({smi})")
+    del model
+    free_memory()
+    return k1
+
+
+def compiled_training(smi):
+    """The option file's train step compiled, bf16, batch 16, on the
+    bench's batch (its graph from the cache): warm-up and timed steps, peak
+    memory; then one compiled eval pass against eager's.  Returns K1's
+    launches."""
+    options, model, state, batch = bf16_train_setup()
+    step = make_train_step(model, options, compile=True)
+    before = cache_counts()
+    t0 = time.perf_counter()
+    first, counts = counted(lambda: step(state, batch))
+    first_s = time.perf_counter() - t0
+    train_cache = cache_reading(before)
+    _, warm = counted(lambda: [step(state, batch) for _ in range(COMPILED_WARMUP - 1)])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics, timed = counted(lambda: [step(state, batch) for _ in range(COMPILED_STEPS)][-1])
+    ms = 1e3 * (time.perf_counter() - t0) / COMPILED_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert (counts, warm, timed) == ((2, 0), (2 * (COMPILED_WARMUP - 1), 0),
+                                     (2 * COMPILED_STEPS, 0)), (counts, warm, timed)
+    losses = (float(first["train_loss"]), float(metrics["train_loss"]))
+    assert all(math.isfinite(v) for v in losses + (float(metrics["grad_norm"]),)), metrics
+
+    val, val_batches = eval_batches()
+    before = cache_counts()
+    t0 = time.perf_counter()
+    totals, eval_counts = counted(lambda: eval_pass(model, options, state, val_batches, True))
+    eval_s = time.perf_counter() - t0
+    eval_cache = cache_reading(before)
+    eager_totals = eval_pass(model, options, state, val_batches, False)
+    assert eval_counts == (2 * len(val_batches), 0), eval_counts
+    assert float(totals["event_count"]) == float(eager_totals["event_count"]) == len(val)
+    got, want = finalize_metrics(totals), finalize_metrics(eager_totals)
+    assert math.isfinite(got["val_epoch_AUC"]) and math.isfinite(got["val_loss"]), got
+    log(f"[compiled] train step, bf16, batch 16 (the option file's dropout and noise): "
+        f"first call {first_s:.1f} s ({train_cache}), then "
+        f"{ms:.2f} ms/step ({COMPILED_STEPS} after {COMPILED_WARMUP}), "
+        f"{TRAIN_BATCH * 1e3 / ms:.2f} events/s, peak {peak:.2f} GiB; train_loss "
+        f"{losses[0]:.5f} -> {losses[1]:.5f}; compiled eval pass over {len(val)} events "
+        f"({len(val_batches)} batches, {eval_s:.1f} s, {eval_cache}): val AUC "
+        f"{got['val_epoch_AUC']:.4f}, val loss {got['val_loss']:.5f} (eager "
+        f"{want['val_epoch_AUC']:.4f}, {want['val_loss']:.5f}) ({smi})")
+    del model, state
+    free_memory()
+    return counts[0] + warm[0] + timed[0] + eval_counts[0]
+
+
+def compiled_coo(smi):
+    """The coo family's forward compiled at batch 16, bf16, K2 inside the
+    graph: against eager on the bench's b16 events; returns K2's launches
+    in the compiled pass."""
+    model = serving_model("coo")
+    batches = math.ceil(bench.SERVE_EVENTS[TRAIN_BATCH] / TRAIN_BATCH)
+    before = cache_counts()
+    t0 = time.perf_counter()
+    compiled, counts = counted(lambda: coo_serving(model, True))
+    first_s = time.perf_counter() - t0
+    eager = coo_serving(model, False)
+    assert counts == (0, 2 * batches), counts
+    agree = compiled_agrees(eager, compiled, "coo b16")
+    log(f"[compiled] coo serving b16 (bf16, {bench.SERVE_EVENTS[TRAIN_BATCH]} events): "
+        f"first compiled pass {first_s:.1f} s ({cache_reading(before)}); against eager: "
+        f"event prob diff {agree['event'][0]:.3g}, prong {agree['prong'][0]:.3g}; K2 "
+        f"{counts[1]} in the compiled pass, 2 a batch, K1 0 ({smi})")
+    del model
+    free_memory()
+    return counts[1]
+
+
+def compiled_float32_checks(smi):
+    """float32, TF32 off, dropout and noise 0, the option file's widths at
+    ``CUT_DEPTH``: the compiled predict step's probabilities and the
+    compiled train step's first loss and gradient norm against eager's at
+    batch 16, within PATH_TOL.  Returns K1's launches in the compiled
+    steps."""
+    cfg, options, ds, batch = float32_setup()
+    norm = to_device(ds.norm(), "cuda")
+    models = [TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED)).cuda()
+              for _ in range(2)]
+    before = cache_counts()
+    t0 = time.perf_counter()
+    got, counts = counted(lambda: make_predict_step(models[1], compile=True)(batch, norm))
+    predict_s = time.perf_counter() - t0
+    want = make_predict_step(models[0])(batch, norm)
+    assert counts == (2, 0), counts
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **PATH_TOL)
+    k1, firsts = counts[0], []
+    for model, compile in zip(models, (False, True)):
+        state = create_train_state(model, options, ds.norm(), 100, seed=SEED)
+        step = make_train_step(model, options, compile=compile)
+        t0 = time.perf_counter()
+        metrics, counts = counted(lambda: step(state, batch))
+        firsts.append((float(metrics["train_loss"]), float(metrics["grad_norm"]),
+                       time.perf_counter() - t0))
+        assert counts == (2, 0), counts
+        k1 += counts[0] if compile else 0
+    (loss, norm_e, _), (loss_c, norm_c, train_s) = firsts
+    np.testing.assert_allclose([loss_c, norm_c], [loss, norm_e], **PATH_TOL)
+    log(f"[compiled] float32 checks, batch 16, depth {CUT_DEPTH}: predict "
+        f"probabilities within {PATH_TOL} of eager (max diff event "
+        f"{max_diff(got[0], want[0]):.3g}, prong {max_diff(got[1], want[1]):.3g}); the "
+        f"first train step's loss {loss_c:.6f} against eager's {loss:.6f}, grad_norm "
+        f"{norm_c:.5f} against {norm_e:.5f}; first calls {predict_s:.1f} s (predict), "
+        f"{train_s:.1f} s (train step), {cache_reading(before)} ({smi})")
+    del models
+    free_memory()
+    return k1
+
+
+def check_compiled(smi):
+    """Phase 15: the compiled steps; returns the K1 and K2 launches of the
+    compiled paths."""
+    enable_compile_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_compiled_")
+    try:
+        warm_compile_cache(smi, work)
+        run_bench(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    with bench_precision():
+        k1 = compiled_serving(smi) + compiled_training(smi)
+        k2 = compiled_coo(smi)
+    k1 += compiled_float32_checks(smi)
+    return k1, k2
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2168,6 +2615,10 @@ def main():
     free_memory()
     trainer_launches += check_tensor_parallel(smi)
     done("14")
+    compiled_k1, compiled_k2 = check_compiled(smi)
+    trainer_launches += compiled_k1
+    train_launches += compiled_k2
+    done("15")
     kernels = []
     for (err, ms, plain_ms, lib_ms, bound_ms), name, source, replaces, launches in (
             (k1, "densify", "dune_transformercvn_torch/csrc/densify.cu",

@@ -136,9 +136,22 @@ class Batcher:
         # the per_shard largest per-event counts bounds any shard's total.
         self.fixed_caps = None
         if fixed_shape:
-            self.fixed_caps = self._compute_fixed_caps()
+            self.fixed_caps = self._bounding_caps()
 
-    def _compute_fixed_caps(self) -> BatchShape:
+    def shape_bound(self) -> int:
+        """How many batch shapes this batcher can lay out: one with
+        ``fixed_shape``; else each rung of the capacity ladder up to the one
+        the fullest batch needs, times each hit bucket up to the fullest
+        batch's, for the event and the prong banks (the caps
+        ``fixed_shape`` would take)."""
+        if self.fixed_caps is not None:
+            return 1
+        caps = self._bounding_caps()
+        rungs = self.capacity_ladder.index(caps.prong_slots) + 1
+        return (rungs * (caps.event_hits // self.coo_granularity)
+                * (caps.prong_hits // self.coo_granularity))
+
+    def _bounding_caps(self) -> BatchShape:
         ds = self.dataset
         b = self.per_shard
 

@@ -45,11 +45,13 @@ def evaluate_run(
     device=None,
     datasets=None,
     testing_file: Optional[str] = None,
+    compile: bool = False,
 ) -> Tuple[Dict[str, np.ndarray], Dict[str, object], str]:
     """Restore ``checkpoint`` ('best', 'last' or a path) of the run in
     ``run_dir`` and predict ``split``; returns ``(predictions, results,
     report)``.  ``datasets`` takes the place of the option file's HDF5
-    splits, as it does for :class:`.train.Trainer`."""
+    splits, as it does for :class:`.train.Trainer`; ``compile`` predicts
+    through the compiled step."""
     from .train import CheckpointManager, Trainer
 
     options = Options.load(os.path.join(run_dir, "options.json"))
@@ -60,7 +62,7 @@ def evaluate_run(
         options.batch_size = batch_size
 
     trainer = Trainer(options, run_dir=None, debug=True, verbose=False,
-                      device=device, datasets=datasets)
+                      device=device, datasets=datasets, compile=compile)
     if checkpoint in ("best", "last"):
         mgr = CheckpointManager(os.path.join(run_dir, "checkpoints"),
                                 top_k=options.checkpoint_top_k)
@@ -97,6 +99,8 @@ def main(argv=None):
                         help="write ROC-curve and confusion-matrix PNGs")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="device to evaluate on (default cuda; no fallback)")
+    parser.add_argument("--compile", action="store_true",
+                        help="predict through the compiled step (torch.compile, Inductor)")
     args = parser.parse_args(argv)
 
     if args.history:
@@ -109,7 +113,7 @@ def main(argv=None):
 
     predictions, _, report = evaluate_run(
         args.run_dir, args.checkpoint, args.split, args.batch_size, args.device,
-        testing_file=args.testing_file)
+        testing_file=args.testing_file, compile=args.compile)
     print(report)
 
     from .evaluation import save_plots, save_predictions_h5

@@ -16,9 +16,13 @@ only on the parity of the coordinate.  So the stem is
   :func:`bin_hits_cuda`, whose plain version is :func:`bin_hits_plain`, then
   the scatter over the output tiles of :func:`tile_plan`) on the card, or
   :func:`scatter_patches_plain` (``index_add_``) on the CPU;
-* :class:`ScatterPatches`, the ``autograd.Function`` around the scatter.  Its
-  backward is the per-(hit, tap) row gather of the output cotangent that the
-  JAX package's ``_scatter_patches_bwd`` computes in XLA, in plain torch.
+* :func:`scatter_patches`, the custom op ``tcvn::coo_stem_scatter`` over
+  the two scatters (the plain one for CPU tensors, K2 for CUDA tensors, a
+  fake for ``torch.compile``), with its gradient registered: the per-(hit,
+  tap) row gather of the output cotangent that the JAX package's
+  ``_scatter_patches_bwd`` computes in XLA, in plain torch.  The binning
+  pass alone is the op ``tcvn::coo_stem_bin`` (:func:`bin_hits`), for
+  checking it.
 
 Image ``i`` owns bank rows ``[starts[i], starts[i+1])`` (the batcher's CSR
 offsets, clamped to the bank); rows outside every range are never read and
@@ -250,13 +254,13 @@ def bin_hits_plain(
 
 def bin_hits_cuda(xy, starts, num_images, height, width, channels):
     """K2's binning pass alone on the card (:func:`bin_hits_plain`'s
-    function; entries no list uses are left unwritten), for checking it.
+    function; entries no list uses hold -1, as there), for checking it.
     Takes the wrapper's checked inputs."""
     if xy.device.type != "cuda":
         raise ValueError(f"coo stem binning needs CUDA tensors, got {xy.device}")
     _, _, tile_cols, tiles = _tiles(height, width, channels)
     bins = torch.empty((num_images * tiles, 2), dtype=torch.int32, device=xy.device)
-    entries = torch.empty((4 * xy.shape[0], 2), dtype=torch.int32, device=xy.device)
+    entries = torch.full((4 * xy.shape[0], 2), -1, dtype=torch.int32, device=xy.device)
     lib = _kernel()
     with torch.cuda.device(xy.device):
         err = lib.tcvn_coo_stem_bin(
@@ -338,39 +342,86 @@ def scatter_patches_cuda(
 scatter_patches_cuda.launches = 0
 
 
-class ScatterPatches(torch.autograd.Function):
-    """The stem scatter with the JAX package's hand-written VJP.
+def _bin_shapes(xy, num_images, height, width, channels):
+    _, _, _, tiles = _tiles(height, width, channels)
+    return (num_images * tiles, 2), (4 * xy.shape[0], 2)
 
-    Forward: K2 for CUDA tensors, :func:`scatter_patches_plain` for CPU
-    tensors.  Backward: patch ``(g, a, b)`` went to exactly one output
-    element row, so its cotangent is that row of the output cotangent
-    (float32), zero for taps the forward dropped; the bias gets the
-    cotangent summed over images and pixels.
-    """
 
-    @staticmethod
-    def forward(ctx, patches, bias, xy, starts, num_images, height, width, out_dtype):
-        scatter = (scatter_patches_plain if patches.device.type == "cpu"
-                   else scatter_patches_cuda)
-        out = scatter(patches, xy, starts, bias, num_images, height, width, out_dtype)
-        ctx.save_for_backward(xy, starts)
-        ctx.geometry = (num_images, height, width)
-        return out
+@torch.library.custom_op(
+    "tcvn::coo_stem_bin", mutates_args=(), device_types="cpu",
+    schema="(Tensor xy, Tensor starts, int num_images, int height, int width, "
+           "int channels) -> (Tensor, Tensor)")
+def bin_hits(xy, starts, num_images, height, width, channels):
+    """K2's binning pass as an op: :func:`bin_hits_plain` on the CPU,
+    :func:`bin_hits_cuda` on the card."""
+    return bin_hits_plain(xy, starts, num_images, height, width, channels)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        xy, starts = ctx.saved_tensors
-        num_images, height, width = ctx.geometry
-        c = grad_out.shape[-1]
-        d_patches = d_bias = None
-        if ctx.needs_input_grad[0]:
-            flat, valid = tap_index(xy, starts, num_images, height, width)
-            rows = grad_out.reshape(-1, c)
-            d_patches = rows[flat.clamp(max=rows.shape[0] - 1)].float()
-            d_patches = d_patches * valid[..., None]
-        if ctx.needs_input_grad[1]:
-            d_bias = grad_out.sum((0, 1, 2), dtype=torch.float32)
-        return d_patches, d_bias, None, None, None, None, None, None
+
+@bin_hits.register_kernel("cuda")
+def _bin_hits_kernel(xy, starts, num_images, height, width, channels):
+    return bin_hits_cuda(xy, starts, num_images, height, width, channels)
+
+
+@bin_hits.register_fake
+def _bin_hits_fake(xy, starts, num_images, height, width, channels):
+    bins, entries = _bin_shapes(xy, num_images, height, width, channels)
+    return xy.new_empty(bins, dtype=torch.int32), xy.new_empty(entries, dtype=torch.int32)
+
+
+@torch.library.custom_op(
+    "tcvn::coo_stem_scatter", mutates_args=(), device_types="cpu",
+    schema="(Tensor patches, Tensor bias, Tensor xy, Tensor starts, int num_images, "
+           "int height, int width, ScalarType out_dtype) -> Tensor")
+def scatter_patches(patches, bias, xy, starts, num_images, height, width, out_dtype):
+    """The stem scatter ``[N, out_h, out_w, C]`` in ``out_dtype``:
+    :func:`scatter_patches_plain` on the CPU, K2 (:func:`scatter_patches_cuda`)
+    on the card.  Differentiable in ``patches`` and ``bias``."""
+    return scatter_patches_plain(patches, xy, starts, bias, num_images, height, width,
+                                 out_dtype)
+
+
+@scatter_patches.register_kernel("cuda")
+def _scatter_patches_kernel(patches, bias, xy, starts, num_images, height, width,
+                            out_dtype):
+    return scatter_patches_cuda(patches, xy, starts, bias, num_images, height, width,
+                                out_dtype)
+
+
+@scatter_patches.register_fake
+def _scatter_patches_fake(patches, bias, xy, starts, num_images, height, width,
+                          out_dtype):
+    out_h, out_w = out_shape(height, width)
+    return patches.new_empty((num_images, out_h, out_w, patches.shape[-1]),
+                             dtype=out_dtype)
+
+
+def _scatter_patches_setup(ctx, inputs, output):
+    _, _, xy, starts, num_images, height, width, _ = inputs
+    ctx.save_for_backward(xy, starts)
+    ctx.geometry = (num_images, height, width)
+
+
+def _scatter_patches_backward(ctx, grad_out):
+    """Patch ``(g, a, b)`` went to exactly one output element row, so its
+    cotangent is that row of the output cotangent (float32), zero for taps
+    the forward dropped; the bias gets the cotangent summed over images and
+    pixels."""
+    xy, starts = ctx.saved_tensors
+    num_images, height, width = ctx.geometry
+    c = grad_out.shape[-1]
+    d_patches = d_bias = None
+    if ctx.needs_input_grad[0]:
+        flat, valid = tap_index(xy, starts, num_images, height, width)
+        rows = grad_out.reshape(-1, c)
+        d_patches = rows[flat.clamp(max=rows.shape[0] - 1)].float()
+        d_patches = d_patches * valid[..., None]
+    if ctx.needs_input_grad[1]:
+        d_bias = grad_out.sum((0, 1, 2), dtype=torch.float32)
+    return d_patches, d_bias, None, None, None, None, None, None
+
+
+scatter_patches.register_autograd(_scatter_patches_backward,
+                                  setup_context=_scatter_patches_setup)
 
 
 def coo_stem_conv_cuda(
@@ -386,9 +437,9 @@ def coo_stem_conv_cuda(
     """The kernel route of the sparse stem: patches, then K2 with the bias
     and the cast to ``values.dtype``.  ``[N, out_h, out_w, C_out]``.
 
-    On CPU tensors :class:`ScatterPatches` takes the plain scatter, so the
+    On CPU tensors :func:`scatter_patches` takes the plain scatter, so the
     tests reach this route's backward without a card.
     """
     patches = stem_patches(xy, values, kernel_weights, height, width)
-    return ScatterPatches.apply(patches, bias, xy, starts, num_images, height,
-                                width, values.dtype)
+    return scatter_patches(patches, bias, xy, starts, num_images, height, width,
+                           values.dtype)

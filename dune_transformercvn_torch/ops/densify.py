@@ -10,6 +10,12 @@ image one block writes.
 XLA scatter in ``dune_transformercvn_tpu/ops/scatter.py``: it reads the
 per-hit ``owner`` column and needs no ordering.  It serves CPU tensors, the
 tests, and the on-card comparison in ``chip_smoke.py``.
+
+:func:`densify_op` is the custom op ``tcvn::densify`` over the two: the plain
+version for CPU tensors, K1 for CUDA tensors (any other device has no
+kernel and raises), and a fake that gives the output's shape and dtype, so
+``torch.compile`` keeps the kernel's launch inside its graph.  Every caller,
+eager or compiled, goes through it.
 """
 
 from __future__ import annotations
@@ -129,8 +135,7 @@ def densify_images_cuda(
         raise ValueError(f"space_to_depth needs even H, W; got {height}x{width}")
 
     c = values.shape[1]
-    shape = ((num_images, height // 2, width // 2, 4 * c) if space_to_depth
-             else (num_images, height, width, c))
+    shape = _densify_shape(values, num_images, height, width, space_to_depth)
     out = torch.empty(shape, dtype=values.dtype, device=device)
     if out.numel() == 0:
         return out
@@ -152,3 +157,39 @@ def densify_images_cuda(
 
 # Launches of the kernel in this process; chip_smoke.py resets and reads it.
 densify_images_cuda.launches = 0
+
+
+def _densify_shape(values, num_images, height, width, space_to_depth):
+    c = values.shape[-1]
+    if space_to_depth:
+        return (num_images, height // 2, width // 2, 4 * c)
+    return (num_images, height, width, c)
+
+
+# K1 and its plain version as one op: the CPU kernel reads ``owner``, the
+# CUDA kernel the CSR ``starts``; the other is passed along and not read.
+@torch.library.custom_op(
+    "tcvn::densify", mutates_args=(), device_types="cpu",
+    schema="(Tensor xy, Tensor values, Tensor owner, Tensor? starts, int num_images, "
+           "int height, int width, bool space_to_depth) -> Tensor")
+def densify_op(xy, values, owner, starts, num_images, height, width, space_to_depth):
+    """``[N, H, W, C]`` images (or the s2d layout) in ``values.dtype``: the
+    plain version on the CPU, K1 (:func:`densify_images_cuda`) on the card."""
+    return densify_images_plain(xy, values, owner, num_images, height, width,
+                                space_to_depth)
+
+
+@densify_op.register_kernel("cuda")
+def _densify_kernel(xy, values, owner, starts, num_images, height, width, space_to_depth):
+    if starts is None:
+        raise ValueError(
+            "densify_images on the GPU needs the bank's CSR `starts` "
+            "(Batcher.build_batch provides event_starts / prong_starts)")
+    return densify_images_cuda(xy, values, starts, num_images, height, width,
+                               space_to_depth)
+
+
+@densify_op.register_fake
+def _densify_fake(xy, values, owner, starts, num_images, height, width, space_to_depth):
+    return values.new_empty(_densify_shape(values, num_images, height, width,
+                                           space_to_depth))

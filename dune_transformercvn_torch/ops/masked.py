@@ -35,7 +35,7 @@ from contextlib import contextmanager, nullcontext
 from typing import Callable, Optional, Sequence
 
 import torch
-import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
@@ -130,21 +130,24 @@ class MaskedBatchNorm(nn.Module):
         return mean, var
 
 
+def _sum_over(tensor: torch.Tensor, group) -> torch.Tensor:
+    """``tensor`` summed over ``group`` by a functional collective, which
+    ``torch.compile`` traces into its graph (``dist.all_reduce`` would
+    break it)."""
+    return funcol.wait_tensor(funcol.all_reduce(tensor, "sum", group))
+
+
 class _AllReduceSum(torch.autograd.Function):
     """Sum over a process group; the backward sums the cotangent over it."""
 
     @staticmethod
     def forward(ctx, tensor, group):
         ctx.group = group
-        out = tensor.clone()
-        dist.all_reduce(out, group=group)
-        return out
+        return _sum_over(tensor, group)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
+        return _sum_over(grad.contiguous(), ctx.group), None
 
 
 def all_reduce_sum(tensor: torch.Tensor, group) -> torch.Tensor:

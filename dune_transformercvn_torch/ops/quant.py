@@ -206,14 +206,18 @@ class _Record(_Context):
 
 def active() -> bool:
     """Whether a quantization or calibration context is active (the conv
-    helpers ask before they lay out an input for :func:`intercept`)."""
-    return _ACTIVE.get() is not None
+    helpers ask before they lay out an input for :func:`intercept`).  Never
+    while ``torch.compile`` traces: the contexts run eagerly, and the
+    compiled steps refuse to run inside one (``predict.make_predict_step``)."""
+    return not torch.compiler.is_compiling() and _ACTIVE.get() is not None
 
 
 def intercept(x, weight, bias, stride, padding, groups, out_dtype) -> Optional[torch.Tensor]:
     """Called by the conv helpers with NHWC ``x`` and the conv's weight
     parameter: the int8 result when a :func:`quantized_convs` context
     quantizes this conv, else None (the helper runs its float conv)."""
+    if torch.compiler.is_compiling():
+        return None
     active = _ACTIVE.get()
     if active is None:
         return None

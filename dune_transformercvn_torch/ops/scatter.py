@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from .densify import densify_images_cuda, densify_images_plain
+from .densify import densify_op
 
 
 def densify_images(
@@ -28,20 +28,13 @@ def densify_images(
     """Scatter-add COO hits into dense NHWC images ``[N, H, W, C]``, or the
     2x2 space-to-depth layout ``[N, H/2, W/2, 4C]``.
 
-    CPU tensors take the plain version.  CUDA tensors take kernel K1, which
-    reads the bank through ``starts`` (the batcher always supplies them).
+    Runs the op ``tcvn::densify``: CPU tensors take the plain version, CUDA
+    tensors kernel K1, which reads the bank through ``starts`` (the batcher
+    always supplies them).
     """
     if space_to_depth and (height % 2 or width % 2):
         raise ValueError(f"space_to_depth needs even H, W; got {height}x{width}")
-    if values.device.type == "cpu":
-        return densify_images_plain(
-            xy, values, owner, num_images, height, width, space_to_depth)
-    if starts is None:
-        raise ValueError(
-            "densify_images on the GPU needs the bank's CSR `starts` "
-            "(Batcher.build_batch provides event_starts / prong_starts)")
-    return densify_images_cuda(
-        xy, values, starts, num_images, height, width, space_to_depth)
+    return densify_op(xy, values, owner, starts, num_images, height, width, space_to_depth)
 
 
 def pack_rows(

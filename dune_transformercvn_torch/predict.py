@@ -17,8 +17,10 @@ import numpy as np
 import torch
 
 from .data import Batcher, split_current_targets
+from .ops import quant
 from .ops.fold import folded_copy
 from .parallel import Mesh, all_gather_rows, default_mesh, local_shard_ids, unsharded_copy
+from .utils.compile import compile_step
 
 
 def to_device(arrays: Mapping[str, np.ndarray], device,
@@ -39,23 +41,35 @@ def pinned(arrays: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             for k, v in arrays.items()}
 
 
-def make_predict_step(model) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
+def make_predict_step(model, compile: bool = False,
+                      shapes: int = 1) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
     """Inference step: ``(batch, norm) -> (event_probs [B, Kev], prong_probs
     [B, P, Kpr])``, softmax over the logits.  Puts ``model`` in eval mode.
 
     In split mode the event scores are the 4-way current head's softmax (the
-    generation head is a training-time auxiliary).
+    generation head is a training-time auxiliary).  ``compile``: the forward
+    through the softmax is one Inductor graph a batch shape
+    (:func:`.utils.compile.compile_step`, for up to ``shapes`` shapes).
     """
     num_event = model.cfg.num_event_classes
     model.eval()
 
-    @torch.inference_mode()
-    def step(batch, norm):
+    def forward(batch, norm):
         event_logits, prong_logits = model(batch, norm)
         return (
             torch.softmax(event_logits[:, :num_event], dim=-1),
             torch.softmax(prong_logits, dim=-1),
         )
+
+    if compile:
+        forward = compile_step(forward, shapes)
+
+    @torch.inference_mode()
+    def step(batch, norm):
+        if compile and quant.active():
+            raise RuntimeError("int8 convolutions (ops.quant.quantized_convs) run "
+                               "eagerly: predict with compile=False inside the context")
+        return forward(batch, norm)
 
     return step
 
@@ -71,6 +85,7 @@ def predict_split(
     prong_bucket_multipliers: Optional[Sequence[int]] = None,
     fold_eval_bn: bool = False,
     mesh: Optional[Mesh] = None,
+    compile: bool = False,
 ) -> Dict[str, np.ndarray]:
     """Batched inference over ``dataset`` (an ``EventDataset``, or anything
     with what ``Batcher.build_batch`` reads).
@@ -90,6 +105,9 @@ def predict_split(
     of the shards are gathered in order over the mesh's data group, so
     every rank returns the whole split.  A tensor-parallel model predicts
     through a copy of it with whole parameters, gathered once.
+    ``compile`` predicts through the compiled step (:func:`make_predict_step`),
+    one graph for each batch shape the batcher lays out
+    (``Batcher.shape_bound`` of them at most).
     """
     mesh = mesh or default_mesh()
     model = unsharded_copy(model)
@@ -106,7 +124,7 @@ def predict_split(
         fixed_shape=fixed_shape,
         local_shards=local_shard_ids(mesh) if size > 1 else None,
     )
-    step = make_predict_step(model)
+    step = make_predict_step(model, compile, batcher.shape_bound() if compile else 1)
     norm_t = to_device(norm, device)
     ev_probs, ev_targets = [], []
     pr_probs, pr_targets, pr_event = [], [], []

@@ -54,12 +54,13 @@ def main(
     auto_resume: bool = False,
     log_compiles: bool = False,
     device: str = "cuda",
+    compile: bool = False,
 ):
     if graph or log_compiles:
         flag = "-g/--graph" if graph else "--log_compiles"
         raise SystemExit(
-            f"{flag} dumps or logs XLA compilations; the eager PyTorch port "
-            "compiles no step graph and has no counterpart")
+            f"{flag} dumps or logs XLA compilations, which the port has no "
+            "counterpart of (--compile's graphs log through TORCH_LOGS=graph_code)")
 
     import torch
 
@@ -144,6 +145,7 @@ def main(
         debug=debug,
         verbose=verbose,  # options.verbose_output was clobbered to this above
         device=device,
+        compile=compile,
     )
     if checkpoint is not None:
         trainer.resume(checkpoint)
@@ -212,6 +214,9 @@ def parser() -> ArgumentParser:
                         "checkpoint (preemption recovery).")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="Device to train on (default cuda; no fallback).")
+    p.add_argument("--compile", action="store_true",
+                   help="Compile the train, eval and predict steps with torch.compile "
+                        "(Inductor), one graph a batch shape: the counterpart of jax.jit.")
     return p
 
 

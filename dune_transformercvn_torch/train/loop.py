@@ -77,6 +77,12 @@ class Trainer:
     call; the JAX package's ``lax.scan`` over K stacked batches computes the
     same K updates.  Its dispatch counterpart, a CUDA graph of the step, is
     queued in ROADMAP.md §1 item 20.
+
+    ``compile=True`` compiles the train, eval and predict steps (the JAX
+    package jits them): one Inductor graph for each batch shape, with
+    Dynamo's recompile limit raised by the shapes each batcher can lay out
+    (``Batcher.shape_bound``; past it a step raises) (``train/step.py``
+    says what stays eager).
     """
 
     def __init__(
@@ -92,8 +98,10 @@ class Trainer:
         log_every_n_steps: int = 50,
         device=None,
         datasets=None,
+        compile: bool = False,
     ):
         self.device = resolve_device(device)
+        self.compile = compile
         self.options = options
         # Resolve the embedder family: explicit argument wins, else the
         # options value (evaluate reloads it from the run dir's
@@ -208,9 +216,11 @@ class Trainer:
             print(f"Device: {self.device} ({self.num_shards} data shard(s) of "
                   f"{self.mesh.mp} process(es)); global batch {self.global_batch}")
 
-        # ---- step functions --------------------------------------------------
-        self.train_step = make_train_step(model, options, self.mesh)
-        self.eval_step = make_eval_step(model, options)
+        # ---- step functions (compile: one graph a batch shape) ----------------
+        train_shapes, val_shapes = ((self.train_batcher.shape_bound(),
+                                     self.val_batcher.shape_bound()) if compile else (1, 1))
+        self.train_step = make_train_step(model, options, self.mesh, compile, train_shapes)
+        self.eval_step = make_eval_step(model, options, self.mesh, compile, val_shapes)
 
         # ---- run dir / logging / checkpoints: rank 0 writes -------------------
         self.is_master = self.rank == 0
@@ -318,6 +328,7 @@ class Trainer:
             prong_bucket_multipliers=options.prong_bucket_multipliers,
             fold_eval_bn=options.fold_eval_bn,
             mesh=self.mesh,
+            compile=self.compile,
         )
 
     def _log_confusions(self, metrics: Dict[str, float], step: int):

@@ -41,6 +41,19 @@ parameters' pieces.
   they were.
 * The forward, backward and optimizer parts of a step are profiler ranges
   (``train_step.*``), which :mod:`..profile_training` reads.
+
+``compile=True`` is the counterpart of the JAX package's ``jax.jit``
+(:func:`..utils.compile.compile_step`, one Inductor graph a batch shape):
+the train step compiles its region from the network's forward through the
+loss, and AOTAutograd gives it a compiled backward; the seed draw, the
+zeroing of the gradients, the data-parallel all-reduce, the clipping and
+the optimizer stay eager around it.  Sync-BN's all-reduce is traced into
+the graph.  The eval step compiles its forward through the metric
+statistics.  Compiled dropout and pixel noise draw Inductor's Philox
+offsets from the default generator the step seeds, so a compiled run is
+reproducible from the state (its masks are not eager's).  Not with
+tensor parallelism nor with ``remat`` (``remat_cnn``, ``remat_embedder``,
+``embedder_chunk``): those raise (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -55,6 +68,7 @@ from ..ops.losses import (binary_event_loss, class_balanced_loss,
                           softmax_focal_loss, split_event_targets)
 from ..ops.masked import MaskedBatchNorm
 from ..parallel import Mesh, all_reduce_, default_mesh, local, shard_spec
+from ..utils.compile import compile_step
 from .metrics import update_metric_state
 from .optimizer import clip_by_global_norm_, global_norm
 from .state import TrainState
@@ -146,19 +160,43 @@ def _loss_kwargs(options, model) -> Dict:
     )
 
 
-def make_train_step(model, options, mesh: Optional[Mesh] = None
+def _check_compilable(model, mesh: Mesh, train: bool):
+    """What ``compile=True`` does not take yet raises here (ROADMAP.md)."""
+    if mesh.mp > 1:
+        raise ValueError("compile=True with tensor parallelism (model_parallel > 1) "
+                         "is not supported: its DTensor hooks run eagerly")
+    cfg = model.cfg
+    if train and (cfg.remat_cnn or cfg.remat_embedder or cfg.embedder_chunk):
+        raise ValueError("compile=True with remat_cnn, remat_embedder or embedder_chunk "
+                         "is not supported: the recompute's BatchNorm freezing runs "
+                         "eagerly")
+
+
+def make_train_step(model, options, mesh: Optional[Mesh] = None, compile: bool = False,
+                    shapes: int = 1
                     ) -> Callable[[TrainState, Dict], Dict[str, torch.Tensor]]:
     """``step(state, batch) -> metrics``: one optimizer step of
     ``state.model`` (``model`` fixes the loss variant) on a batch of tensors
     on the model's device -- this rank's data shard of the global batch when
     ``mesh`` (default: the process group, every rank a data shard) has more
     than one.  Updates ``state`` in place; the metrics are 0-d tensors on
-    the device (no synchronisation on one device), ``grad_norm`` included."""
+    the device (no synchronisation on one device), ``grad_norm`` included.
+    ``compile``: the forward and loss (and their backward) compiled, for up
+    to ``shapes`` batch shapes."""
     gamma = options.loss_gamma
     event_scale = options.event_prong_loss_proportion
     loss_kwargs = _loss_kwargs(options, model)
     clip = float(options.gradient_clip or 0.0)
     mesh = mesh or default_mesh()
+
+    def forward_loss(net, batch, norm):
+        event_logits, prong_logits = net(batch, norm)
+        return compute_losses(event_logits, prong_logits, batch["event_targets"],
+                              batch["prong_targets"], gamma, event_scale, **loss_kwargs)
+
+    if compile:
+        _check_compilable(model, mesh, train=True)
+        forward_loss = compile_step(forward_loss, shapes)
     size, shard = mesh.world_size, mesh.data_index
     # with sync-BN the statistics are already the global batch's
     stats = ([] if size == 1 or options.sync_batch_norm else
@@ -174,10 +212,7 @@ def make_train_step(model, options, mesh: Optional[Mesh] = None
         with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
             torch.manual_seed((seed + shard * _RANK_STRIDE) % 2 ** 64)
             with record_function("train_step.forward"):
-                event_logits, prong_logits = net(batch, state.norm)
-                total, metrics = compute_losses(
-                    event_logits, prong_logits, batch["event_targets"],
-                    batch["prong_targets"], gamma, event_scale, **loss_kwargs)
+                total, metrics = forward_loss(net, batch, state.norm)
             with record_function("train_step.backward"):
                 state.optimizer.zero_grad(set_to_none=True)
                 (total / size if size > 1 else total).backward()
@@ -226,20 +261,19 @@ def _mixed_layouts():
     return implicit_replication()
 
 
-def make_eval_step(model, options) -> Callable[[TrainState, Dict, Dict], Dict]:
+def make_eval_step(model, options, mesh: Optional[Mesh] = None, compile: bool = False,
+                   shapes: int = 1) -> Callable[[TrainState, Dict, Dict], Dict]:
     """``step(state, batch, totals) -> totals``: eval-mode forward and loss;
     the metric sufficient statistics of the batch are added to ``totals``
-    (from :func:`.metrics.init_metric_state`) in place, on the device."""
+    (from :func:`.metrics.init_metric_state`) in place, on the device.
+    ``compile``: all of it compiled, for up to ``shapes`` batch shapes."""
     gamma = options.loss_gamma
     event_scale = options.event_prong_loss_proportion
     loss_kwargs = _loss_kwargs(options, model)
     num_generation = loss_kwargs["num_generation_classes"]
 
-    @torch.no_grad()
-    def step(state: TrainState, batch, totals):
-        net = state.model
-        net.eval()
-        event_logits, prong_logits = net(batch, state.norm)
+    def evaluate(net, batch, norm, totals):
+        event_logits, prong_logits = net(batch, norm)
         total, _ = compute_losses(
             event_logits, prong_logits, batch["event_targets"], batch["prong_targets"],
             gamma, event_scale, **loss_kwargs)
@@ -247,5 +281,15 @@ def make_eval_step(model, options) -> Callable[[TrainState, Dict, Dict], Dict]:
             event_logits, batch["event_targets"], num_generation)
         return update_metric_state(totals, metric_logits, metric_targets,
                                    prong_logits, batch["prong_targets"], total)
+
+    if compile:
+        _check_compilable(model, mesh or default_mesh(), train=False)
+        evaluate = compile_step(evaluate, shapes)
+
+    @torch.no_grad()
+    def step(state: TrainState, batch, totals):
+        net = state.model
+        net.eval()
+        return evaluate(net, batch, state.norm, totals)
 
     return step

@@ -1,6 +1,7 @@
 """One rank of the port's data-parallel tests: a process of a ``gloo``
-group on the CPU, started by ``tests/test_torch_port_parallel.py`` and
-``tests/test_torch_port_ddp_parity.py``.
+group on the CPU, started by ``tests/test_torch_port_parallel.py``,
+``tests/test_torch_port_ddp_parity.py`` and
+``tests/test_torch_port_compile_loop.py``.
 
     python _torch_dp_worker.py <mode> <rendezvous file> <world size> <rank> \
         <input> <output>
@@ -10,6 +11,12 @@ cotangent and BatchNorm state; this rank takes its rows, runs a train-mode
 ``MaskedBatchNorm`` synced over the group, backpropagates its rows'
 cotangent and writes its output rows, its input and affine gradients and
 the running statistics.
+
+``compiled``: the input (``torch.save``) holds ``options`` (a dict), the
+in-memory training and validation events and ``fit``'s arguments; this
+rank fits an eager and a compiled ``Trainer`` (``compile=True``) and
+writes each one's step metrics and gradients, final state and validation
+result.
 
 ``trainer``: the input (``torch.save``) holds ``options`` (a dict), the
 JAX Trainer's initial ``variables`` and the run's ``log_dir``; this rank
@@ -101,6 +108,42 @@ def trainer(inputs, rank, world_size):
     return out
 
 
+def compiled(inputs, rank, world_size):
+    """An eager and a compiled ``Trainer`` (``compile=True``) on the same
+    options and events, each fit on this rank's shards: every step's
+    metrics and gradients, the final state and the validation result."""
+    from dune_transformercvn_torch import Options
+    from dune_transformercvn_torch.data import InMemoryEvents
+    from dune_transformercvn_torch.train import Trainer
+
+    torch._inductor.config.compile_threads = 1
+    setup = torch.load(inputs, weights_only=False)
+    out = {}
+    for compile in (False, True):
+        options = Options()
+        options.update_options(setup["options"])
+        datasets = (InMemoryEvents(*setup["training"]), InMemoryEvents(*setup["validation"]),
+                    None)
+        trainer = Trainer(options, debug=True, verbose=False, device="cpu",
+                          datasets=datasets, compile=compile)
+        steps, step = [], trainer.train_step
+
+        def recorded(state, batch, step=step, steps=steps):
+            metrics = step(state, batch)
+            steps.append(({k: float(v) for k, v in metrics.items()},
+                          {n: p.grad.clone() for n, p in state.model.named_parameters()}))
+            return metrics
+
+        trainer.train_step = recorded
+        result = trainer.fit(**setup["fit"])
+        out["compiled" if compile else "eager"] = {
+            "steps": steps,
+            "state": {k: v.clone() for k, v in trainer.state.model.state_dict().items()},
+            "result": {k: v for k, v in result.items() if np.ndim(v) == 0},
+        }
+    return out
+
+
 def main():
     mode, rendezvous, world_size, rank, inputs, output = sys.argv[1:7]
     world_size, rank = int(world_size), int(rank)
@@ -111,7 +154,8 @@ def main():
     # rendezvous has a deadline the later, drifted collectives could miss
     dist.all_reduce(torch.zeros(1))
     try:
-        out = {"syncbn": syncbn, "trainer": trainer}[mode](inputs, rank, world_size)
+        out = {"syncbn": syncbn, "trainer": trainer,
+               "compiled": compiled}[mode](inputs, rank, world_size)
     finally:
         dist.destroy_process_group()
     if mode == "syncbn":

@@ -116,7 +116,7 @@ def test_coo_stem_conv_casts_like_jax_in_bfloat16():
 
 def test_coo_stem_gradients_match_jax():
     """Gradients of ``sum(out * cot)`` wrt values, weights and bias: through
-    ``ScatterPatches`` (plain forward, the hand-written backward), through
+    the op ``tcvn::coo_stem_scatter`` (plain forward, the registered backward), through
     torch autograd of the plain path, and JAX's ``jax.grad`` of the Pallas
     path (its custom VJP)."""
     xy, values, owner, starts = hit_bank(7, counts=(11, 6))

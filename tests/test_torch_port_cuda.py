@@ -23,6 +23,9 @@ production width, the general COO convolution on the card against
 AOTInductor package compiled for the card against the eager graph, and the
 C++ loader with ``--device cuda`` against the package; one tensor-parallel
 train step of 2 ranks over ``gloo`` on the one card against a world of one.
+``torch.library.opcheck`` on the kernels' custom ops with CUDA tensors, and
+the tiny dense and coo networks' compiled predict and train steps
+(``compile=True``) against the eager ones, K1 or K2 inside the graphs.
 """
 
 import json
@@ -291,7 +294,7 @@ def test_coo_stem_binning_matches_plain(cuda, C_out):
 
 
 def test_coo_stem_gradients_through_the_kernel(cuda):
-    """``ScatterPatches`` with K2 forward against autograd of the plain
+    """The op ``tcvn::coo_stem_scatter`` with K2 forward against autograd of the plain
     stem, wrt values, weights and bias."""
     H, W = 48, 40
     xy, vals, owner, starts, kernel, bias = stem_inputs(H, W, [30, 12], 64, 64, 7, cuda)
@@ -759,3 +762,73 @@ def test_tensor_parallel_step_on_the_card(cuda, tmp_path):
     np.testing.assert_allclose(ranks[0]["norm"], norm, rtol=1e-4)
     for name, values in state.items():
         np.testing.assert_allclose(ranks[0]["state"][name], values, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["densify", "densify_s2d", "scatter_f32", "scatter_bf16",
+                                  "bin"])
+def test_custom_ops_pass_opcheck_on_the_card(cuda, case):
+    """``torch.library.opcheck`` on the kernels' ops with CUDA tensors: the
+    kernels launch (their launches counted), their fakes give their shapes,
+    AOT dispatch equals eager, and K2's registered gradient is checked."""
+    xy, vals, owner, starts = bank(3, 40, 36, [30, 0, 25], 96, 3, cuda)
+    if case.startswith("densify"):
+        before = k1.densify_images_cuda.launches
+        op, args = k1.densify_op, (xy, vals, owner, starts, 3, 40, 36, case.endswith("s2d"))
+    elif case.startswith("scatter"):
+        before = k2.scatter_patches_cuda.launches
+        patches = torch.randn(96, 4, 4, 64, device=cuda, requires_grad=True)
+        bias = torch.randn(64, device=cuda, requires_grad=True)
+        dtype = torch.bfloat16 if case.endswith("bf16") else torch.float32
+        op, args = k2.scatter_patches, (patches, bias, xy, starts, 3, 40, 36, dtype)
+    else:
+        before = None
+        op, args = k2.bin_hits, (xy, starts, 3, 40, 36, 64)
+    results = torch.library.opcheck(op, args, rtol=1e-5, atol=1e-5)
+    assert set(results.values()) == {"SUCCESS"}, results
+    if before is not None:
+        counter = k1.densify_images_cuda if case.startswith("densify") \
+            else k2.scatter_patches_cuda
+        assert counter.launches > before
+
+
+@pytest.mark.parametrize("embedder", ["dense", "coo"])
+def test_compiled_steps_on_the_card_match_eager(cuda, embedder):
+    """The tiny network's compiled predict and train steps on the card
+    against the eager ones, float32 with TF32 off, dropout and noise 0:
+    probabilities, the first loss and grad_norm within 1e-4; K1 (dense) or
+    K2 (coo) launched from inside the compiled graphs, twice a forward."""
+    from dune_transformercvn_torch.data import Batcher
+    from dune_transformercvn_torch.predict import make_predict_step, to_device
+    from dune_transformercvn_torch.train import create_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(
+        hidden_dim=32, initial_feature_dim=8, initial_pixel_dim=16,
+        feature_embedding_dim=8, pixel_embedding_dim=16, position_embedding_dim=8,
+        num_encoder_layers=1, num_prong_decoder_layers=1, num_attention_heads=4,
+        densenet_structure=(1, 1), densenet_growth_rate=8, image_height=48,
+        image_width=40, compute_dtype="float32", embedder=embedder, dropout=0.0,
+        pixel_noise_std=0.0)
+    ds = InMemoryEvents(8, 3, (48, 40))
+    batch = to_device(Batcher(ds, batch_size=4).build_batch(np.arange(4)), cuda)
+    norm = to_device(ds.norm(), cuda)
+    models = [TransformerCVN(cfg, generator=torch.Generator().manual_seed(0)).to(cuda)
+              for _ in range(2)]
+    counter = k2.scatter_patches_cuda if embedder == "coo" else k1.densify_images_cuda
+    want = make_predict_step(models[0])(batch, norm)
+    compiled = make_predict_step(models[1], compile=True)
+    compiled(batch, norm)
+    before = counter.launches
+    got = compiled(batch, norm)
+    assert counter.launches == before + 2
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    options = Options()
+    options.update_options(dict(optimizer="AdamW", learning_rate=1e-5, gradient_clip=43.0))
+    metrics = []
+    for model, compile in zip(models, (False, True)):
+        state = create_train_state(model, options, ds.norm(), 4, seed=0)
+        metrics.append(make_train_step(model, options, compile=compile)(state, batch))
+    for key in ("train_loss", "grad_norm"):
+        torch.testing.assert_close(metrics[1][key], metrics[0][key], rtol=1e-4, atol=1e-4)

@@ -215,7 +215,8 @@ def test_port_imports_no_jax_and_only_framework_free_modules():
         PORT / "parallel" / "mesh.py", PORT / "export.py", PORT / "torch_import.py",
         PORT / "ops" / "fold.py", PORT / "ops" / "quant.py", PORT / "ops" / "coo_conv.py",
         PORT / "utils" / "native.py", PORT / "models" / "encoder.py",
-        PORT / "train" / "optimizer.py", PORT / "aoti.py"} <= set(files)
+        PORT / "train" / "optimizer.py", PORT / "aoti.py", PORT / "bench.py",
+        PORT / "utils" / "cache.py", PORT / "utils" / "compile.py"} <= set(files)
     names = set()
     for path in files:
         for name in imported_modules(path):
@@ -242,7 +243,8 @@ def test_port_loads_nothing_of_the_jax_package():
     include nothing of the JAX package's."""
     # the smoke's JSON line cites each TPU kernel it replaces by file:line
     citation = re.compile(r"dune_transformercvn_tpu/[\w/]+\.py:\d+")
-    for path in sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+    for path in sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                 REPO / "compile_probe.py"]:
         for text in code_strings(path):
             if citation.fullmatch(text):
                 continue
@@ -257,12 +259,15 @@ def test_port_loads_nothing_of_the_jax_package():
 
 
 def test_chip_smoke_imports_no_jax():
-    """The smoke stands on the port alone: no JAX and nothing of the JAX
-    package."""
+    """The smoke, and the compile probe beside it, stand on the port alone:
+    no JAX and nothing of the JAX package."""
     names = set(imported_modules(REPO / "chip_smoke.py"))
     assert not {n for n in names if n.split(".")[0] in FORBIDDEN}
     assert "dune_transformercvn_torch.data" in names
     assert "dune_transformercvn_torch.train" in names
+    probe = set(imported_modules(REPO / "compile_probe.py"))
+    assert not {n for n in probe if n.split(".")[0] in FORBIDDEN}
+    assert {"chip_smoke", "dune_transformercvn_torch"} <= probe, probe
 
 
 def test_importing_the_port_builds_and_loads_no_cuda(tmp_path):
