@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, each of which raises on failure.  Phases 1-7, 10 and one-hot
-pixels in 12 run the option file's network whole; phases 8, 9, 11-15 run
+Phases, each of which raises on failure.  Phases 1-7, 10, one-hot
+pixels in 12 and a step of 14 run the option file's network whole;
+phases 8, 9, 11-15 run
 its widths at a cut depth (``CUT_DEPTH``: one dense block of one
 bottleneck, one encoder layer), so that the smoke, with the compiles of
 phases 13 and 15 and the bench, fits its time limit:
@@ -129,16 +130,27 @@ phases 13 and 15 and the bench, fits its time limit:
    eager graph's argmax and within 2^-5 of its probabilities, its load time
    and time a run.  Inductor's kernels in the package are Inductor's; no
    ported kernel runs.
-14. Tensor-parallel training (DP x TP on DTensor): dp1 x mp2 over 2 ranks,
-   ``gloo`` with CUDA tensors on the one card (``nccl`` where there are 2
-   cards; dp2 x mp2 over ``nccl`` on 4); the option file's dense network,
-   bfloat16, ``DP_BATCH`` a data shard: ``fit`` of 4 steps with one
+14. Tensor-parallel training (DP x TP on DTensor, the partitioned
+   bottlenecks, attention heads and feed-forwards): dp1 x mp2 over 2
+   ranks, ``gloo`` with CUDA tensors on the one card (``nccl`` where there
+   are 2 cards; dp2 x mp2 over ``nccl`` on 4); the option file's dense
+   network, bfloat16, ``DP_BATCH`` a data shard: ``fit`` of 4 steps with one
    validation and a checkpoint, a fresh Trainer resumed from it; every
-   sharded parameter's piece 1/mp of the whole, the ranks' whole states
-   equal bit for bit and equal to the resumed one, the losses against a
-   world-of-one Trainer on the same global batches and seed, K1 twice a
-   step and a validation batch on each rank; ms/step and peak memory per
-   rank.  ``check_tensor_parallel(smi)`` runs it alone.
+   sharded tensor's piece 1/mp of the whole, the ranks' whole states equal
+   bit for bit and equal to the resumed one, the losses against a
+   world-of-one Trainer on the same global batches and seed (and the first
+   step's again in float32), K1 twice a step and a validation batch on each
+   rank; ms/step and peak memory per rank.  Then, in the same ranks, the
+   full-depth network at batch 16 a data shard: each rank's eager step
+   (ms/step, peak memory), beside a world of one's b16 step in the parent
+   afterwards, whose peak must lie above each rank's.
+   ``check_tensor_parallel(smi)`` runs it alone.  The compiled TP step
+   (``compile=True``, ``CUT_DEPTH``, static shapes, dropout and noise 0)
+   runs in two more ranks that compile, at a low priority, beside phase 13
+   and are timed after it (``start_compiled_tp`` / ``finish_compiled_tp``): its
+   first step against the eager TP step's on the same batch and weights,
+   its first call's seconds (the compile), ms/step and K1 launches from
+   inside the graph.
 15. The compiled steps (``compile=True``, Inductor; the counterpart of the
    JAX package's ``jax.jit``), on the option file's dense network at
    ``CUT_DEPTH``, full width.  First the eight graphs below and the
@@ -338,12 +350,21 @@ AOTI_RUNGS, AOTI_PRONGS, AOTI_REPEAT, AOTI_TIMEOUT_S = (4, 20), (3, 17), 20, 300
 # Phase 14: the TP degree, the steps (one validation and a checkpoint at the
 # last), the bare steps timed after, and the ranks' time limit.  Losses
 # against a world-of-one Trainer on the same global batches and seed: the
-# first step's is a forward of the same weights on the same batch
-# (PATH_TOL); the later ones follow updates whose float-order differences
-# (cuDNN's weight gradients sum in no fixed order) the bf16 activations and
-# AdamW's normalised steps carry, so within bf16's rounding, 2^-7.
+# first step is a forward of the same weights on the same batch, so in
+# float32 its loss is within PATH_TOL; in bf16 each row-parallel layer's
+# partial products round to bf16 before the row sums them, and the later
+# steps follow updates whose float-order differences (cuDNN's weight
+# gradients sum in no fixed order) the bf16 activations and AdamW's
+# normalised steps carry, so every bf16 loss within bf16's rounding, 2^-7.
 TP_MP, TP_STEPS, TP_BARE_WARMUP, TP_BARE_STEPS, TP_TIMEOUT_S = 2, 4, 1, 4, 600
 TP_LOSS_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
+# The compiled TP step at CUT_DEPTH (its first call compiles): warm-up and
+# timed steps; against the eager TP step's first loss within TP_LOSS_TOL
+# (the compiled kernels keep float32 inside a fusion where eager rounds
+# every op to bf16).  The full-depth network: batch a data shard, warm-up
+# and timed steps of each TP rank and of the world of one.
+TP_COMPILED_WARMUP, TP_COMPILED_STEPS = 1, 4
+TP_FULL_BATCH, TP_FULL_WARMUP, TP_FULL_STEPS = 16, 1, 2
 # Phases 13 and 15 compile with Inductor, which takes minutes a graph at
 # full depth (the b16 serving graph compiled cold in 328-363 s on the H100
 # host, PERF.md): they, and phases 8, 9, 11, 12 and 14 to leave them the
@@ -1960,9 +1981,13 @@ def check_aoti_serving(smi, served, export_dir):
     model, norm, ds = served
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    paths = package_run_dir(None, export_dir, variants=("pid",), prong_buckets=AOTI_RUNGS,
-                            device="cuda", bench=True)
-    package_s = time.perf_counter() - t0
+    with ThreadPoolExecutor(1) as pool:
+        # g++ builds the loader on a spare core while Inductor compiles
+        loader_build = pool.submit(lambda: (build_loader(), time.perf_counter() - t0))
+        paths = package_run_dir(None, export_dir, variants=("pid",), prong_buckets=AOTI_RUNGS,
+                                device="cuda", bench=True)
+        package_s = time.perf_counter() - t0
+        loader, build_s = loader_build.result()
     meta_path = os.path.join(export_dir, "transformercvn_export_meta.json")
     with open(meta_path) as f:
         meta = json.load(f)
@@ -1975,9 +2000,8 @@ def check_aoti_serving(smi, served, export_dir):
         log(f"[aoti] P={p}: package {aoti_ms[str(p)]:.4f} ms an event against the eager "
             f"program's bucket_ms {eager_ms[str(p)]:.4f} ms "
             f"({eager_ms[str(p)] / aoti_ms[str(p)]:.1f}x; export._time_bucket_ms, {smi})")
-    t0 = time.perf_counter()
-    loader = build_loader()
-    log(f"[aoti] C++ loader {os.path.basename(loader)} built in {time.perf_counter() - t0:.2f} s")
+    log(f"[aoti] C++ loader {os.path.basename(loader)} built in {build_s:.2f} s, beside "
+        f"the packages' compile")
 
     index = next(i for i in range(len(ds)) if int((ds.prong_targets[i] >= 0).sum()) <= 3)
     full, real = event_pixel_maps(ds, index, model.cfg.max_prongs)
@@ -2039,6 +2063,75 @@ def tp_datasets():
             None)
 
 
+def tp_full_options(ranks, mp=TP_MP):
+    """The option file's whole network, bfloat16, ``TP_FULL_BATCH`` a data
+    shard over ``ranks`` ranks of ``mp`` a row."""
+    options = Options.load(OPTION_FILE)
+    options.compute_dtype = "bfloat16"
+    options.batch_size = TP_FULL_BATCH
+    options.num_gpu, options.model_parallel = ranks, mp
+    return options
+
+
+def full_depth_step(options, device):
+    """``options``' Trainer at full depth: (ms/step of its bare step, peak
+    GiB from its build through its steps, K1 launches)."""
+    free_memory()
+    torch.cuda.reset_peak_memory_stats(device)
+    events = options.batch_size * options.num_gpu * (TP_FULL_WARMUP + TP_FULL_STEPS)
+    trainer = Trainer(options, debug=True, device=device, verbose=False,
+                      datasets=(InMemoryEvents(events, SEED + 32),
+                                InMemoryEvents(DP_VAL_EVENTS, SEED + 33), None))
+    ms, counts = counted(lambda: bare_step_ms(trainer, TP_FULL_WARMUP, TP_FULL_STEPS))
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    assert counts == (2 * (TP_FULL_WARMUP + TP_FULL_STEPS), 0), counts
+    del trainer
+    free_memory()
+    return ms, peak, counts[0]
+
+
+def float32_first_loss(options, device):
+    """The first train step's loss of ``options``' Trainer in float32 on
+    the first global batch of ``tp_datasets()``: the same function of the
+    same weights and events on any layout."""
+    options.compute_dtype = "float32"
+    trainer = Trainer(options, debug=True, device=device, verbose=False,
+                      datasets=tp_datasets())
+    batch = to_device(trainer.train_batcher.build_batch(np.arange(trainer.global_batch)),
+                      device)
+    loss = float(trainer.train_step(trainer.state, batch)["train_loss"])
+    del trainer
+    free_memory()
+    return loss
+
+
+def compiled_tp_step(data_shards, device, go_path):
+    """The compiled TP step at ``CUT_DEPTH`` beside the eager one, static
+    shapes, dropout and noise 0: both first losses on the same batch and
+    weights, the compiled first call's seconds (the compile), and, once
+    ``go_path`` exists, the compiled step's ms/step and K1 launches over
+    its warm-up and timed steps."""
+    options = tp_options(data_shards)
+    options.static_batch_shapes = True
+    options.dropout, options.pixel_noise_std = 0.0, 0.0
+    losses, seconds = [], 0.0
+    for compile in (False, True):
+        trainer = Trainer(options, debug=True, device=device, verbose=False,
+                          datasets=tp_datasets(), compile=compile)
+        batch = to_device(next(trainer.train_batcher.epoch(1)), device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(trainer.state, batch)["train_loss"]))
+        seconds = time.perf_counter() - t0
+    while not os.path.exists(go_path):
+        time.sleep(0.5)
+    ms, counts = counted(lambda: bare_step_ms(trainer, TP_COMPILED_WARMUP, TP_COMPILED_STEPS))
+    del trainer
+    free_memory()
+    return dict(eager_loss=losses[0], loss=losses[1], compile_s=seconds, ms_per_step=ms,
+                counts=counts)
+
+
 def host_digest(state):
     """sha256 of the tensors of a host state (``to_host`` of a state dict),
     in order."""
@@ -2055,13 +2148,14 @@ def host_digest(state):
     return digest.hexdigest()
 
 
-def tensor_parallel_rank(rank, ranks, backend, rendezvous, work, out_path):
-    """One rank of phase 14 (a process of its own): fits with tensor
-    parallelism, checkpoints, resumes in a fresh Trainer, times its step,
-    and writes what the parent checks to ``out_path``."""
-    import torch.distributed as dist
-    from torch.distributed.tensor import DTensor
+def join_tp_group(rank, ranks, backend, rendezvous):
+    """This process as rank ``rank`` of a TP group: its card, TF32 off, the
+    group joined; returns the device."""
+    import faulthandler
 
+    import torch.distributed as dist
+
+    faulthandler.enable()       # a crash in a collective prints its Python stack
     device = torch.device("cuda", rank if backend == "nccl" else 0)
     torch.cuda.set_device(device)
     torch.backends.cudnn.allow_tf32 = False
@@ -2070,15 +2164,131 @@ def tensor_parallel_rank(rank, ranks, backend, rendezvous, work, out_path):
                             world_size=ranks, rank=rank,
                             timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
     dist.all_reduce(torch.zeros(1, device=device))   # the ranks meet once, in step
+    return device
+
+
+def start_tp_ranks(target, ranks, backend, work, *args, env=None):
+    """``ranks`` processes, each running ``chip_smoke.<target>(rank, ranks,
+    backend, rendezvous, *args, out_path)``, their output to a log file
+    each; returns them and their output paths."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    outs = [os.path.join(work, f"{target}_{r}.json") for r in range(ranks)]
+    procs = []
+    for r in range(ranks):
+        with open(f"{outs[r]}.log", "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", f"import sys, chip_smoke; chip_smoke.{target}("
+                 "*map(int, sys.argv[1:3]), *sys.argv[3:])",
+                 str(r), str(ranks), backend, os.path.join(work, f"{target}_rendezvous"),
+                 *map(str, args), outs[r]],
+                cwd=here, stdout=out, stderr=subprocess.STDOUT,
+                env={**os.environ, **(env or {}), "LOCAL_RANK": str(r),
+                     "LOCAL_WORLD_SIZE": str(ranks)}))
+    return procs, outs
+
+
+def stop(procs):
+    for p in procs:
+        p.kill()
+        p.wait()
+
+
+def finish_tp_ranks(procs, outs, timeout):
+    """Wait for the ranks (killing them at ``timeout``); any rank's failure
+    raises with its output; returns their results."""
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        stop(procs)
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            with open(f"{out}.log") as f:
+                raise RuntimeError(f"tensor-parallel rank {r} exited {p.returncode}:\n"
+                                   + f.read()[-6000:])
+    results = []
+    for path in outs:
+        with open(path) as f:
+            results.append(json.load(f))
+    return results
+
+
+def tp_layout(ranks):
+    """``(ranks, backend, dp)`` of the TP phase on this host's cards."""
+    cards = torch.cuda.device_count()
+    ranks = ranks or (2 * TP_MP if cards >= 2 * TP_MP else TP_MP)
+    return ranks, "nccl" if cards >= ranks else "gloo", ranks // TP_MP
+
+
+def compiled_tp_rank(rank, ranks, backend, rendezvous, go_path, out_path):
+    """One rank of the compiled TP step (a process of its own, at a low
+    priority, so that it compiles beside phase 13 without taking its
+    timings' cores): compiles, then waits for ``go_path`` before it is
+    timed."""
+    import torch.distributed as dist
+
+    os.nice(10)
+    device = join_tp_group(rank, ranks, backend, rendezvous)
+    try:
+        out = compiled_tp_step(ranks // TP_MP, device, go_path)
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def start_compiled_tp(work):
+    """The compiled TP step's ranks, started (they compile at once, with
+    ``WARM_THREADS`` compile workers each, and wait for
+    ``finish_compiled_tp`` before they are timed)."""
+    ranks, backend, _ = tp_layout(None)
+    go_path = os.path.join(work, "compiled_tp_go")
+    return go_path, start_tp_ranks(
+        "compiled_tp_rank", ranks, backend, work, go_path,
+        env={"TORCHINDUCTOR_COMPILE_THREADS": str(WARM_THREADS)})
+
+
+def finish_compiled_tp(started, smi):
+    """Let the compiled TP ranks time their steps, check them against their
+    eager first step and K1's count; returns K1's launches."""
+    go_path, (procs, outs) = started
+    open(go_path, "w").close()
+    results = finish_tp_ranks(procs, outs, TP_TIMEOUT_S)
+    steps = TP_COMPILED_WARMUP + TP_COMPILED_STEPS
+    for rank, c in enumerate(results):
+        log(f"[tp] rank {rank} compiled (CUT_DEPTH, static shapes, dropout 0): first call "
+            f"{c['compile_s']:.1f} s (the compile, beside phase 13), then "
+            f"{c['ms_per_step']:.2f} ms/step ({TP_COMPILED_STEPS} steps after "
+            f"{TP_COMPILED_WARMUP}); first loss {c['loss']:.5f} against eager TP's "
+            f"{c['eager_loss']:.5f}; K1 {c['counts'][0]} from inside the graph ({smi})")
+    for c in results:
+        assert c["counts"] == [2 * steps, 0], c["counts"]
+        assert math.isfinite(c["loss"]) and math.isfinite(c["ms_per_step"]), c
+        np.testing.assert_allclose(c["loss"], c["eager_loss"], **TP_LOSS_TOL)
+    return sum(c["counts"][0] for c in results)
+
+
+def tensor_parallel_rank(rank, ranks, backend, rendezvous, work, out_path):
+    """One rank of phase 14 (a process of its own): fits with tensor
+    parallelism, checkpoints, resumes in a fresh Trainer, times its step,
+    then a float32 step and the full-depth step, and writes what the parent
+    checks to ``out_path``."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    device = join_tp_group(rank, ranks, backend, rendezvous)
+    seconds, t0 = {}, time.perf_counter()
     try:
         options = tp_options(ranks // TP_MP)
         run_dir = os.path.join(work, "run")
         trainer = Trainer(options, run_dir=run_dir, log_every_n_steps=1, device=device,
                           verbose=False, datasets=tp_datasets())
         assert trainer.mesh.mp == TP_MP and trainer.num_shards == ranks // TP_MP
-        pieces = {name: [p.to_local().numel(), p.numel()]
-                  for name, p in trainer.state.model.named_parameters()
-                  if isinstance(p, DTensor)}
+        model = trainer.state.model
+        pieces = {name: [t.to_local().numel(), t.numel()]
+                  for name, t in (*model.named_parameters(), *model.named_buffers())
+                  if isinstance(t, DTensor)}
         torch.cuda.reset_peak_memory_stats(device)
         result, fit_counts = counted(lambda: trainer.fit(max_steps=TP_STEPS,
                                                          eval_interval=TP_STEPS))
@@ -2096,7 +2306,15 @@ def tensor_parallel_rank(rank, ranks, backend, rendezvous, work, out_path):
                    pieces=pieces, fit_counts=fit_counts, peak_gib=peak, state=digest,
                    resumed=resumed_digest, losses=losses, val_loss=result["val_loss"],
                    val_auc=result["val_epoch_AUC"], ms_per_step=bare_ms,
-                   global_batch=trainer.global_batch)
+                   global_batch=trainer.global_batch, seconds=seconds)
+        del trainer, model
+        free_memory()
+        seconds["fit, resume, bare steps"] = time.perf_counter() - t0
+        out["float32_loss"] = float32_first_loss(tp_options(ranks // TP_MP), device)
+        seconds["float32 step"] = time.perf_counter() - t0 - sum(seconds.values())
+        out["full"] = dict(zip(("ms_per_step", "peak_gib", "k1"),
+                               full_depth_step(tp_full_options(ranks), device)))
+        seconds["full depth"] = time.perf_counter() - t0 - sum(seconds.values())
     finally:
         dist.destroy_process_group()
     with open(out_path, "w") as f:
@@ -2108,51 +2326,19 @@ def check_tensor_parallel(smi, ranks=None):
     one card, over gloo with CUDA tensors; over nccl, one card a rank, where
     there are enough; dp2 x mp2 on 4 cards), then a world-of-one Trainer on
     the same global batches; returns K1's launches over the ranks."""
+    ranks, backend, dp = tp_layout(ranks)
     cards = torch.cuda.device_count()
-    ranks = ranks or (2 * TP_MP if cards >= 2 * TP_MP else TP_MP)
-    backend = "nccl" if cards >= ranks else "gloo"
-    dp = ranks // TP_MP
     where = (f"nccl, one card each ({cards} cards)" if backend == "nccl"
              else "gloo with CUDA tensors, every rank on the one card")
     log(f"[tp] dp{dp} x mp{TP_MP}: {ranks} ranks over {where}")
     work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
-    here = os.path.dirname(os.path.abspath(__file__))
     try:
-        outs = [os.path.join(work, f"rank{r}.json") for r in range(ranks)]
-        procs = [subprocess.Popen(
-            [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.tensor_parallel_rank("
-             "*map(int, sys.argv[1:3]), *sys.argv[3:])",
-             str(r), str(ranks), backend, os.path.join(work, "rendezvous"), work, outs[r]],
-            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env={**os.environ, "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": str(ranks)})
-            for r in range(ranks)]
         t0 = time.perf_counter()
-        try:
-            texts = [p.communicate(timeout=TP_TIMEOUT_S)[0] for p in procs]
-        finally:
-            for p in procs:
-                p.kill()
-                p.wait()
+        results = finish_tp_ranks(*start_tp_ranks("tensor_parallel_rank", ranks, backend,
+                                                  work, work), TP_TIMEOUT_S)
         seconds = time.perf_counter() - t0
-        for r, (p, text) in enumerate(zip(procs, texts)):
-            if p.returncode != 0:
-                raise RuntimeError(f"tensor-parallel rank {r} exited {p.returncode}:\n"
-                                   + text[-6000:])
-        results = []
-        for path in outs:
-            with open(path) as f:
-                results.append(json.load(f))
         val_batches = math.ceil(DP_VAL_EVENTS / (dp * DP_BATCH))
-        for r in results:
-            assert r["mesh"] == [dp, TP_MP, r["rank"] // TP_MP], r["mesh"]
-            assert r["fit_counts"] == [2 * (TP_STEPS + val_batches), 0], r["fit_counts"]
-            assert r["pieces"] and all(local * TP_MP == whole
-                                       for local, whole in r["pieces"].values()), r["pieces"]
-            assert r["resumed"] == r["state"], "the resumed state differs"
-            assert math.isfinite(r["val_loss"]) and math.isfinite(r["val_auc"]), r
-        assert len({r["state"] for r in results}) == 1, "the ranks' whole states differ"
         losses = results[0]["losses"]
-        assert len(losses) == TP_STEPS and all(math.isfinite(v) for v in losses), losses
 
         # a world of one on the same global batches, seed and weights
         run_dir = os.path.join(work, "one")
@@ -2165,23 +2351,47 @@ def check_tensor_parallel(smi, ranks=None):
         single = [v for _, v in read_history(run_dir)["train_loss"]]
         del one
         free_memory()
-        np.testing.assert_allclose(losses[0], single[0], **PATH_TOL)
-        np.testing.assert_allclose(losses, single, **TP_LOSS_TOL)
+        single_fp32 = float32_first_loss(options, torch.device("cuda", 0))
+        # the full-depth b16 step of a world of one, beside each TP rank's
+        options = tp_full_options(1, 1)
+        options.batch_size = TP_FULL_BATCH * dp
+        one_ms, one_peak, one_k1 = full_depth_step(options, torch.device("cuda", 0))
+
         sharded = len(results[0]["pieces"])
         whole = sum(w for _, w in results[0]["pieces"].values())
         log(f"[tp] dp{dp} x mp{TP_MP} ({backend}): fit {TP_STEPS} steps + 1 validation of "
-            f"{val_batches} batches and a checkpoint, a fresh Trainer resumed from it, in "
-            f"{seconds:.1f} s of the processes' life; {sharded} parameters sharded over "
-            f"\"model\" ({whole} elements, 1/{TP_MP} a rank), the ranks' whole states equal "
-            f"bit for bit and equal to the resumed one; train_loss "
-            f"{[round(v, 5) for v in losses]} against a world of one's "
-            f"{[round(v, 5) for v in single]}; K1 per rank {results[0]['fit_counts'][0]}, K2 0")
+            f"{val_batches} batches and a checkpoint, a fresh Trainer resumed from it, a "
+            f"float32 step and a full-depth step, in {seconds:.1f} s of the "
+            f"processes' life; {sharded} tensors sharded over \"model\" ({whole} "
+            f"elements, 1/{TP_MP} a rank); train_loss {[round(v, 5) for v in losses]} "
+            f"against a world of one's {[round(v, 5) for v in single]}; float32 first loss "
+            f"{results[0]['float32_loss']:.6f} against {single_fp32:.6f}; K1 per rank "
+            f"{results[0]['fit_counts'][0]}, K2 0")
         for r in results:
+            f = r["full"]
             log(f"[tp] rank {r['rank']} on {r['device']}: {r['ms_per_step']:.2f} ms/step "
                 f"({TP_BARE_STEPS} steps bare after {TP_BARE_WARMUP}), "
                 f"{r['global_batch'] / r['ms_per_step'] * 1e3:.2f} events/s over the ranks; "
-                f"peak memory {r['peak_gib']:.2f} GiB ({smi})")
-        return sum(r["fit_counts"][0] for r in results)
+                f"peak memory {r['peak_gib']:.2f} GiB; seconds "
+                f"{ {k: round(v, 1) for k, v in r['seconds'].items()} } ({smi})")
+            log(f"[tp] full depth, b{TP_FULL_BATCH} a data shard: rank {r['rank']} "
+                f"{f['ms_per_step']:.2f} ms/step, peak {f['peak_gib']:.2f} GiB; world of "
+                f"one at b{TP_FULL_BATCH * dp}: {one_ms:.2f} ms/step, peak {one_peak:.2f} GiB "
+                f"({TP_FULL_STEPS} steps bare after {TP_FULL_WARMUP}; {smi})")
+
+        for r in results:
+            assert r["mesh"] == [dp, TP_MP, r["rank"] // TP_MP], r["mesh"]
+            assert r["fit_counts"] == [2 * (TP_STEPS + val_batches), 0], r["fit_counts"]
+            assert r["pieces"] and all(local * TP_MP == whole
+                                       for local, whole in r["pieces"].values()), r["pieces"]
+            assert r["resumed"] == r["state"], "the resumed state differs"
+            assert math.isfinite(r["val_loss"]) and math.isfinite(r["val_auc"]), r
+            assert r["full"]["peak_gib"] < one_peak, (r["full"]["peak_gib"], one_peak)
+        assert len({r["state"] for r in results}) == 1, "the ranks' whole states differ"
+        assert len(losses) == TP_STEPS and all(math.isfinite(v) for v in losses), losses
+        np.testing.assert_allclose(results[0]["float32_loss"], single_fp32, **PATH_TOL)
+        np.testing.assert_allclose(losses, single, **TP_LOSS_TOL)
+        return sum(r["fit_counts"][0] + r["full"]["k1"] for r in results) + one_k1
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2331,9 +2541,7 @@ def warm_compile_cache(smi, work):
         for proc in procs.values():
             proc.wait(timeout=max(1.0, deadline - time.monotonic()))
     finally:
-        for proc in procs.values():
-            proc.kill()
-            proc.wait()
+        stop(procs.values())
     seconds = time.perf_counter() - t0
     readings = []
     for name, proc in procs.items():
@@ -2607,8 +2815,14 @@ def main():
         done("11")
         trainer_launches += check_remaining_modules(smi)
         done("12")
-        check_aoti_serving(smi, served, export_dir)
-        done("13")
+        # phase 14's compiled TP ranks compile beside phase 13
+        compiled_tp = start_compiled_tp(export_dir)
+        try:
+            check_aoti_serving(smi, served, export_dir)
+            done("13")
+            trainer_launches += finish_compiled_tp(compiled_tp, smi)
+        finally:
+            stop(compiled_tp[1][0])
     finally:
         shutil.rmtree(export_dir, ignore_errors=True)
     del served

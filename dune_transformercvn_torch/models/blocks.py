@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.masked import MaskedBatchNorm, PReLU
+from ..parallel.mesh import whole
 
 
 def lecun_normal_(tensor: torch.Tensor, fan_in: int,
@@ -28,9 +29,10 @@ def lecun_normal_(tensor: torch.Tensor, fan_in: int,
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``layer(x)`` with input, weight and bias cast to ``dtype``."""
-    bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    """``layer(x)`` with input, weight and bias cast to ``dtype`` (a sharded
+    weight gathered whole first)."""
+    bias = None if layer.bias is None else whole(layer.bias).to(dtype)
+    return F.linear(x.to(dtype), whole(layer.weight).to(dtype), bias)
 
 
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

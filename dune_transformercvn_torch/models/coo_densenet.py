@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from .densenet import DenseNet, conv_nhwc, densenet_post_stem
 from ..ops.coo_conv import coo_stem_conv
+from ..parallel.mesh import whole
 
 
 class CooStemDenseNet(DenseNet):
@@ -35,7 +36,7 @@ class CooStemDenseNet(DenseNet):
             xy, values, owner, num_rows, *rest = inputs
             x = coo_stem_conv(
                 xy, values.to(self.compute_dtype), owner,
-                conv0.weight.permute(2, 3, 1, 0), conv0.bias, num_rows,
+                whole(conv0.weight).permute(2, 3, 1, 0), conv0.bias, num_rows,
                 self.image_height, self.image_width, stride=2, padding=3,
                 starts=rest[0] if rest else None,
             )

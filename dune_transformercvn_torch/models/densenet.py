@@ -6,7 +6,10 @@ bias, BN, PReLU, 3x3/2 average pool; bottleneck dense blocks (1x1 expand to
 2x2/2 average-pool transitions; final BN and PReLU; global mean; and a
 bias-free Linear, BN, PReLU output block.  With ``remat`` (the options'
 ``remat_cnn``) each bottleneck keeps only its input for the backward and
-recomputes the rest (:func:`..ops.masked.remat`).
+recomputes the rest (:func:`..ops.masked.remat`).  Under tensor parallelism
+each bottleneck computes 1/mp of its expanded channels on each rank of the
+row (:meth:`Bottleneck.tensor_parallel_pieces`, ``parallel/mesh.py``); the
+other layers compute whole, their sharded weights gathered in the forward.
 
 Activations stay NHWC (channels last), as in JAX: BN, PReLU and the concat
 work on the last axis, and convolutions and pools see an NCHW view of the
@@ -26,13 +29,15 @@ from torch import nn
 
 from ..ops import quant
 from ..ops.masked import MaskedBatchNorm, PReLU, remat
+from ..parallel.mesh import copy_to_row, piece, reduce_from_row, whole
 from .blocks import OutputBlock
 
 
 def conv_nhwc(x, weight, bias, dtype, stride=1, padding=0, groups=1):
     """2-D convolution of NHWC ``x`` with an OIHW ``weight``, in ``dtype``
     (int8 inside a :func:`..ops.quant.quantized_convs` context that
-    quantizes this conv)."""
+    quantizes this conv).  A sharded weight is gathered whole first."""
+    weight, bias = whole(weight), None if bias is None else whole(bias)
     y = quant.intercept(x, weight, bias, stride, padding, groups, dtype)
     if y is not None:
         return y
@@ -82,8 +87,9 @@ class SpaceToDepthStem(nn.Module):
         if not pre_s2d and (h % 2 or w % 2):
             return conv_nhwc(x, self.weight, self.bias, dt, stride=2, padding=3)
         x2 = x if pre_s2d else space_to_depth(x)
-        f, cin = self.weight.shape[:2]
-        wpad = F.pad(self.weight, (1, 0, 1, 0))                  # [F, C, 8, 8]
+        weight = whole(self.weight)
+        f, cin = weight.shape[:2]
+        wpad = F.pad(weight, (1, 0, 1, 0))                  # [F, C, 8, 8]
         w2 = (wpad.reshape(f, cin, 4, 2, 4, 2)                   # f c dh a dw b
               .permute(0, 3, 5, 1, 2, 4)                         # f a b c dh dw
               .reshape(f, 4 * cin, 4, 4))
@@ -93,7 +99,12 @@ class SpaceToDepthStem(nn.Module):
 
 class Bottleneck(nn.Module):
     """BN, PReLU, 1x1 conv to ``batch_norm_size * growth``; BN, PReLU, 3x3
-    conv to ``growth``; concatenated to the input's channels."""
+    conv to ``growth``; concatenated to the input's channels.
+
+    With a TP row (``tp``, set by ``parallel.shard_parameters``) conv1 is
+    column-parallel, norm2 and relu2 run on its ``expand / mp`` channels,
+    conv2 is row-parallel over them and its partial outputs are summed over
+    the row, before its bias and the dropout."""
 
     def __init__(self, in_channels: int, growth_rate: int, batch_norm_size: int,
                  dropout: float = 0.0, compute_dtype: torch.dtype = torch.float32):
@@ -111,14 +122,34 @@ class Bottleneck(nn.Module):
             conv2=nn.Conv2d(expand, growth_rate, 3, padding=1),
         ))
         self.dropout = nn.Dropout(dropout) if dropout > 0.0 else None
+        self.tp = None
+
+    def tensor_parallel_pieces(self, model_parallel: int):
+        """The tensors this layer reads in pieces over a row of
+        ``model_parallel`` ranks, ``name -> (dim, blocks)``; ``None`` when
+        its expanded channels do not split."""
+        if self.output_block.norm2.weight.shape[0] % model_parallel:
+            return None
+        norm2 = {f"output_block.norm2.{n}": (0, 1)
+                 for n in ("weight", "bias", "running_mean", "running_var")}
+        return {"bottleneck_block.conv1.weight": (0, 1), "bottleneck_block.conv1.bias": (0, 1),
+                **norm2, "output_block.relu2.weight": (0, 1),
+                "output_block.conv2.weight": (1, 1)}
 
     def forward(self, x, mask=None):
-        dt = self.compute_dtype
+        dt, row = self.compute_dtype, self.tp
         b, o = self.bottleneck_block, self.output_block
         h = b.relu1(b.norm1(x, mask))
-        h = conv_nhwc(h, b.conv1.weight, b.conv1.bias, dt)
-        h = o.relu2(o.norm2(h, mask))
-        h = conv_nhwc(h, o.conv2.weight, o.conv2.bias, dt, padding=1)
+        if row is None:
+            h = conv_nhwc(h, b.conv1.weight, b.conv1.bias, dt)
+            h = o.relu2(o.norm2(h, mask))
+            h = conv_nhwc(h, o.conv2.weight, o.conv2.bias, dt, padding=1)
+        else:
+            h = conv_nhwc(copy_to_row(h, row), piece(b.conv1.weight, row, 0),
+                          piece(b.conv1.bias, row, 0), dt)
+            h = o.relu2(o.norm2(h, mask))
+            h = conv_nhwc(h, piece(o.conv2.weight, row, 1), None, dt, padding=1)
+            h = reduce_from_row(h, row) + o.conv2.bias.to(dt)
         if self.dropout is not None:
             h = self.dropout(h)
         return torch.cat([x.to(dt), h], dim=-1)

@@ -21,6 +21,12 @@ reference's; :class:`DecoderLayer`'s are ``torch.nn.TransformerDecoderLayer``'s
 (``self_attn``, ``multihead_attn``, ``norm1``-``norm3``), so that module's
 ``state_dict`` loads into it.  No network path runs the decoder layer or
 the ISAB (the reference carries its ISAB unused, like the JAX package).
+
+Under tensor parallelism (``parallel/mesh.py``) each attention runs
+``heads / mp`` whole heads on each rank of its row and sums ``out_proj``'s
+partial products over the row; each encoder layer's feed-forward runs
+``linear1`` column-parallel and ``linear2`` row-parallel.  The LayerNorms,
+and the decoder layer's feed-forward, compute whole.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import copy_to_row, cut_piece, piece, reduce_from_row, whole
 from .blocks import dense, layer_norm, lecun_normal_
 
 LAYER_NORM_EPS = 1e-6
@@ -39,7 +46,10 @@ LAYER_NORM_EPS = 1e-6
 
 class MultiHeadAttention(nn.Module):
     """Multi-head attention with torch's packed q/k/v projection: queries
-    from ``x``, keys and values from ``memory`` (``x`` itself when None)."""
+    from ``x``, keys and values from ``memory`` (``x`` itself when None).
+    With a TP row (``tp``) this rank runs its ``heads / mp`` heads: their
+    rows of each of q, k and v, and their columns of ``out_proj``, whose
+    partial products are summed over the row before its bias."""
 
     def __init__(self, hidden_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
@@ -50,20 +60,37 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * hidden_dim, hidden_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * hidden_dim))
         self.out_proj = nn.Linear(hidden_dim, hidden_dim)
+        self.tp = None
+
+    def tensor_parallel_pieces(self, model_parallel: int):
+        """The tensors this layer reads in pieces over a row of
+        ``model_parallel`` ranks, ``name -> (dim, blocks)``; ``None`` when
+        its heads do not split."""
+        if self.num_heads % model_parallel:
+            return None
+        return {"in_proj_weight": (0, 3), "in_proj_bias": (0, 3), "out_proj.weight": (1, 1)}
 
     def forward(self, x, mask, dtype, memory=None):
         """``x``: [B, Tq, D]; ``memory``: [B, Tk, D] or None; ``mask``: bool
         (True = attend) broadcastable to ``[B, heads, Tq, Tk]``, or None."""
         B, T, D = x.shape
+        row = self.tp
         head_dim = D // self.num_heads
-        w, b = self.in_proj_weight.to(dtype), self.in_proj_bias.to(dtype)
-        if memory is None:
-            q, k, v = F.linear(x.to(dtype), w, b).view(
-                B, T, 3, self.num_heads, head_dim).unbind(2)
+        if row is None:
+            heads, w, b = self.num_heads, whole(self.in_proj_weight), whole(self.in_proj_bias)
         else:
-            q = F.linear(x.to(dtype), w[:D], b[:D]).view(B, T, self.num_heads, head_dim)
-            k, v = F.linear(memory.to(dtype), w[D:], b[D:]).view(
-                B, memory.shape[1], 2, self.num_heads, head_dim).unbind(2)
+            heads = self.num_heads // row.count
+            x = copy_to_row(x, row)
+            memory = None if memory is None else copy_to_row(memory, row)
+            w = piece(self.in_proj_weight, row, 0, 3)
+            b = piece(self.in_proj_bias, row, 0, 3)
+        w, b, n = w.to(dtype), b.to(dtype), heads * head_dim
+        if memory is None:
+            q, k, v = F.linear(x.to(dtype), w, b).view(B, T, 3, heads, head_dim).unbind(2)
+        else:
+            q = F.linear(x.to(dtype), w[:n], b[:n]).view(B, T, heads, head_dim)
+            k, v = F.linear(memory.to(dtype), w[n:], b[n:]).view(
+                B, memory.shape[1], 2, heads, head_dim).unbind(2)
         q = q / math.sqrt(head_dim)
         weights = torch.einsum("bqhd,bkhd->bhqk", q, k)
         if mask is not None:
@@ -73,8 +100,11 @@ class MultiHeadAttention(nn.Module):
             keep = F.dropout(torch.ones((1, 1) + weights.shape[-2:], dtype=dtype,
                                         device=x.device), self.dropout)
             weights = weights * keep
-        out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(B, T, D)
-        return dense(self.out_proj, out, dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(B, T, n)
+        if row is None:
+            return dense(self.out_proj, out, dtype)
+        out = F.linear(out, piece(self.out_proj.weight, row, 1).to(dtype))
+        return reduce_from_row(out, row) + self.out_proj.bias.to(dtype)
 
 
 class EncoderLayer(nn.Module):
@@ -99,6 +129,15 @@ class EncoderLayer(nn.Module):
         self.dropout = nn.Dropout(dropout)
         self.dropout1 = nn.Dropout(dropout)
         self.dropout2 = nn.Dropout(dropout)
+        self.tp = None
+
+    def tensor_parallel_pieces(self, model_parallel: int):
+        """The feed-forward's tensors read in pieces over a row of
+        ``model_parallel`` ranks, ``name -> (dim, blocks)``; ``None`` when
+        its width does not split."""
+        if self.linear1.weight.shape[0] % model_parallel:
+            return None
+        return {"linear1.weight": (0, 1), "linear1.bias": (0, 1), "linear2.weight": (1, 1)}
 
     def _norm(self, norm: nn.LayerNorm, x):
         return layer_norm(norm, x, self.compute_dtype)
@@ -108,9 +147,21 @@ class EncoderLayer(nn.Module):
                                             self.compute_dtype))
 
     def _ff_block(self, x):
-        dt = self.compute_dtype
-        h = self.dropout(self.activation(dense(self.linear1, x, dt)))
-        return self.dropout2(dense(self.linear2, h, dt))
+        dt, row = self.compute_dtype, self.tp
+        if row is None:
+            h = self.dropout(self.activation(dense(self.linear1, x, dt)))
+            return self.dropout2(dense(self.linear2, h, dt))
+        h = F.linear(copy_to_row(x, row).to(dt), piece(self.linear1.weight, row, 0).to(dt),
+                     piece(self.linear1.bias, row, 0).to(dt))
+        h = self.activation(h)
+        if self.training:
+            # the whole layer's mask, drawn as one process draws it, cut to
+            # this rank's channels
+            keep = self.dropout(torch.ones(h.shape[:-1] + (h.shape[-1] * row.count,),
+                                           dtype=h.dtype, device=h.device))
+            h = h * cut_piece(keep, -1, 1, row.index, row.count)
+        h = F.linear(h, piece(self.linear2.weight, row, 1).to(dt))
+        return self.dropout2(reduce_from_row(h, row) + self.linear2.bias.to(dt))
 
     def forward(self, x, key_mask):
         if self.norm_first:
@@ -218,7 +269,7 @@ class InducedSetAttentionBlock(nn.Module):
         token attends to the real tokens, then to the whole summary."""
         if self.input_projection is not None:
             tokens = dense(self.input_projection, tokens, self.compute_dtype)
-        inducing = self.inducing_points.expand(tokens.shape[0], -1, -1).to(tokens.dtype)
+        inducing = whole(self.inducing_points).expand(tokens.shape[0], -1, -1).to(tokens.dtype)
         key_mask = None if mask is None else mask[:, None, None, :]
         summary = self.layers[0](inducing, tokens, memory_mask=key_mask)
         return self.layers[1](tokens, summary, self_mask=key_mask)

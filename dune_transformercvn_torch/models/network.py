@@ -31,6 +31,7 @@ from torch.utils.checkpoint import CheckpointPolicy
 
 from ..ops.masked import remat
 from ..ops.scatter import densify_images, pack_rows, pad_rows
+from ..parallel.mesh import whole
 from .blocks import FeatureEmbedding, LinearBlock, lecun_normal_, make_divisible
 from .coo_densenet import CooStemDenseNet
 from .densenet import DenseNet, SpaceToDepthStem
@@ -448,11 +449,11 @@ class TransformerCVN(nn.Module):
             packed_features.to(dt), packed_extra.to(dt), slot_mask)
 
         # reference quirk kept by default: prongs reuse the event vector
-        prong_position = (pe.prong_position_embedding
-                          if cfg.fix_prong_position_embedding
-                          else pe.event_position_embedding)
+        event_position = whole(pe.event_position_embedding)
+        prong_position = (whole(pe.prong_position_embedding)
+                          if cfg.fix_prong_position_embedding else event_position)
         event_tokens = torch.cat(
-            [event_pixel_emb, pe.event_position_embedding.expand(B, -1).to(dt)], 1)
+            [event_pixel_emb, event_position.expand(B, -1).to(dt)], 1)
         prong_tokens = torch.cat(
             [feature_emb, prong_pixel_emb, prong_position.expand(P, -1).to(dt)], 1)
 
@@ -471,7 +472,7 @@ class TransformerCVN(nn.Module):
              prong_mask], 1)
         cls_offset = 1 if cfg.learned_classifier_token else 0
         if cfg.learned_classifier_token:
-            token = self.classifier_embedding.expand(B, 1, -1).to(dt)
+            token = whole(self.classifier_embedding).expand(B, 1, -1).to(dt)
             sequence = torch.cat([token, sequence], 1)
             sequence_mask = torch.cat([sequence_mask[:, :1], sequence_mask], 1)
         hidden = self.encoder(sequence, sequence_mask)

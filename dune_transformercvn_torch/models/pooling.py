@@ -12,6 +12,7 @@ import math
 import torch
 from torch import nn
 
+from ..parallel.mesh import whole
 from .blocks import dense
 
 
@@ -54,7 +55,7 @@ class MultiHeadPooling(nn.Module):
         B, T, D = tokens.shape
         dt = self.compute_dtype
         hd = D // self.num_heads
-        q = dense(self.q, self.query.expand(B, 1, D), dt).view(B, 1, self.num_heads, hd)
+        q = dense(self.q, whole(self.query).expand(B, 1, D), dt).view(B, 1, self.num_heads, hd)
         k = dense(self.k, tokens, dt).view(B, T, self.num_heads, hd)
         v = dense(self.v, tokens, dt).view(B, T, self.num_heads, hd)
         logits = torch.einsum("bqhd,bkhd->bhqk", q / math.sqrt(hd), k)

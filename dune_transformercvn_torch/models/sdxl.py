@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import quant
+from ..parallel.mesh import whole
 from .blocks import dense
 
 GROUP_NORM_EPS = 1e-6
@@ -49,13 +50,13 @@ def group_norm(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
 def conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """``layer(x)`` with weight and bias cast to ``x``'s dtype (int8 inside a
     :func:`..ops.quant.quantized_convs` context that quantizes ``layer``)."""
+    weight, bias = whole(layer.weight), whole(layer.bias)
     if quant.active():
-        y = quant.intercept(x.permute(0, 2, 3, 1), layer.weight, layer.bias,
+        y = quant.intercept(x.permute(0, 2, 3, 1), weight, bias,
                             layer.stride, layer.padding, layer.groups, x.dtype)
         if y is not None:
             return y.permute(0, 3, 1, 2)
-    return F.conv2d(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype),
-                    layer.stride, layer.padding)
+    return F.conv2d(x, weight.to(x.dtype), bias.to(x.dtype), layer.stride, layer.padding)
 
 
 class ResnetBlock2D(nn.Module):

@@ -32,6 +32,7 @@ from torch import nn
 
 from ..ops.masked import MaskedBatchNorm, PReLU, remat
 from ..ops.sparse import SparseGrid, sparse_avg_pool, sparse_conv, sparse_global_avg_pool
+from ..parallel.mesh import whole
 from .blocks import OutputBlock
 
 
@@ -52,7 +53,7 @@ def norm_prelu(norm: MaskedBatchNorm, relu: PReLU, grid: SparseGrid) -> SparseGr
 
 def conv(layer: nn.Conv2d, grid: SparseGrid) -> SparseGrid:
     """``layer``'s bias-free weight as a sparse convolution."""
-    return sparse_conv(grid, layer.weight, layer.stride[0], groups=layer.groups)
+    return sparse_conv(grid, whole(layer.weight), layer.stride[0], groups=layer.groups)
 
 
 class SparseBottleneck(nn.Module):

@@ -23,9 +23,13 @@ loads as it is.
   backward re-runs it with the random state of the first run, and the
   BatchNorms inside leave their running statistics alone during that
   re-run: JAX's functional remat updates them once.  Under tensor
-  parallelism the re-run gathers the module's sharded parameters again
-  (``parallel.gathered_parameters``); the first run reads those the model's
-  forward gathered.
+  parallelism the re-run runs the partitioned forward again, its
+  collectives included.
+* **Tensor parallelism.**  Both modules read this rank's piece of a
+  sharded weight, bias or running statistic (``parallel.local``): a norm2
+  or relu2 between a column- and a row-parallel convolution works on its
+  rank's channels (``parallel/mesh.py``); every other one holds whole
+  tensors.
 """
 
 from __future__ import annotations
@@ -35,11 +39,10 @@ from contextlib import contextmanager, nullcontext
 from typing import Callable, Optional, Sequence
 
 import torch
-import torch.distributed._functional_collectives as funcol
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-from ..parallel.mesh import gathered_parameters
+from ..parallel.mesh import local, sum_over
 
 
 class PReLU(nn.Module):
@@ -50,7 +53,7 @@ class PReLU(nn.Module):
         self.weight = nn.Parameter(torch.full((channels,), 0.25))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        alpha = self.weight.to(x.dtype)
+        alpha = local(self.weight).to(x.dtype)
         return torch.where(x > 0, x, alpha * x)
 
 
@@ -87,9 +90,9 @@ class MaskedBatchNorm(nn.Module):
         if self.training:
             mean, var = self._update_stats(x, mask)
         else:
-            mean, var = self.running_mean, self.running_var
+            mean, var = local(self.running_mean), local(self.running_var)
         y = (x.float() - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight + self.bias).to(x.dtype)
+        return (y * local(self.weight) + local(self.bias)).to(x.dtype)
 
     def _update_stats(self, x, mask):
         xf = x.float()
@@ -125,16 +128,9 @@ class MaskedBatchNorm(nn.Module):
         with torch.no_grad():
             m = self.momentum * (raw_count > 0).float()
             unbiased = var * count / (count - 1.0).clamp(min=1.0)
-            self.running_mean.mul_(1 - m).add_(m * mean)
-            self.running_var.mul_(1 - m).add_(m * unbiased)
+            local(self.running_mean).mul_(1 - m).add_(m * mean)
+            local(self.running_var).mul_(1 - m).add_(m * unbiased)
         return mean, var
-
-
-def _sum_over(tensor: torch.Tensor, group) -> torch.Tensor:
-    """``tensor`` summed over ``group`` by a functional collective, which
-    ``torch.compile`` traces into its graph (``dist.all_reduce`` would
-    break it)."""
-    return funcol.wait_tensor(funcol.all_reduce(tensor, "sum", group))
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -143,11 +139,11 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tensor, group):
         ctx.group = group
-        return _sum_over(tensor, group)
+        return sum_over(tensor, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return _sum_over(grad.contiguous(), ctx.group), None
+        return sum_over(grad, ctx.group), None
 
 
 def all_reduce_sum(tensor: torch.Tensor, group) -> torch.Tensor:
@@ -196,15 +192,11 @@ def remat(module: nn.Module, *args, call: Optional[Callable] = None,
         return call(*args)
     norms = [m for m in module.modules() if isinstance(m, MaskedBatchNorm)]
 
-    def run(*inputs):
-        with gathered_parameters(module):
-            return call(*inputs)
-
     def contexts():
         if policy is None:
             return nullcontext(), _frozen(norms)
         forward, recompute = create_selective_checkpoint_contexts(policy)
         return forward, _frozen(norms, recompute)
 
-    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=True,
+    return checkpoint(call, *args, use_reentrant=False, preserve_rng_state=True,
                       context_fn=contexts)

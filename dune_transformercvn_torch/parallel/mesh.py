@@ -19,68 +19,92 @@ of every global batch and the reductions run over the default group.  With
 hybrid mesh is: the ranks of a row hold one data shard between them, and a
 row must not span hosts (hosts counted by ``LOCAL_WORLD_SIZE``).
 
-**Tensor parallelism** (:func:`shard_parameters`).  JAX's hybrid mesh keeps
-the data axis manual and lets GSPMD partition the model axis: each
-parameter whose leaf has >= 2 dims and a last (output-channel) axis that
-splits over mp into pieces of at least ``min_shard_dim`` is laid out
-channel-sharded (:func:`state_shardings`), and so are its optimizer
-moments.  The port holds each such parameter as a ``DTensor`` ``Shard(d)``
-over the "model" sub-mesh, where ``d`` is the port's dimension of that JAX
-axis (``from_jax.jax_channel_axes``: dim 0 of conv, linear and packed
-q/k/v weights, the last dim of position and classifier vectors); the
-optimizers make their moments from the parameter, so they follow it.  1-D
-scales, biases, BatchNorm statistics and scalars stay plain, replicated
-tensors.
+**Tensor parallelism** (:func:`shard_parameters`), as JAX's hybrid mesh
+lets GSPMD partition every product over the model axis.  The ranks of a
+row hold the same data shard, and each layer pair below computes 1/mp of
+its channels on each rank, in Megatron's terms (:func:`copy_to_row` is
+``f``, identity forward and a sum over the row backward;
+:func:`reduce_from_row` is ``g``, a sum over the row forward and identity
+backward):
 
-The compute gathers, rather than partitioning each product: a forward
-pre-hook on the model all-gathers every sharded parameter of the row into a
-full tensor (one collective for all of them) and puts it in the module
-for the forward; the backward reduce-scatters the full gradients back to
-the shards (one collective).  Each rank of a row then computes what one
-process computes for the row's data shard, which is JAX's contract
-(``tests/test_tensor_parallel.py``), and holds 1/mp of each sharded
-parameter and of its moments.  DTensor's own sharding rules were not used
-for the products: the port's convolutions and attention read parameters in
-their parents' forwards, in float32 parameters cast to the compute dtype,
-and a column-parallel layout would also shard the activations that the
-masked BatchNorms and PReLUs take whole.  A recompute of ``ops.masked.remat``
-gathers its module's parameters again (:func:`gathered_parameters`).
+* a DenseNet ``Bottleneck`` (dense and coo families): ``f``, conv1
+  column-parallel (``expand / mp`` output channels), norm2 and relu2 on
+  those channels (their statistics are per channel, so no collective),
+  conv2 row-parallel over them, ``g``, then conv2's bias and the dropout;
+* a ``MultiHeadAttention``: ``f``, the q/k/v rows of ``heads / mp`` whole
+  heads, ``out_proj`` row-parallel, ``g``, then its bias;
+* an ``EncoderLayer``'s feed-forward: ``f``, ``linear1`` column-parallel,
+  GELU and dropout on its channels (the mask drawn whole and cut, so the
+  row draws what one process draws), ``linear2`` row-parallel, ``g``.
 
-**Gradients.**  The loss carries ``1 / world``.  A sharded gradient comes
-back from the reduce-scatter summed over the row's mp copies (so carrying
-``1 / dp``) and is then summed over the "data" group.  A replicated
-gradient, the metrics and unsynced BatchNorm statistics are summed over
-every rank: each row holds mp equal copies of its data shard's values, so
-the world sum with ``1 / world`` is the mean over the data shards, and the
-replicas of a row come out equal bit for bit even where a kernel on the
-card sums in no fixed order.  ``global_norm`` counts each sharded gradient
-once (local squares summed over the "model" group).  Sync-BN, the
-validation sums and the gathered predictions run over the "data" group.
+Everything outside those pairs (norm1 and relu1 on the whole input, the
+LayerNorms, transitions, stems, the feature and combined embeddings, the
+heads, position vectors, DecoderLayer's feed-forward and every other
+family's embedder) computes whole on every rank: a sharded weight there is
+gathered inside the forward (:func:`whole`: the piece in zeros of the
+whole, summed over the row; the backward keeps this rank's piece of the
+gradient).  The collectives are functional all-reduces, autograd-aware, so
+``torch.compile`` traces them.
+
+**The layout** (:func:`tensor_layout`).  Which parameters are sharded is
+JAX's ``state_shardings`` rule (:func:`state_shardings`: >= 2 dims and a
+last, output-channel axis that splits over mp into pieces of at least
+``min_shard_dim``), plus the 1-D tensors of the norms and PReLUs between a
+column- and a row-parallel layer (norm2's and relu2's weights, biases and
+running statistics), which are sharded with their channels.  Which *dim*
+holds a rank's piece follows the compute: output channels (dim 0) of a
+column-parallel or whole-computed conv or linear, input channels (dim 1)
+of a row-parallel one, whole heads of the packed ``in_proj_*`` (each of
+its q, k and v blocks cut alike; JAX cuts ``head_dim`` instead), the last
+dim of position and classifier vectors.  Each is a ``DTensor`` over the
+"model" sub-mesh (``Shard(d)``, ``_StridedShard(0, 3)`` for ``in_proj``),
+and the optimizers make their moments from the parameter, so they follow
+it.  Every other tensor stays whole and replicated; a replicated one that
+a partitioned layer reads in pieces (conv1's and linear1's biases, and at
+narrow widths a weight JAX keeps whole) is cut in the forward
+(:func:`piece`), and its gradient comes back whole, zero outside the
+piece and scaled by mp.
+
+**Gradients.**  The loss carries ``1 / world``.  A replicated gradient,
+the metrics and the replicated BatchNorm statistics of an unsynced run are
+summed over every rank: each row computes its data shard's whole gradient
+on each of its mp ranks (``f`` sums the input gradients of the partitioned
+layers), so the world sum with ``1 / world`` is the mean over the data
+shards, and the replicas of a row come out equal bit for bit even where a
+kernel on the card sums in no fixed order.  A sharded gradient is computed
+once a row, so it is scaled by mp and summed over the "data" group, as are
+the sharded running statistics (scaled by ``1 / dp``).  ``global_norm``
+counts each sharded gradient once (local squares summed over the "model"
+group).  Sync-BN, the validation sums and the gathered predictions run
+over the "data" group.
 
 **Collectives with ``gloo`` on CUDA tensors** (every rank on one card):
-the tensor-parallel path needs ``all_gather_into_tensor``,
-``reduce_scatter_tensor`` and ``all_reduce``, and ``gloo`` takes all three
-on CUDA tensors (probed on an H100 with torch 2.11, PERF.md), so nothing is
-staged through host memory.
+the tensor-parallel step needs the functional ``all_reduce`` (inside the
+forward and backward) and, for checkpoints, the eager
+``all_gather_into_tensor``; ``gloo`` takes both on CUDA tensors on an
+H100 with torch 2.11 (PERF.md), where its functional all-gather crashes,
+so the forward's gathers are all-reduces too (:func:`whole`).
 
 **Checkpoints** stay layout-independent: :func:`full_tensor` gathers a
 sharded tensor (a collective every rank of the row joins), and a full
-tensor loaded into a sharded parameter or moment is cut to this rank's
-piece (:func:`shard_like`).
+tensor loaded into a sharded parameter, buffer or moment is cut to this
+rank's piece (:func:`shard_like`), so a TP run resumes and evaluates on
+any layout.
 """
 
 from __future__ import annotations
 
 import os
-from contextlib import contextmanager
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -292,14 +316,6 @@ def all_gather_into(out: torch.Tensor, tensor: torch.Tensor, group) -> torch.Ten
     return out
 
 
-def reduce_scatter_into(out: torch.Tensor, tensor: torch.Tensor, group) -> torch.Tensor:
-    """``out`` [n, ...]: this rank's block of ``tensor`` [size * n, ...]
-    summed over ``group``."""
-    with torch.no_grad():
-        dist.reduce_scatter_tensor(out, tensor.contiguous(), group=group)
-    return out
-
-
 def all_reduce_(tensors: Sequence[torch.Tensor], group=None) -> None:
     """Sum each of ``tensors`` over ``group`` (default: every rank) in
     place, with one all-reduce of their flattened concatenation."""
@@ -359,8 +375,6 @@ def state_shardings(model: nn.Module, model_parallel: int,
 
 
 def _is_sharded(tensor) -> bool:
-    from torch.distributed.tensor import DTensor
-
     return isinstance(tensor, DTensor)
 
 
@@ -370,15 +384,49 @@ def local(tensor: torch.Tensor) -> torch.Tensor:
     return tensor.to_local() if _is_sharded(tensor) else tensor
 
 
-def shard_spec(tensor) -> Optional[Tuple[int, object, int, int]]:
-    """``(dim, group, index, count)`` of a tensor sharded along ``dim``
-    over the ``count`` ranks of ``group``, this rank's piece being
-    ``index``; ``None`` for a plain tensor."""
+class ShardSpec(NamedTuple):
+    """A tensor held in pieces over the ``count`` ranks of ``group``: along
+    ``dim``, which packs ``blocks`` equal blocks (3 for the q/k/v of an
+    ``in_proj``), each cut in ``count`` and this rank holding piece
+    ``index`` of every block."""
+
+    dim: int
+    group: object
+    index: int
+    count: int
+    blocks: int
+
+
+def shard_spec(tensor) -> Optional[ShardSpec]:
+    """The :class:`ShardSpec` of a sharded tensor; ``None`` for a plain one."""
     if not _is_sharded(tensor):
         return None
-    device_mesh = tensor.device_mesh
-    return (tensor.placements[0].dim, device_mesh.get_group(), device_mesh.get_local_rank(),
-            device_mesh.size())
+    device_mesh, placement = tensor.device_mesh, tensor.placements[0]
+    return ShardSpec(placement.dim, device_mesh.get_group(), device_mesh.get_local_rank(),
+                     device_mesh.size(), getattr(placement, "split_factor", 1))
+
+
+def cut_piece(full: torch.Tensor, dim: int, blocks: int, index: int,
+              count: int) -> torch.Tensor:
+    """Piece ``index`` of ``count`` of ``full`` along ``dim``: of each of
+    its ``blocks`` blocks, that piece, joined."""
+    return torch.cat([block.chunk(count, dim)[index] for block in full.chunk(blocks, dim)],
+                     dim)
+
+
+def join_pieces(pieces: Sequence[torch.Tensor], dim: int, blocks: int) -> torch.Tensor:
+    """The whole tensor of every rank's piece, in rank order
+    (:func:`cut_piece`'s inverse)."""
+    parts = [p.chunk(blocks, dim) for p in pieces]
+    return torch.cat([part[b] for b in range(blocks) for part in parts], dim)
+
+
+def _placement(dim: int, blocks: int):
+    if blocks == 1:
+        return Shard(dim)
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    return _StridedShard(dim, split_factor=blocks)
 
 
 def shard_like(full: torch.Tensor, like) -> torch.Tensor:
@@ -388,22 +436,21 @@ def shard_like(full: torch.Tensor, like) -> torch.Tensor:
     spec = shard_spec(like)
     if spec is None:
         return full
-    from torch.distributed.tensor import DTensor
-
-    dim, _, index, count = spec
-    piece = full.detach().to(like.device, like.dtype).chunk(count, dim)[index].contiguous()
+    piece = cut_piece(full.detach().to(like.device, like.dtype), spec.dim, spec.blocks,
+                      spec.index, spec.count).contiguous()
     return DTensor.from_local(piece, like.device_mesh, like.placements, run_check=False)
 
 
-def _gather_full(pieces: Sequence[torch.Tensor], dims: Sequence[int], group,
-                 count: int) -> List[torch.Tensor]:
-    """Every rank's ``pieces`` joined along their ``dims``, with one
+def _gather_full(pieces: Sequence[torch.Tensor], specs: Sequence[ShardSpec]
+                 ) -> List[torch.Tensor]:
+    """Every rank's ``pieces`` joined by their ``specs``, with one
     all-gather of their flattened concatenation."""
+    count = specs[0].count
     flat = torch.cat([p.reshape(-1) for p in pieces])
-    out = all_gather_into(flat.new_empty(count * flat.numel()), flat, group)
+    out = all_gather_into(flat.new_empty(count * flat.numel()), flat, specs[0].group)
     ranks = out.view(count, -1).split([p.numel() for p in pieces], dim=1)
-    return [torch.cat([r.view(p.shape) for r in rows.unbind(0)], dim=d)
-            for rows, p, d in zip(ranks, pieces, dims)]
+    return [join_pieces([r.view(p.shape) for r in rows.unbind(0)], spec.dim, spec.blocks)
+            for rows, p, spec in zip(ranks, pieces, specs)]
 
 
 def full_tensors(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -416,9 +463,8 @@ def full_tensors(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         if _is_sharded(t):
             by_dtype.setdefault(t.dtype, []).append(i)
     for indices in by_dtype.values():
-        specs = [shard_spec(out[i]) for i in indices]
         fulls = _gather_full([out[i].to_local().detach() for i in indices],
-                             [spec[0] for spec in specs], specs[0][1], specs[0][3])
+                             [shard_spec(out[i]) for i in indices])
         for i, full in zip(indices, fulls):
             out[i] = full
     return out
@@ -429,97 +475,198 @@ def full_tensor(tensor: torch.Tensor) -> torch.Tensor:
     return full_tensors([tensor])[0]
 
 
-class _GatherShards(torch.autograd.Function):
-    """Forward: the full tensors of sharded parameters' local pieces, one
-    all-gather over the TP row.  Backward: each full gradient summed over
-    the row and cut to this rank's piece, one reduce-scatter."""
+# ---------------------------------------------------------------------------
+# the partitioned layers' collectives (functional: torch.compile traces them)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Row:
+    """The TP row a partitioned layer computes over: its process group, this
+    rank's place in it and its size."""
+
+    group: object
+    index: int
+    count: int
+
+
+def sum_over(tensor: torch.Tensor, group) -> torch.Tensor:
+    """``tensor`` summed over ``group`` by a functional collective, which
+    ``torch.compile`` traces into its graph (``dist.all_reduce`` would
+    break it)."""
+    return funcol.wait_tensor(funcol.all_reduce(tensor.contiguous(), "sum", group))
+
+
+class _CopyToRow(torch.autograd.Function):
+    """Megatron's ``f``: the identity forward; the backward sums the
+    gradient over the row (each rank's column-parallel layer gave the input
+    its channels' part of it)."""
 
     @staticmethod
-    def forward(ctx, group, count, dims, *pieces):
-        ctx.group, ctx.count, ctx.dims = group, count, dims
-        ctx.shapes = [p.shape for p in pieces]
-        return tuple(_gather_full(pieces, dims, group, count))
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
 
     @staticmethod
-    def backward(ctx, *grads):
-        device = next(g.device for g in grads if g is not None)
-        # a whole parameter that took no gradient sends zeros
-        chunks = [(g if g is not None else torch.zeros(
-            s[:d] + (s[d] * ctx.count,) + s[d + 1:], device=device)).chunk(ctx.count, d)
-            for g, s, d in zip(grads, ctx.shapes, ctx.dims)]
-        flat = torch.cat([c[r].reshape(-1) for r in range(ctx.count) for c in chunks])
-        mine = reduce_scatter_into(flat.new_empty(flat.numel() // ctx.count), flat, ctx.group)
-        pieces = mine.split([s.numel() for s in ctx.shapes])
-        return (None, None, None, *(p.view(s) for p, s in zip(pieces, ctx.shapes)))
+    def backward(ctx, grad):
+        return sum_over(grad, ctx.group), None
 
 
-@contextmanager
-def gathered_parameters(module: nn.Module):
-    """Within it, each sharded parameter of ``module`` reads as its full
-    tensor, gathered over the TP row with autograd back to the shard; a
-    module without sharded parameters is left as it is (no collective)."""
-    found = [(m, name, p) for m in module.modules()
-             for name, p in m._parameters.items() if p is not None and _is_sharded(p)]
-    if not found:
-        yield
-        return
-    _, group, _, count = shard_spec(found[0][2])
-    fulls = _GatherShards.apply(group, count, tuple(shard_spec(p)[0] for _, _, p in found),
-                                *(p.to_local() for _, _, p in found))
-    for (m, name, _), full in zip(found, fulls):
-        m._parameters[name] = full
-    try:
-        yield
-    finally:
-        for m, name, p in found:
-            m._parameters[name] = p
+class _ReduceFromRow(torch.autograd.Function):
+    """Megatron's ``g``: a row-parallel layer's partial products summed
+    over the row; the backward passes the gradient on as it is."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return sum_over(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
 
 
-def _enter_gathered(module, args):
-    context = gathered_parameters(module)
-    context.__enter__()
-    module._tp_gathered = context
+def copy_to_row(x: torch.Tensor, row: Row) -> torch.Tensor:
+    """``x`` entering a column-parallel layer of ``row`` (``f``)."""
+    return _CopyToRow.apply(x, row.group)
 
 
-def _exit_gathered(module, args, output):
-    context = module.__dict__.pop("_tp_gathered", None)
-    if context is not None:
-        context.__exit__(None, None, None)
+def reduce_from_row(x: torch.Tensor, row: Row) -> torch.Tensor:
+    """A row-parallel layer's partial output summed over ``row`` (``g``)."""
+    return _ReduceFromRow.apply(x, row.group)
+
+
+class _GatherChannels(torch.autograd.Function):
+    """The whole of a sharded tensor from this rank's piece: the piece in
+    place in zeros of the whole, summed over its row (the functional
+    all-gather crashes ``gloo`` on CUDA tensors in torch 2.11, its
+    all-reduce does not; the weights gathered so are small).  The backward
+    keeps this rank's piece of the gradient (the row's ranks compute alike
+    with the whole, so each holds the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, piece, dim, blocks, group, index, count):
+        ctx.cut = dim, blocks, index, count
+        zero = torch.zeros_like(piece)
+        return sum_over(join_pieces([piece if r == index else zero for r in range(count)],
+                                    dim, blocks), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return cut_piece(grad, *ctx.cut).contiguous(), None, None, None, None, None
+
+
+class _CutReplicated(torch.autograd.Function):
+    """This rank's piece of a replicated tensor; the gradient comes back
+    whole, zero outside the piece and scaled by the row's size, so that
+    the sum over every rank (each row adds each piece once) with the
+    loss's ``1 / world`` is the mean over the data shards."""
+
+    @staticmethod
+    def forward(ctx, whole, dim, blocks, index, count):
+        ctx.cut = dim, blocks, index, count
+        return cut_piece(whole, dim, blocks, index, count)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dim, blocks, index, count = ctx.cut
+        zero = torch.zeros_like(grad)
+        pieces = [grad * count if r == index else zero for r in range(count)]
+        return join_pieces(pieces, dim, blocks), None, None, None, None
+
+
+def whole(tensor: torch.Tensor) -> torch.Tensor:
+    """The whole of a sharded parameter, gathered over its row inside the
+    forward (:class:`_GatherChannels`), for a layer that computes whole; a
+    plain tensor as it is."""
+    if not _is_sharded(tensor):
+        return tensor
+    spec = shard_spec(tensor)
+    return _GatherChannels.apply(tensor.to_local(), spec.dim, spec.blocks, spec.group,
+                                 spec.index, spec.count)
+
+
+def piece(tensor: torch.Tensor, row: Row, dim: int, blocks: int = 1) -> torch.Tensor:
+    """This rank's piece, along ``dim`` (of each of ``blocks`` blocks), of a
+    tensor a partitioned layer of ``row`` reads: a sharded one's local
+    piece, laid out so by :func:`tensor_layout`, or a cut of a replicated
+    one."""
+    if _is_sharded(tensor):
+        return tensor.to_local()
+    return _CutReplicated.apply(tensor, dim, blocks, row.index, row.count)
+
+
+# ---------------------------------------------------------------------------
+# the layout
+# ---------------------------------------------------------------------------
+
+def tensor_layout(model: nn.Module, model_parallel: int, min_shard_dim: int = 8
+                  ) -> Dict[str, Tuple[int, int]]:
+    """``name -> (dim, blocks)`` of every parameter and buffer of ``model``
+    held in pieces over ``model_parallel`` ranks: the parameters
+    :func:`state_shardings` shards, each along the dimension its layer
+    computes with (a partitioned layer's ``tensor_parallel_pieces``), and
+    the norms' and PReLUs' tensors between a column- and a row-parallel
+    layer."""
+    from ..from_jax import jax_leaf_splits
+    from ..ops.masked import MaskedBatchNorm, PReLU
+
+    splits = jax_leaf_splits(model)
+    layout = {name: (dim, splits[name])
+              for name, dim in state_shardings(model, model_parallel, min_shard_dim).items()
+              if dim is not None}
+    for prefix, module in partitioned_modules(model, model_parallel):
+        for name, cut in module.tensor_parallel_pieces(model_parallel).items():
+            full = f"{prefix}.{name}" if prefix else name
+            owner = model.get_submodule(full.rpartition(".")[0])
+            if full in layout or isinstance(owner, (MaskedBatchNorm, PReLU)):
+                layout[full] = cut
+    return layout
+
+
+def partitioned_modules(model: nn.Module, model_parallel: int):
+    """``(name, module)`` of each layer of ``model`` that partitions its
+    compute over ``model_parallel`` ranks: one whose
+    ``tensor_parallel_pieces(mp)`` names the tensors it reads in pieces
+    (``None`` where its widths do not split)."""
+    return [(name, module) for name, module in model.named_modules()
+            if hasattr(module, "tensor_parallel_pieces")
+            and module.tensor_parallel_pieces(model_parallel) is not None]
 
 
 def _load_sharded(module, state_dict, prefix, *args):
-    """A full tensor loaded into a sharded parameter becomes this rank's
-    piece of it (checkpoints and transplanted weights are whole)."""
-    for name, p in module.named_parameters():
+    """A full tensor loaded into a sharded parameter or buffer becomes this
+    rank's piece of it (checkpoints and transplanted weights are whole)."""
+    for name, t in (*module.named_parameters(), *module.named_buffers()):
         key = prefix + name
-        if _is_sharded(p) and key in state_dict and not _is_sharded(state_dict[key]):
-            state_dict[key] = shard_like(state_dict[key], p)
+        if _is_sharded(t) and key in state_dict and not _is_sharded(state_dict[key]):
+            state_dict[key] = shard_like(state_dict[key], t)
 
 
-def shard_parameters(model: nn.Module, mesh: Mesh, min_shard_dim: int = 8) -> Dict[str, int]:
-    """Lay ``model``'s parameters out over ``mesh``'s "model" axis by
-    :func:`state_shardings` (each sharded one a ``DTensor`` ``Shard(d)``
-    holding this rank's piece), in place, and hook the model so that its
-    forward reads them whole (:func:`gathered_parameters`) and its
-    ``load_state_dict`` takes whole tensors.  Returns the sharded
-    parameters' dimensions.  Build the optimizer after this."""
-    from torch.distributed.tensor import DTensor, Shard
-
-    dims = {n: d for n, d in state_shardings(model, mesh.mp, min_shard_dim).items()
-            if d is not None}
+def shard_parameters(model: nn.Module, mesh: Mesh, min_shard_dim: int = 8
+                     ) -> Dict[str, Tuple[int, int]]:
+    """Lay ``model``'s parameters and buffers out over ``mesh``'s "model"
+    axis by :func:`tensor_layout` (each sharded one a ``DTensor`` holding
+    this rank's piece), in place; give each partitioned layer its
+    :class:`Row`, and make ``load_state_dict`` take whole tensors.  Returns
+    the layout.  Build the optimizer after this."""
+    layout = tensor_layout(model, mesh.mp, min_shard_dim)
+    row = Row(mesh.model_mesh.get_group(), mesh.model_index, mesh.mp)
     for mod_name, module in model.named_modules():
-        for p_name, p in list(module._parameters.items()):
-            dim = dims.get(f"{mod_name}.{p_name}" if mod_name else p_name)
-            if dim is None:
-                continue
-            piece = p.detach().chunk(mesh.mp, dim)[mesh.model_index].contiguous()
-            module._parameters[p_name] = nn.Parameter(
-                DTensor.from_local(piece, mesh.model_mesh, [Shard(dim)], run_check=False),
-                requires_grad=p.requires_grad)
-    model.register_forward_pre_hook(_enter_gathered)
-    model.register_forward_hook(_exit_gathered, always_call=True)
+        for table in (module._parameters, module._buffers):
+            for name, t in list(table.items()):
+                cut = layout.get(f"{mod_name}.{name}" if mod_name else name)
+                if cut is None:
+                    continue
+                dim, blocks = cut
+                local_piece = cut_piece(t.detach(), dim, blocks, mesh.model_index,
+                                        mesh.mp).contiguous()
+                sharded = DTensor.from_local(local_piece, mesh.model_mesh,
+                                             [_placement(dim, blocks)], run_check=False)
+                table[name] = (nn.Parameter(sharded, requires_grad=t.requires_grad)
+                               if table is module._parameters else sharded)
+    for _, module in partitioned_modules(model, mesh.mp):
+        module.tp = row
     model._register_load_state_dict_pre_hook(_load_sharded, with_module=True)
-    return dims
+    return layout
 
 
 def reshard_optimizer_state(optimizer: torch.optim.Optimizer) -> None:
@@ -534,23 +681,31 @@ def reshard_optimizer_state(optimizer: torch.optim.Optimizer) -> None:
 
 
 def unsharded_copy(model: nn.Module) -> nn.Module:
-    """A copy of ``model`` whose parameters are whole plain tensors (one
-    gather; every rank of the TP row must call), for inference without
-    collectives; ``model`` itself when nothing is sharded.  The copy shares
-    the sync-BN process groups of ``model``'s modules."""
+    """A copy of ``model`` whose parameters and buffers are whole plain
+    tensors and whose layers compute whole (one gather; every rank of the
+    TP row must call), for inference without collectives; ``model`` itself
+    when nothing is sharded.  The copy shares the sync-BN process groups of
+    ``model``'s modules."""
     import copy
 
-    found = [(m, name, p) for m in model.modules()
-             for name, p in m._parameters.items() if p is not None and _is_sharded(p)]
+    found = [(table, name, t) for m in model.modules()
+             for table in (m._parameters, m._buffers)
+             for name, t in table.items() if t is not None and _is_sharded(t)]
     if not found:
         return model
-    fulls = full_tensors([p.detach() for _, _, p in found])
-    for (m, name, p), full in zip(found, fulls):
-        m._parameters[name] = nn.Parameter(full, requires_grad=p.requires_grad)
+    fulls = full_tensors([t.detach() for _, _, t in found])
+    for (table, name, t), full in zip(found, fulls):
+        table[name] = (nn.Parameter(full, requires_grad=t.requires_grad)
+                       if isinstance(t, nn.Parameter) else full)
+    rows = [(m, m.tp) for m in model.modules() if getattr(m, "tp", None) is not None]
     groups = {id(g): g for g in (getattr(m, "process_group", None) for m in model.modules())
               if g is not None}
     try:
+        for m, _ in rows:
+            m.tp = None
         return copy.deepcopy(model, groups)
     finally:
-        for m, name, p in found:
-            m._parameters[name] = p
+        for (table, name, t) in found:
+            table[name] = t
+        for m, tp in rows:
+            m.tp = tp

@@ -19,7 +19,8 @@ strings and containers only, never arbitrary pickled objects.
 
 With tensor parallelism (``parallel.shard_parameters``) a checkpoint holds
 whole tensors, as the JAX package's do, so it stays independent of the
-layout: :func:`to_host` gathers the sharded parameters and moments, which
+layout: :func:`to_host` gathers the sharded parameters, BatchNorm
+statistics and moments, which
 every rank of a TP row must join (the Trainer makes the copy on every rank
 and rank 0 writes it), and a restore cuts each rank's pieces back out.
 

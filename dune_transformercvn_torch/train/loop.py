@@ -16,8 +16,9 @@ assembled and stepped on by its own ranks, and only rank 0 writes the run
 dir.  Tensor parallelism (``model_parallel`` mp > 1) is the JAX package's
 hybrid mesh: the world is ``world // mp`` data shards of ``mp`` adjacent
 ranks, each rank holding 1/mp of every channel-sharded parameter and its
-moments (``parallel.shard_parameters``); an mp above the world runs
-without tensor parallelism, with JAX's note.
+moments and computing 1/mp of the partitioned layers' channels
+(``parallel.shard_parameters``); an mp above the world runs without
+tensor parallelism, with JAX's note.
 """
 
 from __future__ import annotations
@@ -220,7 +221,7 @@ class Trainer:
         train_shapes, val_shapes = ((self.train_batcher.shape_bound(),
                                      self.val_batcher.shape_bound()) if compile else (1, 1))
         self.train_step = make_train_step(model, options, self.mesh, compile, train_shapes)
-        self.eval_step = make_eval_step(model, options, self.mesh, compile, val_shapes)
+        self.eval_step = make_eval_step(model, options, compile, val_shapes)
 
         # ---- run dir / logging / checkpoints: rank 0 writes -------------------
         self.is_master = self.rank == 0

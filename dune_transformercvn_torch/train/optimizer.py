@@ -37,7 +37,8 @@ unknown name falls back to AdamW with the JAX package's message.
 * optax updates every leaf, so a parameter that got no gradient gets a zero
   one here (its moments stay zero, its decay still applies).
 * **Tensor parallelism** (``parallel.shard_parameters``): a sharded
-  parameter's slots are made from it, so they are sharded alike; the optax
+  parameter's slots are made from it, so they are sharded alike (a packed
+  ``in_proj`` holds whole heads of each of q, k and v); the optax
   chains update each rank's pieces, a trust ratio sums its norms' squares
   over the TP row, and :func:`global_norm` counts each sharded gradient
   once.  ``torch.optim.AdamW`` steps a mix of sharded and plain parameters
@@ -101,15 +102,20 @@ def _trust_ratio(u, p, leaves: int, coefficient: float, shard=None):
                             coefficient * p_norm / u_norm)
         return (uv * ratio).reshape(u.shape)
     # each local row's leaf, by its row of the whole parameter
-    dim, group, index, count = shard
     rows = u.shape[0]
-    first = index * rows if dim == 0 else 0
-    whole_rows = rows * count if dim == 0 else rows
-    leaf = (torch.arange(rows, device=u.device) + first) // (whole_rows // leaves)
+    local_rows = torch.arange(rows, device=u.device)
+    whole_rows, whole_row = rows, local_rows
+    if shard.dim == 0:
+        # this rank's piece of each of the shard's blocks (q, k, v)
+        block_rows = rows // shard.blocks
+        whole_rows = rows * shard.count
+        whole_row = ((local_rows // block_rows) * (whole_rows // shard.blocks)
+                     + shard.index * block_rows + local_rows % block_rows)
+    leaf = whole_row // (whole_rows // leaves)
     squares = torch.zeros(2, leaves, device=u.device, dtype=torch.float32)
     squares[0].index_add_(0, leaf, p.reshape(rows, -1).float().square().sum(1))
     squares[1].index_add_(0, leaf, u.reshape(rows, -1).float().square().sum(1))
-    torch.distributed.all_reduce(squares, group=group)
+    torch.distributed.all_reduce(squares, group=shard.group)
     p_norm, u_norm = squares.sqrt().to(u.dtype)
     ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
                         coefficient * p_norm / u_norm)
@@ -263,7 +269,7 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     if not sharded:
         return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     squares = torch.stack(torch._foreach_norm([local(g) for g in sharded])).square().sum()
-    torch.distributed.all_reduce(squares, group=shard_spec(sharded[0])[1])
+    torch.distributed.all_reduce(squares, group=shard_spec(sharded[0]).group)
     plain = [g for g in grads if shard_spec(g) is None]
     if plain:
         squares = squares + torch.stack(torch._foreach_norm(plain)).square().sum()

@@ -19,14 +19,16 @@ batch, as the JAX package's ``shard_map`` over the data axis does:
 
 With tensor parallelism (a :class:`..parallel.Mesh` of ``mp > 1``) the ranks
 of a TP row step on the same data shard with the same seed, so they draw
-the same dropout and noise, as JAX's per-data-shard folds do; the loss
-carries ``1 / world``, a sharded gradient arrives reduce-scattered over the
-row and is summed over the "data" group, and the replicated gradients, the
-metrics and unsynced statistics are summed over every rank (the row's equal
-copies and the scale make that the mean over the data shards, and keep the
-row's replicas equal bit for bit; ``parallel/mesh.py``).  ``grad_norm``
-counts each sharded gradient once, and the optimizer steps the sharded
-parameters' pieces.
+the same dropout and noise, as JAX's per-data-shard folds do, and the
+partitioned layers compute 1/mp of their channels each (``parallel/mesh.py``).
+The loss carries ``1 / world``; a sharded gradient, computed once a row,
+is scaled by mp and summed over the "data" group (so are the sharded
+running statistics of an unsynced run, with ``1 / dp``); the replicated
+gradients, the metrics and the replicated statistics are summed over
+every rank (each row holds mp equal copies, so that is the mean over the
+data shards, and the row's replicas stay equal bit for bit).
+``grad_norm`` counts each sharded gradient once, and the optimizer steps
+the sharded parameters' pieces.
 
 * The loss is the weighted event/prong focal loss; padding rows (target
   ``-1``) drop out by weight.
@@ -47,13 +49,13 @@ parameters' pieces.
 the train step compiles its region from the network's forward through the
 loss, and AOTAutograd gives it a compiled backward; the seed draw, the
 zeroing of the gradients, the data-parallel all-reduce, the clipping and
-the optimizer stay eager around it.  Sync-BN's all-reduce is traced into
-the graph.  The eval step compiles its forward through the metric
+the optimizer stay eager around it.  Sync-BN's all-reduce and the
+tensor-parallel layers' collectives are traced into the graph.  The eval step compiles its forward through the metric
 statistics.  Compiled dropout and pixel noise draw Inductor's Philox
 offsets from the default generator the step seeds, so a compiled run is
 reproducible from the state (its masks are not eager's).  Not with
-tensor parallelism nor with ``remat`` (``remat_cnn``, ``remat_embedder``,
-``embedder_chunk``): those raise (ROADMAP.md).
+``remat`` (``remat_cnn``, ``remat_embedder``, ``embedder_chunk``): that
+raises (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -160,11 +162,8 @@ def _loss_kwargs(options, model) -> Dict:
     )
 
 
-def _check_compilable(model, mesh: Mesh, train: bool):
+def _check_compilable(model, train: bool):
     """What ``compile=True`` does not take yet raises here (ROADMAP.md)."""
-    if mesh.mp > 1:
-        raise ValueError("compile=True with tensor parallelism (model_parallel > 1) "
-                         "is not supported: its DTensor hooks run eagerly")
     cfg = model.cfg
     if train and (cfg.remat_cnn or cfg.remat_embedder or cfg.embedder_chunk):
         raise ValueError("compile=True with remat_cnn, remat_embedder or embedder_chunk "
@@ -195,13 +194,15 @@ def make_train_step(model, options, mesh: Optional[Mesh] = None, compile: bool =
                               batch["prong_targets"], gamma, event_scale, **loss_kwargs)
 
     if compile:
-        _check_compilable(model, mesh, train=True)
+        _check_compilable(model, train=True)
         forward_loss = compile_step(forward_loss, shapes)
     size, shard = mesh.world_size, mesh.data_index
     # with sync-BN the statistics are already the global batch's
     stats = ([] if size == 1 or options.sync_batch_norm else
              [t for m in model.modules() if isinstance(m, MaskedBatchNorm)
               for t in (m.running_mean, m.running_var)])
+    stat_pieces = [local(t) for t in stats if shard_spec(t) is not None]
+    stats = [t for t in stats if shard_spec(t) is None]
 
     def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         net = state.model
@@ -228,15 +229,19 @@ def make_train_step(model, options, mesh: Optional[Mesh] = None, compile: bool =
             if size > 1:
                 # the gradients summed (each rank's loss carries 1/size),
                 # the metrics and unsynced statistics averaged; a sharded
-                # gradient, already summed over its TP row, over the data
-                # shards
+                # gradient, computed once a TP row, scaled by mp and summed
+                # over the data shards, as the sharded statistics are
                 keys = list(metrics)
                 values = torch.stack([metrics[k] for k in keys]) / size
                 if stats:
                     torch._foreach_div_(stats, size)
                 all_reduce_([g for g in grads if shard_spec(g) is None] + [values] + stats)
-                if sharded and mesh.dp > 1:
-                    all_reduce_(sharded, mesh.data_group)
+                if sharded:
+                    torch._foreach_mul_(sharded, mesh.mp)
+                if stat_pieces:
+                    torch._foreach_div_(stat_pieces, mesh.dp)
+                if mesh.dp > 1 and sharded + stat_pieces:
+                    all_reduce_(sharded + stat_pieces, mesh.data_group)
                 metrics = dict(zip(keys, values.unbind()))
             norm = global_norm(grads)
             if clip > 0:
@@ -261,7 +266,7 @@ def _mixed_layouts():
     return implicit_replication()
 
 
-def make_eval_step(model, options, mesh: Optional[Mesh] = None, compile: bool = False,
+def make_eval_step(model, options, compile: bool = False,
                    shapes: int = 1) -> Callable[[TrainState, Dict, Dict], Dict]:
     """``step(state, batch, totals) -> totals``: eval-mode forward and loss;
     the metric sufficient statistics of the batch are added to ``totals``
@@ -283,7 +288,7 @@ def make_eval_step(model, options, mesh: Optional[Mesh] = None, compile: bool = 
                                    prong_logits, batch["prong_targets"], total)
 
     if compile:
-        _check_compilable(model, mesh or default_mesh(), train=False)
+        _check_compilable(model, train=False)
         evaluate = compile_step(evaluate, shapes)
 
     @torch.no_grad()

@@ -16,7 +16,8 @@ the running statistics.
 in-memory training and validation events and ``fit``'s arguments; this
 rank fits an eager and a compiled ``Trainer`` (``compile=True``) and
 writes each one's step metrics and gradients, final state and validation
-result.
+result (sharded tensors of a tensor-parallel run gathered whole; also
+started by ``tests/test_torch_port_compile_tp.py``).
 
 ``trainer``: the input (``torch.save``) holds ``options`` (a dict), the
 JAX Trainer's initial ``variables`` and the run's ``log_dir``; this rank
@@ -114,7 +115,9 @@ def compiled(inputs, rank, world_size):
     metrics and gradients, the final state and the validation result."""
     from dune_transformercvn_torch import Options
     from dune_transformercvn_torch.data import InMemoryEvents
+    from dune_transformercvn_torch.parallel import full_tensors
     from dune_transformercvn_torch.train import Trainer
+    from dune_transformercvn_torch.train.checkpoint import to_host
 
     torch._inductor.config.compile_threads = 1
     setup = torch.load(inputs, weights_only=False)
@@ -130,15 +133,17 @@ def compiled(inputs, rank, world_size):
 
         def recorded(state, batch, step=step, steps=steps):
             metrics = step(state, batch)
+            named = dict(state.model.named_parameters())
+            grads = full_tensors([p.grad for p in named.values()])
             steps.append(({k: float(v) for k, v in metrics.items()},
-                          {n: p.grad.clone() for n, p in state.model.named_parameters()}))
+                          {n: g.clone() for n, g in zip(named, grads)}))
             return metrics
 
         trainer.train_step = recorded
         result = trainer.fit(**setup["fit"])
         out["compiled" if compile else "eager"] = {
             "steps": steps,
-            "state": {k: v.clone() for k, v in trainer.state.model.state_dict().items()},
+            "state": to_host(trainer.state.model.state_dict()),
             "result": {k: v for k, v in result.items() if np.ndim(v) == 0},
         }
     return out

@@ -8,7 +8,10 @@ The input (``torch.save``) holds ``options`` (a dict), the JAX Trainer's
 initial ``variables``, the global batch indices of the explicit ``steps``
 and a ``work`` directory.
 
-``tp`` (4 ranks, dp2 x mp2): the layout of the sharded parameters; the
+``tp`` (4 ranks, dp2 x mp2): the layout of the sharded parameters and
+buffers; what each rank computes in one train-mode forward (the
+convolutions, linears and softmaxes of each partitioned layer, the
+channels its norm2 and relu2 see, its sums over the TP row); the
 optimizers' sharded pieces, trust ratios and ``global_norm`` against the
 same arithmetic on whole tensors; ``validate`` and ``predict_split`` of the
 port's ``Trainer`` on the JAX weights, then 3 explicit train steps (losses,
@@ -20,6 +23,13 @@ clamp and its error.
 ``dp`` (2 ranks): the port's data-parallel Trainer through the same
 ``validate``, ``predict_split`` and 3 steps, with and without dropout and
 noise: the reference of the ``tp`` run.
+
+``families`` (2 ranks, dp1 x mp2): the input holds each family's tiny port
+``ModelConfig``, a batch and its feature statistics; each rank runs the
+network whole and a tensor-parallel copy of it, a train-mode forward and
+a backward of the same cotangents, and writes both logits, the largest
+difference of each gradient (whole; with its largest element) and of the
+running statistics.
 
 Imports nothing of JAX: the port runs here as it does on the card.
 """
@@ -139,20 +149,92 @@ def optimizer_checks(mesh):
     return out
 
 
+def partition_record(setup):
+    """One train-mode forward (no gradient) of a fresh TP Trainer's model on
+    the first step's batch: for each partitioned layer (by module name) the
+    weight shapes of its ``conv2d`` and ``linear`` calls and the input
+    shapes of its ``softmax`` calls, the ranks of the groups its
+    ``parallel.mesh.sum_over`` calls sum over, and for each bottleneck the
+    channels its norm2 and relu2 see."""
+    from torch.overrides import TorchFunctionMode
+
+    from dune_transformercvn_torch.models.densenet import Bottleneck
+    from dune_transformercvn_torch.models.encoder import EncoderLayer, MultiHeadAttention
+    from dune_transformercvn_torch.parallel import mesh as mesh_module
+    from dune_transformercvn_torch.predict import to_device
+
+    trainer = make_trainer(setup, debug=True)
+    model = trainer.state.model
+    record, scope = {}, []
+
+    def entry(name):
+        return record.setdefault(name, dict(conv2d=[], linear=[], softmax=[], sums=[],
+                                            channels={}))
+
+    def enter(module, args, name):
+        scope.append(name)
+
+    def leave(module, args, output):
+        scope.pop()
+
+    def seen(module, args, output, name):
+        owner, _, role = name.rpartition(".output_block.")
+        entry(owner)["channels"][role] = args[0].shape[-1]
+
+    for name, module in model.named_modules():
+        if isinstance(module, (Bottleneck, MultiHeadAttention, EncoderLayer)):
+            module.register_forward_pre_hook(lambda m, a, name=name: enter(m, a, name))
+            module.register_forward_hook(leave)
+        if name.endswith((".output_block.norm2", ".output_block.relu2")):
+            module.register_forward_hook(lambda m, a, o, name=name: seen(m, a, o, name))
+
+    class Recorder(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            name = getattr(func, "__name__", "")
+            if scope and name in ("conv2d", "linear"):
+                entry(scope[-1])[name].append(tuple(args[1].shape))
+            elif scope and name == "softmax":
+                entry(scope[-1])[name].append(tuple(args[0].shape))
+            return func(*args, **(kwargs or {}))
+
+    sum_over = mesh_module.sum_over
+
+    def counted(tensor, group):
+        if scope:
+            entry(scope[-1])["sums"].append(dist.get_process_group_ranks(group))
+        return sum_over(tensor, group)
+
+    batch = to_device(trainer.train_batcher.build_batch(np.asarray(setup["steps"][0])), "cpu")
+    mesh_module.sum_over = counted
+    try:
+        model.train()
+        with torch.no_grad(), Recorder():
+            model(batch, trainer.state.norm)
+    finally:
+        mesh_module.sum_over = sum_over
+    return record
+
+
 def tp(setup, rank, world_size):
     from torch.distributed.tensor import DTensor
 
-    from dune_transformercvn_torch.parallel import create_mesh, local_shard_ids
+    from dune_transformercvn_torch.parallel import (create_mesh, full_tensor,
+                                                    local_shard_ids, shard_spec)
 
     trainer = make_trainer(setup, debug=True)
     mesh = trainer.mesh
+    model = trainer.state.model
     layout = {}
-    for name, p in trainer.state.model.named_parameters():
-        if isinstance(p, DTensor):
-            layout[name] = (tuple(p.to_local().shape), tuple(p.shape), p.placements[0].dim)
+    for name, t in (*model.named_parameters(), *model.named_buffers()):
+        if isinstance(t, DTensor):
+            spec = shard_spec(t)
+            layout[name] = (tuple(t.to_local().shape), tuple(t.shape), spec.dim, spec.blocks)
+    qkv = model.encoder.encoder.layers[0].self_attn.in_proj_weight
     out = dict(mesh=(mesh.dp, mesh.mp, mesh.data_index, mesh.model_index),
                shards=local_shard_ids(mesh), num_shards=trainer.num_shards,
-               global_batch=trainer.global_batch, layout=layout)
+               global_batch=trainer.global_batch, layout=layout,
+               in_proj=(qkv.to_local().detach().clone(), full_tensor(qkv.detach())),
+               partition=partition_record(setup))
     out["optimizers"] = optimizer_checks(mesh)
     out.update(evaluation(trainer))
     out.update(explicit_steps(trainer, setup["steps"]))
@@ -203,6 +285,58 @@ def noisy_steps(setup, **options):
     return dict(losses=steps["losses"], grad_norms=steps["grad_norms"])
 
 
+def families(setup, rank, world_size):
+    """Each family's network whole and at dp1 x mp2, from the same weights:
+    both logits, the largest difference of each gradient (beside its
+    largest element) and of the running statistics."""
+    import copy
+
+    from dune_transformercvn_torch.models import TransformerCVN
+    from dune_transformercvn_torch.ops.masked import MaskedBatchNorm
+    from dune_transformercvn_torch.parallel import (all_reduce_, create_mesh, full_tensors,
+                                                    shard_parameters, shard_spec)
+    from dune_transformercvn_torch.predict import to_device
+
+    mesh = create_mesh(world_size, model_parallel=world_size)
+    out = {}
+    for family, (cfg, batch, norm) in setup.items():
+        batch = to_device(batch, "cpu")
+        norm = {k: torch.as_tensor(v) for k, v in norm.items()}
+        one = TransformerCVN(cfg, generator=torch.Generator().manual_seed(0)).train()
+        tp_model = copy.deepcopy(one)
+        layout = shard_parameters(tp_model, mesh)
+        results = []
+        for model in (one, tp_model):
+            event, prong = model(batch, norm)
+            rng = torch.Generator().manual_seed(1)
+            ((event * torch.randn(event.shape, generator=rng)).sum()
+             + (prong * torch.randn(prong.shape, generator=rng)).sum()).backward()
+            results.append((event.detach(), prong.detach()))
+        params = [p for _, p in tp_model.named_parameters()]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        # a replicated gradient: the row's copies (or its cut pieces,
+        # scaled by mp) summed, over mp
+        plain = [g for g in grads if shard_spec(g) is None]
+        all_reduce_(plain, mesh.model_mesh.get_group())
+        torch._foreach_div_(plain, world_size)
+        grads = dict(zip([n for n, _ in tp_model.named_parameters()], full_tensors(grads)))
+        stats = {n: t for n, t in tp_model.named_buffers()}
+        stats = dict(zip(stats, full_tensors(list(stats.values()))))
+        grad_diffs = {}
+        for name, p in one.named_parameters():
+            want = p.grad if p.grad is not None else torch.zeros_like(p)
+            grad_diffs[name] = (float((grads[name] - want).abs().max()),
+                                float(want.abs().max()))
+        out[family] = dict(
+            sharded=len(layout),
+            partitioned=sum(getattr(m, "tp", None) is not None for m in tp_model.modules()),
+            logits=results,
+            grads=grad_diffs,
+            stats=max(float((stats[n] - t).abs().max()) for n, t in one.named_buffers()
+                      if isinstance(one.get_submodule(n.rpartition(".")[0]), MaskedBatchNorm)))
+    return out
+
+
 def dp(setup, rank, world_size):
     serial = dict(num_gpu=2, model_parallel=1)
     trainer = make_trainer(setup, debug=True, options=serial)
@@ -222,8 +356,8 @@ def main():
     # the first collective while the ranks are still in step
     dist.all_reduce(torch.zeros(1))
     try:
-        out = {"tp": tp, "dp": dp}[mode](torch.load(inputs, weights_only=False), rank,
-                                         world_size)
+        out = {"tp": tp, "dp": dp, "families": families}[mode](
+            torch.load(inputs, weights_only=False), rank, world_size)
     finally:
         dist.destroy_process_group()
     torch.save(out, output)

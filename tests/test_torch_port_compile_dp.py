@@ -27,8 +27,15 @@ from test_torch_port_train import assert_adam_params_close
 
 
 def test_compiled_data_parallel_steps_match_eager(tmp_path):
+    check_compiled_ranks(tmp_path, {**TINY, **SMALL, "num_gpu": 2, "sync_batch_norm": True})
+
+
+def check_compiled_ranks(tmp_path, options):
+    """Two ranks of ``options`` fit eagerly and compiled: each rank's
+    compiled steps, statistics, parameters and validation loss against its
+    eager ones; the ranks' compiled states equal bit for bit."""
     setup = {
-        "options": {**TINY, **SMALL, "num_gpu": 2, "sync_batch_norm": True},
+        "options": options,
         "training": (32, 1, (H, W)),
         "validation": (8, 2, (H, W)),
         "fit": dict(max_steps=2, eval_interval=2),

@@ -10,10 +10,21 @@ JAX Trainer's initial weights, on the tiny options of
 packed q/k/v projection shards too), float32, dropout 0, pixel noise 0.
 
 * The state is channel-sharded: the set of parameters held as ``DTensor``
-  pieces equals what JAX's ``state_shardings`` shards on the same weights,
-  through ``from_jax``'s names, along the port's dimension of JAX's last
-  axis, each piece and its AdamW moments 1/mp of the whole; the rule also
-  matches JAX's on every embedder family's tiny network.
+  pieces is what JAX's ``state_shardings`` shards on the same weights,
+  through ``from_jax``'s names, plus the norm2 / relu2 tensors between each
+  bottleneck's column- and row-parallel convolutions (their running
+  statistics too); each piece lies along the dimension its layer computes
+  with (input channels of conv2, ``linear2`` and ``out_proj``, whole heads
+  of each of q, k and v in the packed ``in_proj``, else the port's
+  dimension of JAX's last axis), it and its AdamW moments 1/mp of the
+  whole; the rule also matches JAX's on every embedder family's tiny
+  network.
+* The compute is partitioned: in one train-mode forward each rank's
+  bottlenecks run conv1 to ``expand / mp`` channels, norm2 and relu2 on
+  them and conv2 from them, each attention ``heads / mp`` heads, each
+  feed-forward ``linear1`` to ``hidden / mp``; each of those layers sums
+  over its TP row once.  Every family's network at dp1 x mp2 equals it run
+  whole (logits, gradients, running statistics).
 * 3 explicit steps on the same global batches equal the port's dp2 Trainer
   (loss ``rtol=2e-5``, grad_norm ``rtol=2e-4``, parameters and BatchNorm
   statistics ``atol=3e-4``: JAX's bounds between its hybrid and dp
@@ -143,6 +154,12 @@ def test_mesh_and_batch_layout(runs):
     assert "does not divide" in ranks[0]["mp3"]
 
 
+# the layers whose pieces lie along their input channels (row-parallel)
+ROW_PARALLEL = ("output_block.conv2.weight", "linear2.weight", "out_proj.weight")
+# the tensors between a bottleneck's column- and row-parallel convolutions
+BETWEEN = (".output_block.norm2.", ".output_block.relu2.")
+
+
 def test_state_is_channel_sharded_as_jax_shards_it(runs):
     theirs, variables, ranks = runs["theirs"], runs["variables"], runs["tp"]
     devices = np.asarray(jax.devices()[:4]).reshape(2, 2)
@@ -161,14 +178,98 @@ def test_state_is_channel_sharded_as_jax_shards_it(runs):
         if hits.pop():
             want.add(name)
     assert any(n.endswith("in_proj_weight") for n in want)
-    axes = jax_channel_axes(TransformerCVN(cfg))
+    model = TransformerCVN(cfg)
+    axes = jax_channel_axes(model)
+    between = {n for n, _ in (*model.named_parameters(), *model.named_buffers())
+               if any(b in n for b in BETWEEN)}
+    assert len(between) == 4 * 5        # 4 bottlenecks: norm2's 4 tensors, relu2's alpha
     for out in ranks:
-        assert set(out["layout"]) == want
-        for name, (piece, whole, dim) in out["layout"].items():
-            assert dim == axes[name][1], name
+        assert set(out["layout"]) == want | between
+        for name, (piece, whole, dim, blocks) in out["layout"].items():
+            if name.endswith(ROW_PARALLEL):
+                assert (dim, blocks) == (1, 1), name
+            elif name.endswith(("in_proj_weight", "in_proj_bias")):
+                assert (dim, blocks) == (0, 3), name
+            else:
+                assert (dim, blocks) == (axes[name][1] if name in axes else 0, 1), name
             assert piece[dim] * 2 == whole[dim], name
             assert piece[:dim] + piece[dim + 1:] == whole[:dim] + whole[dim + 1:], name
-            assert out["moment_pieces"][name] == piece, name
+            if name in out["moment_pieces"]:
+                assert out["moment_pieces"][name] == piece, name
+        assert set(out["moment_pieces"]) == {n for n in out["layout"] if "running_" not in n}
+        # the packed q/k/v: this rank's heads of each of q, k and v
+        local, whole = out["in_proj"]
+        hidden = whole.shape[1]
+        heads = whole.view(3, hidden, hidden).chunk(2, 1)[out["mesh"][3]]
+        assert torch.equal(local, heads.reshape(-1, hidden))
+
+
+def test_each_rank_computes_its_part_of_the_partitioned_layers(runs):
+    """conv1 to expand/mp channels, norm2 and relu2 on them, conv2 from
+    them; heads/mp heads; linear1 to hidden/mp; one sum over the TP row a
+    layer in the forward."""
+    theirs = runs["theirs"]
+    cfg = theirs.model_config
+    expand = cfg.densenet_batch_norm_size * cfg.densenet_growth_rate
+    hidden, heads = cfg.hidden_dim, cfg.num_attention_heads
+    for out in runs["tp"]:
+        record, rank = out["partition"], out["mesh"][2] * 2 + out["mesh"][3]
+        row = [rank - rank % 2, rank - rank % 2 + 1]
+        bottlenecks = [n for n in record if ".layers." in n and n.startswith("prong_embedding")]
+        attentions = [n for n in record if n.endswith("self_attn")]
+        feed_forwards = [n for n in record if n.startswith("encoder") and n not in attentions]
+        assert len(bottlenecks) == 2 * sum(cfg.densenet_structure)
+        assert len(attentions) == len(feed_forwards) == cfg.num_encoder_layers
+        for name in bottlenecks:
+            r = record[name]
+            (conv1, conv2) = r["conv2d"]
+            assert conv1[:2] == (expand // 2, conv1[1]) and conv2[:2] == (
+                cfg.densenet_growth_rate, expand // 2), (name, r)
+            assert r["channels"] == {"norm2": expand // 2, "relu2": expand // 2}, name
+            assert r["sums"] == [row], name
+        for name in attentions:
+            r = record[name]
+            assert r["linear"] == [(3 * hidden // 2, hidden), (hidden, hidden // 2)], name
+            assert [s[1] for s in r["softmax"]] == [heads // 2], name
+            assert r["sums"] == [row], name
+        for name in feed_forwards:
+            r = record[name]
+            assert r["linear"] == [(hidden // 2, hidden), (hidden, hidden // 2)], name
+            assert r["sums"] == [row], name
+
+
+@pytest.fixture(scope="module")
+def family_runs(tmp_path_factory, synthetic_file):
+    root = tmp_path_factory.mktemp("tp_families")
+    setup = {}
+    for family in ("dense", "coo", *FAMILIES):
+        (batch,), norm = batches_and_norm(synthetic_file, family)
+        setup[family] = (family_configs(family, num_attention_heads=2)[1], batch, norm)
+    torch.save(setup, root / "setup.pt")
+    return finish(start("families", root / "setup.pt", root, 2))
+
+
+@pytest.mark.parametrize("family", ("dense", "coo", *FAMILIES))
+def test_every_family_at_mp2_equals_its_network_whole(family_runs, family):
+    """Each family's network at dp1 x mp2, its encoder (and the dense and
+    coo bottlenecks) partitioned and every other sharded weight gathered in
+    the forward, equals the same network run whole, float32: logits within
+    ``TOL``; each gradient within 1e-3 of its tensor's largest element plus
+    1e-3 of the network's largest, ``test_torch_port_compile.py``'s rule
+    for reordered float32 sums (the row-parallel layers sum their partial
+    products in another order, and the train-mode BatchNorms over 4 events
+    amplify it: ~1e-4 of a tensor's largest in the dense family, ~1e-6 of
+    the network's in a bias ahead of a BatchNorm, whose exact gradient is
+    0); the running statistics within 1e-5."""
+    for out in family_runs:
+        got = out[family]
+        assert got["sharded"] > 0 and got["partitioned"] > 0, got
+        for whole_run, tp_run in zip(*got["logits"]):
+            torch.testing.assert_close(tp_run, whole_run, **TOL)
+        largest = max(m for _, m in got["grads"].values())
+        for name, (diff, own) in got["grads"].items():
+            assert diff <= 1e-3 * (own + largest), (name, diff, own, largest)
+        assert got["stats"] <= 1e-5, got
 
 
 @pytest.mark.parametrize("family", ("dense", "coo", *FAMILIES))
