@@ -40,7 +40,7 @@ phases 13 and 15 and the bench, fits its time limit:
 5. Coo serving: the same with the coo family; K2 twice a batch, K1 never.
 6. Coo training at full width: the option file's AdamW, schedule, clip 43,
    dropout 0.1, pixel noise 0.001, bfloat16, batch 16: 3 warm-up steps and
-   20 timed ones; finite loss and grad_norm, every parameter that got a
+   10 timed ones; finite loss and grad_norm, every parameter that got a
    gradient changed, BatchNorm statistics moved, K2 twice a step; then one
    eval pass over 64 events with finite AUCs.
 7. Paths, float32: dense through K1 against the plain densify; coo logits
@@ -79,7 +79,7 @@ phases 13 and 15 and the bench, fits its time limit:
    random weights from a seed, each path with the kernel counts reset
    before it and K1 asserted twice a batch and a step.  sdxl with
    ``embedder_chunk`` 16: ``predict_split`` at batch 16 and 64 (128 and 256
-   events) as in phase 4; the train step at batch 16, 3 warm-up and 10 timed steps (ms/step,
+   events) as in phase 4; the train step at batch 16, 2 warm-up and 5 timed steps (ms/step,
    events/s, peak memory); the same with ``embedder_chunk_save_spatial``;
    the unchunked step at batch 8 (the largest the memory reckoning in
    PERF.md keeps far under 80 GB); and, in float32, the chunked network
@@ -147,15 +147,18 @@ phases 13 and 15 and the bench, fits its time limit:
    ``check_tensor_parallel(smi)`` runs it alone.  The compiled TP step
    (``compile=True``, ``CUT_DEPTH``, static shapes, dropout and noise 0)
    runs in two more ranks that compile, at a low priority, beside phase 13
-   and are timed after it (``start_compiled_tp`` / ``finish_compiled_tp``): its
+   and are timed after it and after phase 15's graphs, which compile
+   beside it too (``start_compiled_tp`` / ``finish_compiled_tp``): its
    first step against the eager TP step's on the same batch and weights,
    its first call's seconds (the compile), ms/step and K1 launches from
    inside the graph.
 15. The compiled steps (``compile=True``, Inductor; the counterpart of the
    JAX package's ``jax.jit``), on the option file's dense network at
-   ``CUT_DEPTH``, full width.  First the eight graphs below and the
-   bench's compile side by side into an empty cache, one process each
-   (``warm_compile_cache``).  Then the port's bench
+   ``CUT_DEPTH``, full width.  The eight graphs below and the bench's
+   compile side by side into an empty cache, one process each, at a low
+   priority beside phase 13 (``start_warming``; the smoke waits for them
+   after phase 13 and before it times phase 14's compiled TP ranks).
+   Then the port's bench
    (``python -m dune_transformercvn_torch.bench``) as a subprocess on the
    option file at ``CUT_DEPTH``; its JSON line is logged (serving at batch
    16 and 64 and the train step at batch 16 and 64, eager and compiled,
@@ -173,7 +176,29 @@ phases 13 and 15 and the bench, fits its time limit:
    norm against eager's within PATH_TOL.  K1 and K2 launch twice a forward
    from inside the compiled graphs, and those launches count in the
    kernels' line.  ``check_compiled(smi)`` runs it alone.
-16. A JSON line of every ported kernel, then, as the last line,
+16. CUDA graphs (``graph=True``; the counterpart of the JAX package's
+   ``steps_per_dispatch`` and of ``jax.jit``'s one program a call), the
+   option file's network whole, bf16.  ``predict_split(graph=True)``
+   against eager at b16 and b64 (dense) and b16 (coo), static shapes,
+   events/s in turns; the coo b16 train step as 3 replays of the one-step
+   graph against eager, K2 inside.  ``Trainer(graph=True)`` at
+   ``CUT_DEPTH`` with ``steps_per_dispatch`` 4: fit 8 steps with 2
+   validations and checkpoints, a fresh Trainer resumed at step 4 equal to
+   the snapshot bit for bit and fit on.  ``graph=True`` with
+   ``compile=True`` at ``CUT_DEPTH``: phase 15's train and serving graphs
+   from the cache, captured (no FX-graph cache miss).  Then the dense b16
+   train step with the option file's dropout and noise: 4 replays of a
+   4-step graph against 16 eager steps from the same state (both with the
+   graph-safe AdamW): metrics, parameters, running statistics and moments
+   bit for bit, or within 2^-7 with the cause printed (two eager runs
+   against each other); ms/step of each over the last 12 steps beside the
+   host's dispatch time, peak memory, the graph's reserved memory after
+   its capture (under twice eager's peak), K1's launches a replay; last,
+   one replay under ``torch.profiler``, K1's kernel in the trace as often
+   as the count says.  K1 and K2 launch from the graphs' replays, and
+   those launches count in the kernels' line.  ``check_graphs(smi)`` runs
+   it alone.
+17. A JSON line of every ported kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -257,13 +282,13 @@ PATH_TOL = dict(rtol=1e-4, atol=1e-4)
 # coo against dense logits: the stem's float32 sums in another order,
 # amplified by the BatchNorm divides (tests/test_coo_embedder.py's bound).
 FAMILY_TOL = dict(rtol=1e-3, atol=1e-4)
-# Serving: (batch size, events) -- a few seconds a pass -- and the timed
-# passes after the warm-up.
-SERVE_EVENTS = ((16, 512), (64, 1024))
+# Serving: (batch size, events) -- one to two seconds a pass, which leaves
+# phase 16 its time -- and the timed passes after the warm-up.
+SERVE_EVENTS = ((16, 256), (64, 512))
 SERVE_PASSES = 3
 # Training: the option file's batch size, warm-up and timed steps, and the
 # events of the eval pass.
-TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, EVAL_EVENTS = 16, 3, 20, 64
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, EVAL_EVENTS = 16, 3, 10, 64
 # The card against the CPU, float32: cuDNN and oneDNN sum in other orders
 # through ~30 conv layers.
 CPU_TOL = dict(rtol=1e-3, atol=1e-3)
@@ -288,7 +313,7 @@ DP_TIMEOUT_S = 400
 # and the float32 chunked-vs-unchunked check's batch and chunk.
 SDXL_CHUNK, SDXL_SAVE_SPATIAL, SDXL_UNCHUNKED_BATCH = 16, 7000, 8
 SDXL_SERVE_EVENTS = ((16, 128), (64, 256))
-SDXL_WARMUP, SDXL_STEPS, SDXL_READING_WARMUP, SDXL_READING_STEPS = 3, 10, 2, 5
+SDXL_WARMUP, SDXL_STEPS, SDXL_READING_WARMUP, SDXL_READING_STEPS = 2, 5, 1, 3
 SDXL_CHECK_BATCH, SDXL_CHECK_CHUNK = 4, 4
 # Chunked against unchunked sdxl, float32, TF32 off: logits; and each
 # gradient within CHUNK_GRAD_SHARE of its tensor's largest element (a
@@ -385,6 +410,16 @@ WARM_GRAPHS = ("serve_b16", "serve_b64", "train_b16", "train_b64", "eval_b16", "
 WARM_THREADS, WARM_TIMEOUT_S = 2, 600
 BENCH_TIMEOUT_S = 600
 COMPILED_WARMUP, COMPILED_STEPS = 3, 10
+# Phase 16: the dense train graph's K and its replays (4 x 4 = 16 steps
+# against 16 eager steps from the same state) and the replays timed; the
+# serving graphs' (batch size, events); the coo one-step graph's replays;
+# the graph Trainer's fit and its validation interval.  Graph against eager:
+# the same kernels on the same inputs, so bit for bit; where not, within
+# bf16's rounding, 2^-7 of each tensor's largest, with the cause printed.
+GRAPH_K, GRAPH_REPLAYS, GRAPH_TIMED = 4, 4, 3
+GRAPH_SERVE_EVENTS = ((16, 128), (64, 256))
+GRAPH_COO_STEPS, GRAPH_FIT_STEPS, GRAPH_FIT_EVAL = 3, 8, 4
+GRAPH_TOL = 2 ** -7
 
 
 def log(msg: str = ""):
@@ -2482,13 +2517,15 @@ def float32_setup():
     return cfg, options, ds, batch
 
 
-def warm_graph(name):
+def warm_graph(name, nice=0):
     """Compile graph ``name`` of ``WARM_GRAPHS`` into the compile cache and
-    run it once, in a process of its own (``warm_compile_cache``): the
-    bench's compiled rows through the bench's own functions, the others
-    through the functions the checks below call, so that each cache key is
-    the one they look up; float32 graphs with phase 1's TF32 switch, bf16
-    ones under torch's default (``bench_precision``)."""
+    run it once, in a process of its own (``start_warming``) at the
+    priority ``nice`` lowers it to: the bench's compiled rows through the
+    bench's own functions, the others through the functions the checks
+    below call, so that each cache key is the one they look up; float32
+    graphs with phase 1's TF32 switch, bf16 ones under torch's default
+    (``bench_precision``)."""
+    os.nice(nice)
     enable_compile_cache()
     cuda = torch.device("cuda")
     if name.startswith("float32"):
@@ -2517,26 +2554,35 @@ def warm_graph(name):
                       "fx_graph_cache": cache_counts()}), flush=True)
 
 
-def warm_compile_cache(smi, work):
-    """Every graph of phase 15 and of the bench compiled at once, one
-    process each (``warm_graph``, ``WARM_THREADS`` compile workers each).
-    Inductor spends a graph's compile in Python on one core (lowering,
-    scheduling and code generation: 25 of a cut-depth serving graph's 36 s
-    on the H100 host, Triton's own compiles 1.3 s), so the graphs compile
-    side by side in about the time of the slowest, and the bench and the
-    checks below load them from the cache.  Their first calls share the
-    card, and nothing here is timed but the wall clock."""
+def start_warming(work, nice=0):
+    """Every graph of phase 15 and of the bench compiling at once, one
+    process each (``warm_graph``, ``WARM_THREADS`` compile workers each),
+    started; ``finish_warming`` waits for them.  Inductor spends a graph's
+    compile in Python on one core (lowering, scheduling and code
+    generation: 25 of a cut-depth serving graph's 36 s on the H100 host,
+    Triton's own compiles 1.3 s), so the graphs compile side by side in
+    about the time of the slowest, and the bench and the checks below load
+    them from the cache.  The smoke starts them at a low priority beside
+    phase 13, whose compile leaves most cores idle."""
+    enable_compile_cache()
     env = {**os.environ, "TORCHINDUCTOR_COMPILE_THREADS": str(WARM_THREADS)}
     here = os.path.dirname(os.path.abspath(__file__))
     logs = {name: os.path.join(work, f"warm_{name}.log") for name in WARM_GRAPHS}
     procs = {}
-    t0 = time.perf_counter()
+    for name, path in logs.items():
+        with open(path, "w") as out:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-c",
+                 f"import chip_smoke; chip_smoke.warm_graph({name!r}, {nice})"],
+                cwd=here, env=env, stdout=out, stderr=subprocess.STDOUT)
+    return procs, logs, time.perf_counter()
+
+
+def finish_warming(started, smi, beside=""):
+    """Wait for ``start_warming``'s processes; raises with a process's
+    output if it failed, and logs each one's compile and first call."""
+    procs, logs, t0 = started
     try:
-        for name, path in logs.items():
-            with open(path, "w") as out:
-                procs[name] = subprocess.Popen(
-                    [sys.executable, "-c", f"import chip_smoke; chip_smoke.warm_graph({name!r})"],
-                    cwd=here, env=env, stdout=out, stderr=subprocess.STDOUT)
         deadline = time.monotonic() + WARM_TIMEOUT_S
         for proc in procs.values():
             proc.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -2553,8 +2599,8 @@ def warm_compile_cache(smi, work):
                               if line.startswith('{"graph"')][-1])
         readings.append(f"{name} {reading['seconds']:.1f} s")
     log(f"[compiled] {len(procs)} graphs at depth {CUT_DEPTH} compiled side by side "
-        f"into an empty cache in {seconds:.1f} s (each process's compile and first "
-        f"call: {'; '.join(readings)}) ({smi})")
+        f"into an empty cache{beside} in {seconds:.1f} s (each process's compile and "
+        f"first call: {'; '.join(readings)}) ({smi})")
 
 
 def run_bench(work):
@@ -2760,13 +2806,16 @@ def compiled_float32_checks(smi):
     return k1
 
 
-def check_compiled(smi):
+def check_compiled(smi, warmed=False):
     """Phase 15: the compiled steps; returns the K1 and K2 launches of the
-    compiled paths."""
+    compiled paths.  ``warmed``: the cache holds the graphs already
+    (``start_warming`` / ``finish_warming`` ran), else they compile here
+    first."""
     enable_compile_cache()
     work = tempfile.mkdtemp(prefix="chip_smoke_compiled_")
     try:
-        warm_compile_cache(smi, work)
+        if not warmed:
+            finish_warming(start_warming(work), smi)
         run_bench(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2774,6 +2823,383 @@ def check_compiled(smi):
         k1 = compiled_serving(smi) + compiled_training(smi)
         k2 = compiled_coo(smi)
     k1 += compiled_float32_checks(smi)
+    return k1, k2
+
+
+# ---------------------------------------------------------------------------
+# phase 16
+# ---------------------------------------------------------------------------
+
+def host_state(model, optimizer):
+    """A model's parameters and buffers and a graph-safe AdamW's moments and
+    count, copied to the host."""
+    out = {f"model.{n}": t.detach().cpu() for n, t in model.state_dict().items()}
+    for i, slots in enumerate(optimizer.state.values()):
+        out.update({f"adamw.{i}.{k}": t.detach().cpu() for k, t in slots.items()})
+    out["adamw.count"] = optimizer.count.cpu()
+    return out
+
+
+def relative_gap(got, want):
+    """The largest ``|got - want|`` of each tensor over its largest
+    ``|want|``, the worst tensor's, and its name."""
+    worst, name = 0.0, None
+    for key, w in want.items():
+        w, g = w.double(), got[key].double()
+        gap = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if gap > worst:
+            worst, name = gap, key
+    return worst, name
+
+
+def graph_train_batches(cfg, seed, steps):
+    """``steps`` batches of 16 events in one static shape, on the card."""
+    ds = InMemoryEvents(TRAIN_BATCH * steps, seed)
+    batcher = Batcher(ds, batch_size=TRAIN_BATCH, fixed_shape=True)
+    return ds, [to_device(b, "cuda") for b in batcher.epoch(0)]
+
+
+def stack_groups(batches, k):
+    return [{n: torch.stack([b[n] for b in batches[i:i + k]]) for n in batches[0]}
+            for i in range(0, len(batches), k)]
+
+
+def kernel_launches_in(prof, name):
+    return sum(e.count for e in prof.key_averages() if name in e.key)
+
+
+def graph_training(smi):
+    """The option file's dense network whole, bf16, b16, its dropout and
+    noise: ``GRAPH_K`` x ``GRAPH_REPLAYS`` steps as replays of one CUDA
+    graph of K steps against as many eager steps from the same state (both
+    with the graph-safe AdamW), then one more replay under
+    ``torch.profiler``; returns K1's launches."""
+    options = Options.load(OPTION_FILE)
+    cfg = production_config("bfloat16")
+    assert (cfg.dropout, cfg.pixel_noise_std) == (0.1, 0.001) and options.optimizer == "AdamW"
+    k, steps = GRAPH_K, GRAPH_K * GRAPH_REPLAYS
+    ds, batches = graph_train_batches(cfg, SEED + 50, steps)
+    start = TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED))
+    free_memory()
+
+    model = copy.deepcopy(start).cuda()
+    state = create_train_state(model, options, ds.norm(), 100, seed=SEED, graph=True)
+    step = make_train_step(model, options)
+    torch.cuda.reset_peak_memory_stats()
+    eager = []
+    untimed = steps - GRAPH_TIMED * k
+
+    def eager_steps():
+        for i, batch in enumerate(batches):
+            if i == untimed:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            eager.append(step(state, batch))
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return host_s, time.perf_counter() - t0
+
+    (eager_host_s, eager_s), eager_counts = counted(eager_steps)
+    eager_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert eager_counts == (2 * steps, 0), eager_counts
+    want = host_state(model, state.optimizer)
+    want_metrics = {n: torch.stack([m[n].float() for m in eager]).cpu() for n in eager[0]}
+    del model, state, step, eager
+    free_memory()
+
+    model = copy.deepcopy(start).cuda()
+    state = create_train_state(model, options, ds.norm(), 100, seed=SEED, graph=True)
+    step = make_train_step(model, options, graph=True, steps_per_dispatch=k)
+    groups = stack_groups(batches, k)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first, first_counts = counted(lambda: step(state, groups[0]))
+    capture_s = time.perf_counter() - t0
+    graph_reserved = torch.cuda.memory_reserved() / 2 ** 30
+    (captured,) = step.graphs.graphs.values()
+    assert captured.launches == [2 * k, 0], captured.launches
+    assert first_counts == (2 * k + 2 * k, 0), first_counts   # the warm-up's and a replay's
+
+    def replays():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [step(state, group) for group in groups[1:]]
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return out, host_s, time.perf_counter() - t0
+
+    (rest, graph_host_s, graph_s), counts = counted(replays)
+    assert counts == (2 * k * (GRAPH_REPLAYS - 1), 0), counts
+    graph_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = host_state(model, state.optimizer)
+    got_metrics = {n: torch.cat([m[n] for m in [first] + rest]).cpu() for n in first}
+    assert state.step == steps and got_metrics.keys() == want_metrics.keys()
+    for value in got_metrics.values():
+        assert torch.isfinite(value).all(), got_metrics
+    eager_ms, graph_ms = (1e3 * s / (GRAPH_TIMED * k) for s in (eager_s, graph_s))
+    log(f"[graph] dense train step, full depth, bf16, b{TRAIN_BATCH}: ms/step over the last "
+        f"{GRAPH_TIMED * k} of {steps} steps: eager {eager_ms:.2f} (host dispatch "
+        f"{1e3 * eager_host_s / (GRAPH_TIMED * k):.2f}), {k}-step graph {graph_ms:.2f} (host "
+        f"{1e3 * graph_host_s / (GRAPH_TIMED * k):.3f}): {eager_ms / graph_ms:.2f}x; the "
+        f"first graph call (warm-up of {k} steps, capture, replay) {capture_s:.2f} s; peak "
+        f"memory eager {eager_peak:.2f} GiB, graph {graph_peak:.2f} GiB allocated (warm-up "
+        f"included), {graph_reserved:.2f} GiB reserved after the capture; K1 "
+        f"{captured.launches[0]} a replay ({smi})")
+    exact = all(torch.equal(got[n], want[n]) for n in want) and all(
+        torch.equal(got_metrics[n], want_metrics[n]) for n in want_metrics)
+    if exact:
+        agreement = "bit for bit"
+    else:
+        gap, where = relative_gap({**got, **got_metrics}, {**want, **want_metrics})
+        cause = graph_gap_cause(start, options, ds, batches[:k])
+        log(f"[graph] graph against eager: largest relative gap {gap:.3g} ({where}); "
+            f"cause: {cause}")
+        assert gap <= GRAPH_TOL, (gap, where, cause)
+        agreement = (f"not bit for bit: largest relative gap {gap:.3g} ({where}), within "
+                     f"2^-7; cause: {cause}")
+    assert graph_reserved < 2 * eager_peak, (graph_reserved, eager_peak)
+    log(f"[graph] dense train step: {GRAPH_REPLAYS} replays of the {k}-step graph against "
+        f"{steps} eager steps from the same state (dropout {cfg.dropout}, noise "
+        f"{cfg.pixel_noise_std}): metrics, parameters, running statistics and AdamW's "
+        f"moments {agreement}; train_loss {float(got_metrics['train_loss'][0]):.5f} -> "
+        f"{float(got_metrics['train_loss'][-1]):.5f}")
+    # one replay under the profiler, last in the phase: CUPTI stays attached
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, traced_counts = counted(lambda: step(state, groups[0]))
+    traced = kernel_launches_in(prof, "densify_kernel")
+    assert traced == traced_counts[0] == 2 * k, (traced, traced_counts)
+    events = prof.key_averages()
+    launch_ms = sum(e.cpu_time_total for e in events if e.key == "cudaGraphLaunch") / 1e3
+    kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"[graph] torch.profiler over one replay of the {k}-step train graph: {traced} "
+        f"densify_kernel launches, the count's {traced_counts[0]}; kernel time "
+        f"{kernel_ms / k:.2f} ms a step; cudaGraphLaunch held the host "
+        f"{launch_ms / k:.2f} ms a step ({smi})")
+    del model, state, step, groups, batches
+    free_memory()
+    return first_counts[0] + counts[0] + eager_counts[0] + traced_counts[0]
+
+
+def graph_gap_cause(start, options, ds, batches):
+    """Why a graph's steps and eager's differ: two eager runs of the same
+    steps from the same state, against each other."""
+    runs = []
+    for _ in range(2):
+        model = copy.deepcopy(start).cuda()
+        state = create_train_state(model, options, ds.norm(), 100, seed=SEED, graph=True)
+        step = make_train_step(model, options)
+        for batch in batches:
+            step(state, batch)
+        runs.append(host_state(model, state.optimizer))
+        del model, state
+        free_memory()
+    gap, where = relative_gap(*runs)
+    if gap:
+        return (f"eager is not reproducible itself (two eager runs of {len(batches)} steps "
+                f"differ by {gap:.3g} relative at {where}: kernels that sum in no fixed "
+                "order)")
+    return "eager reproduces itself bit for bit; the captured kernels differ from eager's"
+
+
+def probabilities_equal(got, want, label):
+    """Serving through a graph against eager: the same kernels on the same
+    shapes, so equal; returns "bit for bit" or the largest difference
+    within FOLD_SHARE with argmax equal where eager's is clear."""
+    if all(np.array_equal(got[k], want[k]) for k in want):
+        return "bit for bit"
+    agree = compiled_agrees(want, got, label)
+    return (f"within {FOLD_SHARE:g}: event {agree['event'][0]:.3g}, prong "
+            f"{agree['prong'][0]:.3g}")
+
+
+def graph_serving(smi, embedder, sizes):
+    """``predict_split(graph=True)`` against eager on the option file's
+    network whole, bf16, static shapes; events/s in turns.  Returns the
+    kernels' launches in the graph passes."""
+    model = TransformerCVN(family_config(embedder),
+                           generator=torch.Generator().manual_seed(SEED)).cuda()
+    launches = np.zeros(2, np.int64)
+    for b, n in sizes:
+        ds = InMemoryEvents(n, SEED + 60 + b)
+        batches = math.ceil(n / b)
+
+        def run(graph, capture=False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, counts = counted(lambda: predict_split(
+                model, ds, ds.norm(), b, "cuda", fixed_shape=True, graph=graph))
+            forwards = batches + capture       # a capture's warm-up forward
+            want = (0, 2 * forwards) if embedder == "coo" else (2 * forwards, 0)
+            assert counts == want, (counts, want)
+            return out, n / (time.perf_counter() - t0), np.array(counts)
+
+        eager, _, _ = run(False)
+        t0 = time.perf_counter()
+        graph, _, counts = run(True, capture=True)
+        first_s = time.perf_counter() - t0
+        launches += counts
+        agreement = probabilities_equal(graph, eager, f"{embedder} b{b}")
+        rates = {True: [], False: []}
+        for graphed in (False, True, True, False):
+            _, rate, counts = run(graphed)
+            rates[graphed].append(rate)
+            launches += counts if graphed else 0
+        log(f"[graph] {embedder} serving b{b}, full depth, bf16, {n} events, static shapes: "
+            f"graph against eager {agreement}; first graph pass (its capture) {first_s:.2f} "
+            f"s, later passes replay it; events/s in turns eager {rates[False][0]:.1f}, "
+            f"graph {rates[True][0]:.1f}, "
+            f"graph {rates[True][1]:.1f}, eager {rates[False][1]:.1f}: graph/eager "
+            f"{statistics.mean(rates[True]) / statistics.mean(rates[False]):.2f}x ({smi})")
+    del model
+    free_memory()
+    return launches
+
+
+def graph_coo_training(smi):
+    """The coo family whole, bf16, b16: ``GRAPH_COO_STEPS`` steps as replays
+    of the one-step graph against eager steps; returns K2's launches."""
+    options = Options.load(OPTION_FILE)
+    cfg = family_config("coo")
+    ds, batches = graph_train_batches(cfg, SEED + 70, GRAPH_COO_STEPS)
+    start = TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED))
+    results, launches = [], 0
+    for graph in (False, True):
+        model = copy.deepcopy(start).cuda()
+        state = create_train_state(model, options, ds.norm(), 100, seed=SEED, graph=True)
+        step = make_train_step(model, options, graph=graph)
+        metrics, counts = counted(lambda: [step(state, b) for b in batches])
+        assert counts == (0, 2 * GRAPH_COO_STEPS + (2 if graph else 0)), counts
+        launches += counts[1]
+        if graph:
+            (captured,) = step.graphs.graphs.values()
+            assert captured.launches == [0, 2], captured.launches
+        results.append(({n: torch.stack([m[n].float() for m in metrics]).cpu()
+                          for n in metrics[0]}, host_state(model, state.optimizer)))
+        del model, state, step
+        free_memory()
+    (want_m, want), (got_m, got) = results
+    gap, where = relative_gap({**got, **got_m}, {**want, **want_m})
+    assert gap <= GRAPH_TOL, (gap, where)
+    log(f"[graph] coo train step, full depth, bf16, b{TRAIN_BATCH}: {GRAPH_COO_STEPS} "
+        f"replays of the one-step graph (K2 2 a replay) against eager: "
+        f"{'bit for bit' if gap == 0 else f'largest relative gap {gap:.3g} ({where})'}; "
+        f"train_loss {float(got_m['train_loss'][-1]):.5f} ({smi})")
+    return launches
+
+
+def graph_trainer(smi):
+    """``Trainer(graph=True)`` on the option file at ``CUT_DEPTH``,
+    ``steps_per_dispatch`` 4: a fit with validations and checkpoints, a
+    fresh Trainer resumed from the first checkpoint equal to the snapshot
+    bit for bit and fit to the same step.  Returns K1's launches."""
+    val_batches = math.ceil(FIT_VAL_EVENTS / TRAIN_BATCH)
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_graph_trainer_")
+    try:
+        snapshot = {}
+
+        def snap(step, metrics):
+            if step == GRAPH_FIT_EVAL:
+                snapshot.update(to_host(trainer.state.state_dict()))
+
+        def options():
+            opts = fit_options()
+            opts.steps_per_dispatch = GRAPH_K
+            return opts
+
+        trainer = Trainer(options(), run_dir=run_dir, callbacks=[snap], graph=True,
+                          log_every_n_steps=GRAPH_K, datasets=fit_datasets(), verbose=False)
+        t0 = time.perf_counter()
+        result, counts = counted(lambda: trainer.fit(max_steps=GRAPH_FIT_STEPS,
+                                                     eval_interval=GRAPH_FIT_EVAL))
+        seconds = time.perf_counter() - t0
+        evals = GRAPH_FIT_STEPS // GRAPH_FIT_EVAL
+        # the warm-ups launch too: a K-step train graph's and the eval graph's
+        warm = 2 * GRAPH_K + 2
+        assert counts == (2 * (GRAPH_FIT_STEPS + evals * val_batches) + warm, 0), counts
+        launches = counts[0]
+        losses = [v for _, v in read_history(run_dir)["train_loss"]]
+        assert losses and all(math.isfinite(v) for v in losses), losses
+        assert math.isfinite(result["val_epoch_AUC"]), result
+        final = to_host(trainer.state.state_dict())
+        assert snapshot["step"] == GRAPH_FIT_EVAL and final["step"] == GRAPH_FIT_STEPS
+        del trainer
+        free_memory()
+
+        fresh = Trainer(options(), run_dir=run_dir, graph=True, log_every_n_steps=GRAPH_K,
+                        datasets=fit_datasets(), verbose=False)
+        fresh.resume(os.path.join(run_dir, "checkpoints", f"step_{GRAPH_FIT_EVAL}"))
+        assert_state_equal(to_host(fresh.state.state_dict()), snapshot)
+        count = int(fresh.state.optimizer.count)
+        assert count == GRAPH_FIT_EVAL, count
+        _, counts = counted(lambda: fresh.fit(max_steps=GRAPH_FIT_STEPS))
+        launches += counts[0]
+        resumed = to_host(fresh.state.state_dict())
+        same = all(torch.equal(resumed["model"][n], t) for n, t in final["model"].items())
+        log(f"[graph] Trainer(graph=True), steps_per_dispatch {GRAPH_K}, depth {CUT_DEPTH}, "
+            f"bf16, b{TRAIN_BATCH}: fit {GRAPH_FIT_STEPS} steps + {evals} validations in "
+            f"{seconds:.2f} s (captures included), train_loss {losses[-1]:.5f}, val AUC "
+            f"{result['val_epoch_AUC']:.4f}; resume(step_{GRAPH_FIT_EVAL}) equal to the "
+            f"snapshot bit for bit (AdamW's count {count}); fit on to "
+            f"step {GRAPH_FIT_STEPS}: parameters "
+            f"{'equal to the first fit bit for bit' if same else 'not bit-equal to the first fit'}"
+            f"; K1 {launches} ({smi})")
+        del fresh
+        free_memory()
+        return launches
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
+def graph_compiled(smi):
+    """``graph=True`` with ``compile=True`` at ``CUT_DEPTH``: phase 15's
+    train_b16 and serve_b16 graphs from the cache, captured.  Compiles
+    nothing new; returns K1's launches."""
+    options, model, eager_state, batch = bf16_train_setup()
+    state = create_train_state(model, options, {k: v.cpu() for k, v in eager_state.norm.items()},
+                               100, seed=SEED, graph=True)
+    del eager_state
+    step = make_train_step(model, options, compile=True, graph=True)
+    before = cache_counts()
+    metrics, counts = counted(lambda: [step(state, batch) for _ in range(3)][-1])
+    assert counts == (2 + 2 * 3, 0), counts
+    assert math.isfinite(float(metrics["train_loss"])), metrics
+    train_cache = cache_reading(before)
+    ds = serving_events(TRAIN_BATCH)
+    serve = serving_model()
+    mid = cache_counts()
+    out, serve_counts = counted(lambda: predict_split(
+        serve, ds, ds.norm(), TRAIN_BATCH, "cuda", fixed_shape=True, compile=True,
+        graph=True))
+    eager = predict_split(serve, ds, ds.norm(), TRAIN_BATCH, "cuda", fixed_shape=True)
+    agree = compiled_agrees(eager, out, "compiled graph b16")
+    misses = cache_counts()[1] - before[1]
+    assert misses == 0, (train_cache, cache_reading(mid))
+    log(f"[graph] graph=True with compile=True, depth {CUT_DEPTH}, bf16, b{TRAIN_BATCH}: "
+        f"train step 3 calls ({train_cache}), loss {float(metrics['train_loss']):.5f}; "
+        f"predict_split ({cache_reading(mid)}) against eager: event prob diff "
+        f"{agree['event'][0]:.3g}, prong {agree['prong'][0]:.3g}; K1 {counts[0]} + "
+        f"{serve_counts[0]} ({smi})")
+    del model, serve, state, step
+    free_memory()
+    return counts[0] + serve_counts[0]
+
+
+def check_graphs(smi, compiled=True):
+    """Phase 16: CUDA graphs (``graph=True``); returns the K1 and K2
+    launches of the graph paths.  ``compiled``: with the graphs of phase
+    15's cache (``graph_compiled``)."""
+    k1 = int(graph_serving(smi, "dense", GRAPH_SERVE_EVENTS)[0])
+    k2 = int(graph_serving(smi, "coo", GRAPH_SERVE_EVENTS[:1])[1])
+    k2 += graph_coo_training(smi)
+    k1 += graph_trainer(smi)
+    if compiled:
+        with bench_precision():
+            k1 += graph_compiled(smi)
+    # the full-depth train graph last: its profiler reading ends the phase
+    k1 += graph_training(smi)
     return k1, k2
 
 
@@ -2815,24 +3241,33 @@ def main():
         done("11")
         trainer_launches += check_remaining_modules(smi)
         done("12")
-        # phase 14's compiled TP ranks compile beside phase 13
+        # phase 14's compiled TP ranks and phase 15's graphs compile beside
+        # phase 13, at a low priority; the TP ranks are timed once the
+        # graphs are in the cache
         compiled_tp = start_compiled_tp(export_dir)
+        warming = start_warming(export_dir, nice=10)
         try:
             check_aoti_serving(smi, served, export_dir)
             done("13")
+            finish_warming(warming, smi, beside=" beside phase 13")
             trainer_launches += finish_compiled_tp(compiled_tp, smi)
         finally:
             stop(compiled_tp[1][0])
+            stop(warming[0].values())
     finally:
         shutil.rmtree(export_dir, ignore_errors=True)
     del served
     free_memory()
     trainer_launches += check_tensor_parallel(smi)
     done("14")
-    compiled_k1, compiled_k2 = check_compiled(smi)
+    compiled_k1, compiled_k2 = check_compiled(smi, warmed=True)
     trainer_launches += compiled_k1
     train_launches += compiled_k2
     done("15")
+    graph_k1, graph_k2 = check_graphs(smi)
+    trainer_launches += graph_k1
+    train_launches += graph_k2
+    done("16")
     kernels = []
     for (err, ms, plain_ms, lib_ms, bound_ms), name, source, replaces, launches in (
             (k1, "densify", "dune_transformercvn_torch/csrc/densify.cu",

@@ -46,12 +46,14 @@ def evaluate_run(
     datasets=None,
     testing_file: Optional[str] = None,
     compile: bool = False,
+    graph: bool = False,
 ) -> Tuple[Dict[str, np.ndarray], Dict[str, object], str]:
     """Restore ``checkpoint`` ('best', 'last' or a path) of the run in
     ``run_dir`` and predict ``split``; returns ``(predictions, results,
     report)``.  ``datasets`` takes the place of the option file's HDF5
     splits, as it does for :class:`.train.Trainer`; ``compile`` predicts
-    through the compiled step."""
+    through the compiled step, ``graph`` through the CUDA graph step (a
+    checkpoint of either optimizer form restores: nothing steps)."""
     from .train import CheckpointManager, Trainer
 
     options = Options.load(os.path.join(run_dir, "options.json"))
@@ -72,7 +74,7 @@ def evaluate_run(
     else:
         trainer.resume(checkpoint)
 
-    predictions = trainer.predict_split(split)
+    predictions = trainer.predict_split(split, graph=graph)
     results = evaluate_predictions(
         predictions["event_probabilities"], predictions["event_targets"],
         predictions["prong_probabilities"], predictions["prong_targets"],
@@ -101,6 +103,8 @@ def main(argv=None):
                         help="device to evaluate on (default cuda; no fallback)")
     parser.add_argument("--compile", action="store_true",
                         help="predict through the compiled step (torch.compile, Inductor)")
+    parser.add_argument("--cuda_graph", action="store_true",
+                        help="predict through CUDA graphs, one a batch shape")
     args = parser.parse_args(argv)
 
     if args.history:
@@ -113,7 +117,7 @@ def main(argv=None):
 
     predictions, _, report = evaluate_run(
         args.run_dir, args.checkpoint, args.split, args.batch_size, args.device,
-        testing_file=args.testing_file, compile=args.compile)
+        testing_file=args.testing_file, compile=args.compile, graph=args.cuda_graph)
     print(report)
 
     from .evaluation import save_plots, save_predictions_h5

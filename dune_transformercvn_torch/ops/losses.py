@@ -99,7 +99,10 @@ def class_balanced_loss(
     ``[1, 2, beta, 1/beta]``; a padding row (target < 0) has an all-zero
     one-hot row, so it adds nothing and is not counted."""
     num_classes = logits.shape[-1]
-    class_weights = torch.tensor([1.0, 2.0, beta, 1.0 / beta], device=logits.device)
+    # filled on the device, as a CUDA graph can capture: [1, 2, beta, 1/beta]
+    class_weights = torch.ones(4, device=logits.device)
+    for i, weight in ((1, 2.0), (2, beta), (3, 1.0 / beta)):
+        class_weights[i].fill_(weight)
     class_weights = class_weights / class_weights.sum()
     one_hot = _one_hot(targets, num_classes)
     sample_w = (class_weights[None, :num_classes] * one_hot).sum(1, keepdim=True)

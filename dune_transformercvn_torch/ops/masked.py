@@ -98,8 +98,9 @@ class MaskedBatchNorm(nn.Module):
         xf = x.float()
         dims = tuple(range(x.ndim - 1))
         if mask is None:
-            count = torch.tensor(
-                float(math.prod(x.shape[:-1])), device=x.device)
+            # filled on the device: no copy from the host (a CUDA graph
+            # cannot capture one)
+            count = torch.full((), float(math.prod(x.shape[:-1])), device=x.device)
             total = xf.sum(dims)
             total_sq = xf.square().sum(dims)
         else:

@@ -11,6 +11,7 @@ Batches come from the port's :class:`.data.Batcher`.
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -21,6 +22,7 @@ from .ops import quant
 from .ops.fold import folded_copy
 from .parallel import Mesh, all_gather_rows, default_mesh, local_shard_ids, unsharded_copy
 from .utils.compile import compile_step
+from .utils.graphs import StepGraphs
 
 
 def to_device(arrays: Mapping[str, np.ndarray], device,
@@ -41,8 +43,8 @@ def pinned(arrays: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             for k, v in arrays.items()}
 
 
-def make_predict_step(model, compile: bool = False,
-                      shapes: int = 1) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
+def make_predict_step(model, compile: bool = False, shapes: int = 1,
+                      graph: bool = False) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
     """Inference step: ``(batch, norm) -> (event_probs [B, Kev], prong_probs
     [B, P, Kpr])``, softmax over the logits.  Puts ``model`` in eval mode.
 
@@ -50,6 +52,14 @@ def make_predict_step(model, compile: bool = False,
     generation head is a training-time auxiliary).  ``compile``: the forward
     through the softmax is one Inductor graph a batch shape
     (:func:`.utils.compile.compile_step`, for up to ``shapes`` shapes).
+    ``graph``: on the card, one CUDA graph a batch shape
+    (:class:`.utils.graphs.StepGraphs`, up to ``shapes``): the call copies
+    the batch (pinned host or device tensors) and ``norm`` into the graph's
+    buffers and replays it, and the probabilities it returns are the
+    graph's output buffers, which the next call overwrites; on the CPU the
+    same forward runs without a capture.  The graphs read ``model``'s
+    parameters where they are, so updates made in place (training,
+    ``load_state_dict``) reach the next replay.
     """
     num_event = model.cfg.num_event_classes
     model.eval()
@@ -63,14 +73,39 @@ def make_predict_step(model, compile: bool = False,
 
     if compile:
         forward = compile_step(forward, shapes)
+    if graph:
+        graphs = StepGraphs(torch.inference_mode()(lambda batch, norm, states: forward(
+            batch, norm)), "predict step graph", shapes)
+    device = next(model.parameters()).device
 
     @torch.inference_mode()
     def step(batch, norm):
-        if compile and quant.active():
+        if (compile or graph) and quant.active():
             raise RuntimeError("int8 convolutions (ops.quant.quantized_convs) run "
-                               "eagerly: predict with compile=False inside the context")
-        return forward(batch, norm)
+                               "eagerly: predict with compile=False and graph=False "
+                               "inside the context")
+        if not graph or device.type != "cuda":
+            return forward(batch, norm)
+        captured = graphs.get(device, batch, norm)
+        captured.load(batch, norm)
+        return captured.replay()
 
+    if graph:
+        step.graphs, step.model, step.compile = graphs, model, compile
+    return step
+
+
+def graph_predict_step(model, compile: bool, shapes: int):
+    """``make_predict_step(model, compile, shapes, graph=True)``, kept on
+    ``model`` so that later calls for it replay the graphs already
+    captured, as compiled graphs are kept (each call raises the bound by
+    its ``shapes``, as ``compile_step`` raises the recompile limit)."""
+    step = model.__dict__.get("_graph_predict_step")
+    if step is None or step.model is not model or step.compile != compile:
+        step = make_predict_step(model, compile, shapes, graph=True)
+        model.__dict__["_graph_predict_step"] = step
+    else:
+        step.graphs.shapes += shapes
     return step
 
 
@@ -86,6 +121,7 @@ def predict_split(
     fold_eval_bn: bool = False,
     mesh: Optional[Mesh] = None,
     compile: bool = False,
+    graph: bool = False,
 ) -> Dict[str, np.ndarray]:
     """Batched inference over ``dataset`` (an ``EventDataset``, or anything
     with what ``Batcher.build_batch`` reads).
@@ -107,9 +143,15 @@ def predict_split(
     through a copy of it with whole parameters, gathered once.
     ``compile`` predicts through the compiled step (:func:`make_predict_step`),
     one graph for each batch shape the batcher lays out
-    (``Batcher.shape_bound`` of them at most).
+    (``Batcher.shape_bound`` of them at most).  ``graph`` predicts through
+    the CUDA graph step (one process only), from pinned batches, and
+    copies each batch's probabilities to pinned host memory without
+    waiting: a batch's rows are read while the next batch runs.
     """
     mesh = mesh or default_mesh()
+    if graph and mesh.world_size > 1:
+        raise ValueError("graph=True runs in one process; predict_split is in a group of "
+                         f"{mesh.world_size}")
     model = unsharded_copy(model)
     if fold_eval_bn:
         model = folded_copy(model)
@@ -124,17 +166,48 @@ def predict_split(
         fixed_shape=fixed_shape,
         local_shards=local_shard_ids(mesh) if size > 1 else None,
     )
-    step = make_predict_step(model, compile, batcher.shape_bound() if compile else 1)
+    shapes = batcher.shape_bound() if compile or graph else 1
+    step = (graph_predict_step(model, compile, shapes) if graph
+            else make_predict_step(model, compile, shapes))
     norm_t = to_device(norm, device)
     ev_probs, ev_targets = [], []
     pr_probs, pr_targets, pr_event = [], [], []
     seen = 0
-    for batch in batcher.prefetch_epoch(0):
-        probs = step(to_device(batch, device), norm_t)
-        if size == 1:
+    queued = torch.device(device).type == "cuda" and graph
+    pending = None     # (host probabilities, their copy's event, batch)
+    outputs = {}       # two pinned output buffers a shape, taken in turns
+    batches = (batcher.prefetch_epoch(0, transform=pinned) if queued
+               else batcher.prefetch_epoch(0))
+    for i, batch in enumerate(itertools.chain(batches, [None] if queued else [])):
+        if queued:
+            # the graph's outputs to pinned memory behind the replay; the
+            # batch before it is read meanwhile
+            ready, pending = pending, None
+            if batch is not None:
+                probs = step(batch, norm_t)
+                key = tuple(tuple(p.shape) for p in probs)
+                if key not in outputs:
+                    outputs[key] = [[torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+                                     for p in probs] for _ in range(2)]
+                host = outputs[key][i % 2]
+                for h, p in zip(host, probs):
+                    h.copy_(p, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+                pending = (host, event, {k: batch[k].numpy() for k in
+                                         ("event_targets", "prong_targets")})
+            if ready is None:
+                continue
+            host, event, batch = ready
+            event.synchronize()
+            probs_e, probs_p = (h.numpy().copy() for h in host)
+            event_targets, prong_targets = batch["event_targets"], batch["prong_targets"]
+        elif size == 1:
+            probs = step(to_device(batch, device), norm_t)
             probs_e, probs_p = (p.cpu().numpy() for p in probs)
             event_targets, prong_targets = batch["event_targets"], batch["prong_targets"]
         else:  # this shard's rows -> the global batch's, in shard order
+            probs = step(to_device(batch, device), norm_t)
             probs_e, probs_p, event_targets, prong_targets = all_gather_rows([
                 *probs, torch.from_numpy(batch["event_targets"]),
                 torch.from_numpy(batch["prong_targets"])], mesh.data_group)

@@ -2,7 +2,7 @@
 
     python -m dune_transformercvn_torch.train -o <options.json> -n <name>
         [-c ckpt] [--auto_resume] [-b N] [-e eval_steps] [--max_steps N]
-        [-v] [-d] [--device cuda|cpu]
+        [-v] [-d] [--device cuda|cpu] [--compile] [--cuda_graph]
 
 Where a flag names something of XLA, the port does its eager counterpart:
 ``--debug_nans`` turns on autograd's anomaly detection, ``--profile``
@@ -55,6 +55,7 @@ def main(
     log_compiles: bool = False,
     device: str = "cuda",
     compile: bool = False,
+    cuda_graph: bool = False,
 ):
     if graph or log_compiles:
         flag = "-g/--graph" if graph else "--log_compiles"
@@ -146,6 +147,7 @@ def main(
         verbose=verbose,  # options.verbose_output was clobbered to this above
         device=device,
         compile=compile,
+        graph=cuda_graph,
     )
     if checkpoint is not None:
         trainer.resume(checkpoint)
@@ -199,8 +201,8 @@ def parser() -> ArgumentParser:
     p.add_argument("--max_steps", type=int, default=None,
                    help="Stop after N optimizer steps (smoke runs).")
     p.add_argument("--steps_per_dispatch", type=int, default=None,
-                   help="Implies static batch shapes; the port runs one step "
-                        "per call.")
+                   help="Implies static batch shapes; with --cuda_graph each group "
+                        "of K steps is one CUDA graph replay, else one step a call.")
     p.add_argument("--model_parallel", type=int, default=None,
                    help="Tensor-parallel group size (the port runs without).")
     p.add_argument("--profile", action="store_true",
@@ -217,6 +219,9 @@ def parser() -> ArgumentParser:
     p.add_argument("--compile", action="store_true",
                    help="Compile the train, eval and predict steps with torch.compile "
                         "(Inductor), one graph a batch shape: the counterpart of jax.jit.")
+    p.add_argument("--cuda_graph", action="store_true",
+                   help="Replay the train (K steps a graph), eval and predict steps as "
+                        "CUDA graphs, one a batch shape: one process, AdamW, no remat.")
     return p
 
 

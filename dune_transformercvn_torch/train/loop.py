@@ -23,6 +23,7 @@ tensor parallelism, with JAX's note.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import os
 import time
@@ -74,10 +75,16 @@ class Trainer:
     ``options.steps_per_dispatch`` K > 1 implies static batch shapes, as in
     the JAX package, and keeps its cadence: logs, validations and
     checkpoints fall at the ends of groups of K steps, and an epoch's tail
-    of fewer than K batches runs as single steps.  Every step is its own
-    call; the JAX package's ``lax.scan`` over K stacked batches computes the
-    same K updates.  Its dispatch counterpart, a CUDA graph of the step, is
-    queued in ROADMAP.md §1 item 20.
+    of fewer than K batches runs as single steps.  Eagerly every step is
+    its own call.  ``graph=True`` is the counterpart of the JAX package's
+    dispatch (``make_train_step(..., graph=True)``): each full group of K
+    batches is stacked and runs as one replay of a CUDA graph of K steps
+    (JAX's ``lax.scan``), the tail as the one-step graph (JAX's
+    ``_train_dispatch_iter``), the logs read the group's last step, and
+    validation and ``predict_split`` replay graphs of their own.  It takes
+    one process, AdamW (the state holds :class:`.optimizer.GraphAdamW`)
+    and no remat (``step.check_graphable`` raises otherwise); on a
+    ``"cpu"`` device the same step bodies run without a capture.
 
     ``compile=True`` compiles the train, eval and predict steps (the JAX
     package jits them): one Inductor graph for each batch shape, with
@@ -100,9 +107,10 @@ class Trainer:
         device=None,
         datasets=None,
         compile: bool = False,
+        graph: bool = False,
     ):
         self.device = resolve_device(device)
-        self.compile = compile
+        self.compile, self.graph = compile, graph
         self.options = options
         # Resolve the embedder family: explicit argument wins, else the
         # options value (evaluate reloads it from the run dir's
@@ -206,7 +214,7 @@ class Trainer:
             # model axis before the optimizer makes their moments
             shard_parameters(model, self.mesh)
         self.state = create_train_state(
-            model, options, self.norm, self.steps_per_epoch, seed=options.seed
+            model, options, self.norm, self.steps_per_epoch, seed=options.seed, graph=graph
         )
         self.schedule = self.state.schedule
         if self.verbose:
@@ -217,11 +225,17 @@ class Trainer:
             print(f"Device: {self.device} ({self.num_shards} data shard(s) of "
                   f"{self.mesh.mp} process(es)); global batch {self.global_batch}")
 
-        # ---- step functions (compile: one graph a batch shape) ----------------
+        # ---- step functions (compile, graph: one graph a batch shape) ---------
         train_shapes, val_shapes = ((self.train_batcher.shape_bound(),
-                                     self.val_batcher.shape_bound()) if compile else (1, 1))
-        self.train_step = make_train_step(model, options, self.mesh, compile, train_shapes)
-        self.eval_step = make_eval_step(model, options, compile, val_shapes)
+                                     self.val_batcher.shape_bound())
+                                    if compile or graph else (1, 1))
+        self.train_step = make_train_step(
+            model, options, self.mesh, compile, train_shapes, graph,
+            self.steps_per_dispatch if graph else 1)
+        # the tail of fewer than K batches: the one-step graph, made at need
+        self._single_train_step = self.train_step if (
+            not graph or self.steps_per_dispatch == 1) else None
+        self.eval_step = make_eval_step(model, options, compile, val_shapes, graph)
 
         # ---- run dir / logging / checkpoints: rank 0 writes -------------------
         self.is_master = self.rank == 0
@@ -242,16 +256,52 @@ class Trainer:
 
     # -------------------------------------------------------------------------
 
-    def _host_batches(self, batcher, epoch, start_batch=0):
+    def _host_batches(self, batcher, epoch, start_batch=0, pin=True):
         """The epoch's batches, assembled on the worker threads and, for the
-        card, copied there into pinned memory."""
+        card, copied there into pinned memory (``pin``)."""
         return batcher.prefetch_epoch(
             epoch,
             depth=max(2, self.num_workers),
             num_workers=self.num_workers,
             start_batch=start_batch,
-            transform=pinned if self.device.type == "cuda" else None,
+            transform=pinned if pin and self.device.type == "cuda" else None,
         )
+
+    def _single_step(self):
+        if self._single_train_step is None:
+            self._single_train_step = make_train_step(
+                self.state.model, self.options, self.mesh, self.compile,
+                self.train_batcher.shape_bound(), graph=True)
+        return self._single_train_step
+
+    def _dispatches(self, host_batches, grouped: int):
+        """``(steps, call, took)`` for each call of a train step over the
+        epoch's batches, the first ``grouped`` in groups of K: ``took`` is
+        the steps of the dispatch that ends with the call (the cadence is
+        checked there), 0 inside a group.  Eagerly one step a call; with
+        ``graph`` a full group of K stacked batches is one call, as the JAX
+        package's ``_train_dispatch_iter`` yields."""
+        K, state = self.steps_per_dispatch, self.state
+        if not self.graph:
+            for i, batch in enumerate(self._device_prefetch(host_batches)):
+                took = 1 if i >= grouped else 0 if (i + 1) % K else K
+                yield 1, functools.partial(self.train_step, state, batch), took
+            return
+        on_card = self.device.type == "cuda"
+
+        def placed(batch):  # pinned for the graph's copy, or CPU tensors
+            return pinned(batch) if on_card else to_device(batch, self.device)
+
+        group = []
+        for i, batch in enumerate(host_batches):
+            if i >= grouped or K == 1:
+                yield 1, functools.partial(self._single_step(), state, placed(batch)), 1
+                continue
+            group.append(batch)
+            if len(group) == K:
+                stacked = {k: np.stack([b[k] for b in group]) for k in group[0]}
+                group = []
+                yield K, functools.partial(self.train_step, state, placed(stacked)), K
 
     def _device_prefetch(self, host_iterator):
         """Move batches to the device one step ahead.  The copies come from
@@ -298,7 +348,7 @@ class Trainer:
             totals = self.eval_step(self.state, batch, totals)
         return finalize_metrics(reduce_metric_state(totals, self.mesh.data_group))
 
-    def predict_split(self, split: str = "validation"):
+    def predict_split(self, split: str = "validation", graph: Optional[bool] = None):
         """Batched inference over a split (the Evaluate.ipynb cell-14 loop).
 
         Returns event probabilities/targets for every event and prong
@@ -308,7 +358,8 @@ class Trainer:
         a BatchNorm-folded copy of the model (the JAX Trainer's
         ``_inference_state``); training and validation keep the raw state.
         Data-parallel, each rank predicts its data shard of every batch and
-        every rank returns all rows, in order.
+        every rank returns all rows, in order.  ``graph`` (default: the
+        Trainer's) predicts through CUDA graphs.
         """
         dataset = {
             "training": self.training_dataset,
@@ -330,6 +381,7 @@ class Trainer:
             fold_eval_bn=options.fold_eval_bn,
             mesh=self.mesh,
             compile=self.compile,
+            graph=self.graph if graph is None else graph,
         )
 
     def _log_confusions(self, metrics: Dict[str, float], step: int):
@@ -365,7 +417,8 @@ class Trainer:
         the step: ``(keys, values, event)``, read once ``event`` has passed
         (on the CPU the values are there already)."""
         keys = list(metrics)
-        values = torch.stack([metrics[k].detach().float() for k in keys])
+        # a K-step dispatch's metrics are stacked [K]: its last step's
+        values = torch.stack([metrics[k].detach().float().reshape(-1)[-1] for k in keys])
         if self.device.type != "cuda":
             return keys, values, None
         values = values.to("cpu", non_blocking=True)
@@ -465,26 +518,26 @@ class Trainer:
                 # below is checked where each dispatch ends
                 n = max(0, min(self.steps_per_epoch - start_batch, limit - step))
                 grouped = n - n % K
-                host_iterator = self._host_batches(self.train_batcher, epoch, start_batch)
-                for i, batch in enumerate(self._device_prefetch(
-                    itertools.islice(host_iterator, n)
-                )):
+                # a graph's groups are stacked, then pinned
+                host_iterator = self._host_batches(self.train_batcher, epoch, start_batch,
+                                                   pin=not self.graph)
+                for steps, call, took in self._dispatches(
+                        itertools.islice(host_iterator, n), grouped):
                     if (
                         profile_dir is not None
                         and step - start_step >= 10
                         and profiler is None
                     ):
                         profiler = self._start_profile()
-                    metrics = self.train_step(self.state, batch)
-                    step += 1
-                    window_events += self.global_batch
+                    metrics = call()
+                    step += steps
+                    window_events += self.global_batch * steps
                     if profiler is not None and step - start_step >= 15:
                         self._stop_profile(profiler, profile_dir)
                         profiler = None
                         profile_dir = None  # capture exactly one trace per run
-                    if i < grouped and (i + 1) % K:
+                    if not took:
                         continue  # inside a group of K
-                    took = K if i < grouped else 1
 
                     flush_pending_log()
                     if self.logger.enabled and (

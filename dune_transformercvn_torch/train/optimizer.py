@@ -34,6 +34,13 @@ unknown name falls back to AdamW with the JAX package's message.
   packs several leaves along its first axis (the attention's q/k/v
   ``in_proj_weight`` / ``in_proj_bias``) takes one ratio per leaf
   (:func:`..from_jax.jax_leaf_splits`).
+* **Graph-safe AdamW** (:class:`GraphAdamW`, ``create_optimizer(...,
+  graph=True)``): optax's ``adamw`` in ``_foreach_`` ops whose step count
+  and learning rate are tensors on the parameters' device, so a CUDA graph
+  captures its update and each replay reads the rate the host wrote
+  (``train/step.py``'s ``graph=True``).  Its bias corrections are optax's
+  float32 ``1 - b ** count``, computed on the device.  The seven chains
+  keep their count and rate on the host and raise under ``graph=True``.
 * optax updates every leaf, so a parameter that got no gradient gets a zero
   one here (its moments stay zero, its decay still applies).
 * **Tensor parallelism** (``parallel.shard_parameters``): a sharded
@@ -231,20 +238,120 @@ class Lion(OptaxChain):
         return -group["lr"] * _decayed(u, p, group)
 
 
+class GraphAdamW(torch.optim.Optimizer):
+    """optax's ``adamw`` (betas 0.9 / 0.999, eps 1e-8, the groups' masked
+    decay) with no host state in its update: ``count`` (optax's step
+    count, int32) and ``lr`` are 0-d tensors on the parameters' device,
+    the moments ``exp_avg`` / ``exp_avg_sq`` are made with the optimizer,
+    and :meth:`step` launches the same kernels whether it runs eagerly or
+    inside a CUDA graph's capture.  ``step(lr=t)`` reads the rate from the
+    tensor ``t`` (a graph's buffer the host fills before each replay);
+    ``step()`` fills ``lr`` from ``group["lr"]`` first, as the eager train
+    step sets it.  Its checkpoint has ``torch.optim.AdamW``'s layout (the
+    count as each parameter's ``step``), so either optimizer restores the
+    other's; :meth:`load_state_dict` restores into the live tensors, so a
+    captured graph keeps reading them."""
+
+    betas = (0.9, 0.999)
+    eps = 1e-8
+
+    def __init__(self, groups, lr: float):
+        super().__init__(groups, dict(lr=lr, betas=self.betas, eps=self.eps,
+                                      weight_decay=0.0))
+        device = self.param_groups[0]["params"][0].device
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
+        self.lr = torch.full((), float(lr), device=device)
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p] = {name: torch.zeros_like(p, memory_format=torch.preserve_format)
+                                 for name in ("exp_avg", "exp_avg_sq")}
+
+    @torch.no_grad()
+    def step(self, closure=None, lr: torch.Tensor = None):
+        if lr is None:
+            lr = self.lr.fill_(self.param_groups[0]["lr"])
+        b1, b2 = self.betas
+        self.count.add_(1)
+        count = self.count.float()
+        # optax's bias corrections in float32
+        c1 = 1.0 - torch.pow(torch.full_like(count, b1), count)
+        c2 = 1.0 - torch.pow(torch.full_like(count, b2), count)
+        for group in self.param_groups:
+            params = group["params"]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            mu = [self.state[p]["exp_avg"] for p in params]
+            nu = [self.state[p]["exp_avg_sq"] for p in params]
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, grads, alpha=1 - b1)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
+            denom = torch._foreach_div(nu, c2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.eps)
+            update = torch._foreach_div(mu, c1)
+            torch._foreach_div_(update, denom)
+            if group["weight_decay"]:
+                torch._foreach_add_(update, params, alpha=group["weight_decay"])
+            torch._foreach_mul_(update, lr)
+            torch._foreach_sub_(params, update)
+
+    def state_dict(self):
+        state = super().state_dict()
+        step = self.count.float().cpu()
+        state["state"] = {i: {**slots, "step": step} for i, slots in state["state"].items()}
+        return state
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        slots = {i: dict(s) for i, s in state_dict["state"].items()}
+        steps = [s.pop("step") for s in slots.values() if "step" in s]
+        state_dict["state"] = slots
+        live = {p: self.state[p] for group in self.param_groups for p in group["params"]}
+        super().load_state_dict(state_dict)
+        for p, tensors in live.items():
+            for name, tensor in tensors.items():
+                tensor.copy_(self.state[p][name])
+            self.state[p] = tensors
+        if steps:
+            self.count.copy_(steps[0].round())
+
+
 CHAINS = {"adam": Adam, "sgd": SGD, "rmsprop": RMSprop, "adagrad": Adagrad,
           "lamb": Lamb, "lars": Lars, "lion": Lion}
 
 
-def create_optimizer(options, model: nn.Module) -> torch.optim.Optimizer:
-    """``options.optimizer`` over ``model``'s parameters in two groups,
-    decayed and not, with ``lr`` set to the base rate (the train step scales
-    it by the schedule before every update)."""
+def optimizer_name(options) -> str:
+    """The optimizer ``options`` ask for, aliases resolved; a name the
+    JAX package does not know falls back to AdamW with its message."""
     name = _ALIASES.get(options.optimizer.lower(), options.optimizer.lower())
     if name != "adamw" and name not in CHAINS:
-        # the JAX package's fallback for a name it does not know
         print(f"Unable to load desired optimizer: {options.optimizer}. "
               "Using AdamW as a default.")
         name = "adamw"
+    return name
+
+
+def check_graph_safe(options) -> None:
+    """``graph=True`` takes AdamW alone (:class:`GraphAdamW`): the optax
+    chains count and scale on the host."""
+    name = _ALIASES.get(options.optimizer.lower(), options.optimizer.lower())
+    if name in CHAINS:
+        raise ValueError(
+            f"graph=True (CUDA graphs) supports the AdamW optimizer only; "
+            f"{options.optimizer!r} keeps its step count and rate on the host "
+            "(ROADMAP.md item 20)")
+
+
+def create_optimizer(options, model: nn.Module, graph: bool = False) -> torch.optim.Optimizer:
+    """``options.optimizer`` over ``model``'s parameters in two groups,
+    decayed and not, with ``lr`` set to the base rate (the train step scales
+    it by the schedule before every update).  ``graph``: the graph-safe
+    :class:`GraphAdamW` (AdamW only; another optimizer raises)."""
+    if graph:
+        check_graph_safe(options)
+    name = optimizer_name(options)
     mask = decay_mask(model)
     params = dict(model.named_parameters())
     groups = [
@@ -253,6 +360,8 @@ def create_optimizer(options, model: nn.Module) -> torch.optim.Optimizer:
         {"params": [p for n, p in params.items() if not mask[n]],
          "weight_decay": 0.0},
     ]
+    if graph:
+        return GraphAdamW(groups, options.learning_rate)
     if name == "adamw":
         return torch.optim.AdamW(groups, lr=options.learning_rate, betas=(0.9, 0.999),
                                  eps=1e-8)

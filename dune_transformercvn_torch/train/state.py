@@ -54,7 +54,11 @@ class TrainState:
         The optimizer must have been built over the same parameters in the
         same groups (``create_optimizer`` on the same model config).  Whole
         tensors saved from any layout load into a sharded state as this
-        rank's pieces."""
+        rank's pieces.  The parameters, BatchNorm buffers, norm statistics
+        and a :class:`.optimizer.GraphAdamW`'s slots and count are copied
+        into the live tensors, so the CUDA graphs of a ``graph=True`` step
+        go on reading them; the graphs' generator states are seeded from
+        ``generator`` before every replay, so its state is theirs."""
         self.step = int(state["step"])
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
@@ -70,19 +74,27 @@ class TrainState:
                 if "step" in slot:
                     slot["step"] = slot["step"].cpu()
         device = next(self.model.parameters()).device
-        self.norm = {k: v.to(device) for k, v in state["norm"].items()}
+        norm = {k: v.to(device) for k, v in state["norm"].items()}
+        if norm.keys() == self.norm.keys() and all(
+                v.shape == self.norm[k].shape and v.dtype == self.norm[k].dtype
+                for k, v in norm.items()):
+            for k, v in norm.items():   # in place, as the rest of the state
+                self.norm[k].copy_(v)
+        else:
+            self.norm = norm
         self.generator.set_state(state["generator"].cpu())
 
 
 def create_train_state(model: nn.Module, options, norm: Mapping[str, np.ndarray],
-                       steps_per_epoch: int, seed: int = 0) -> TrainState:
+                       steps_per_epoch: int, seed: int = 0, graph: bool = False) -> TrainState:
     """A fresh state for ``model`` (already on its device): the optimizer of
-    ``options``, the schedule of ``options`` over ``steps_per_epoch``."""
+    ``options`` (``graph``: its graph-safe form), the schedule of
+    ``options`` over ``steps_per_epoch``."""
     device = next(model.parameters()).device
     return TrainState(
         step=0,
         model=model,
-        optimizer=create_optimizer(options, model),
+        optimizer=create_optimizer(options, model, graph),
         schedule=from_options(options, steps_per_epoch),
         base_lr=float(options.learning_rate),
         norm=to_device(norm, device),

@@ -56,12 +56,25 @@ offsets from the default generator the step seeds, so a compiled run is
 reproducible from the state (its masks are not eager's).  Not with
 ``remat`` (``remat_cnn``, ``remat_embedder``, ``embedder_chunk``): that
 raises (ROADMAP.md).
+
+``graph=True`` is the counterpart of the JAX package's dispatch: on the
+card the train step is one CUDA graph of ``steps_per_dispatch`` K whole
+steps over K stacked batches (its ``lax.scan``; :func:`make_graph_train_step`)
+and the eval step one graph a batch shape (:mod:`..utils.graphs`).  The
+graph holds the forward, the backward, the gradients' norm, the clipping
+and the :class:`.optimizer.GraphAdamW` update; outside it stay the draws
+of each step's seed from ``state.generator``, the schedule's rates, the
+copies of the batches and the norm statistics into the graph's buffers,
+and the copy of the stacked metrics out.  It composes with ``compile``
+(the compiled forward and loss, warmed up before the capture, run inside
+the graph).  :func:`check_graphable` raises for what it does not take:
+more than one process, remat, an optimizer other than AdamW.
 """
 
 from __future__ import annotations
 
-from contextlib import nullcontext
-from typing import Callable, Dict, Optional, Tuple
+from contextlib import contextmanager, nullcontext
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -71,8 +84,9 @@ from ..ops.losses import (binary_event_loss, class_balanced_loss,
 from ..ops.masked import MaskedBatchNorm
 from ..parallel import Mesh, all_reduce_, default_mesh, local, shard_spec
 from ..utils.compile import compile_step
+from ..utils.graphs import StepGraphs
 from .metrics import update_metric_state
-from .optimizer import clip_by_global_norm_, global_norm
+from .optimizer import GraphAdamW, check_graph_safe, clip_by_global_norm_, global_norm
 from .state import TrainState
 
 # folds the data shard into a step's seed (shard 0 keeps it): the 64-bit golden ratio
@@ -171,8 +185,26 @@ def _check_compilable(model, train: bool):
                          "eagerly")
 
 
+def check_graphable(model, train: bool, mesh: Optional[Mesh] = None, options=None):
+    """What ``graph=True`` does not take yet raises here (ROADMAP.md item
+    20): more than one process, remat, an optimizer that keeps host state."""
+    mesh = mesh or default_mesh()
+    if mesh.world_size > 1:
+        raise ValueError(
+            f"graph=True runs in one process; this one is rank {mesh.rank} of "
+            f"{mesh.world_size} (data- and tensor-parallel graphs over nccl are not "
+            "ported yet)")
+    cfg = model.cfg
+    if train and (cfg.remat_cnn or cfg.remat_embedder or cfg.embedder_chunk):
+        raise ValueError("graph=True with remat_cnn, remat_embedder or embedder_chunk "
+                         "is not supported: the recompute's BatchNorm freezing runs "
+                         "on the host")
+    if options is not None:
+        check_graph_safe(options)
+
+
 def make_train_step(model, options, mesh: Optional[Mesh] = None, compile: bool = False,
-                    shapes: int = 1
+                    shapes: int = 1, graph: bool = False, steps_per_dispatch: int = 1
                     ) -> Callable[[TrainState, Dict], Dict[str, torch.Tensor]]:
     """``step(state, batch) -> metrics``: one optimizer step of
     ``state.model`` (``model`` fixes the loss variant) on a batch of tensors
@@ -181,7 +213,8 @@ def make_train_step(model, options, mesh: Optional[Mesh] = None, compile: bool =
     than one.  Updates ``state`` in place; the metrics are 0-d tensors on
     the device (no synchronisation on one device), ``grad_norm`` included.
     ``compile``: the forward and loss (and their backward) compiled, for up
-    to ``shapes`` batch shapes."""
+    to ``shapes`` batch shapes.  ``graph``: :func:`make_graph_train_step`'s
+    step, ``steps_per_dispatch`` steps a call."""
     gamma = options.loss_gamma
     event_scale = options.event_prong_loss_proportion
     loss_kwargs = _loss_kwargs(options, model)
@@ -193,9 +226,15 @@ def make_train_step(model, options, mesh: Optional[Mesh] = None, compile: bool =
         return compute_losses(event_logits, prong_logits, batch["event_targets"],
                               batch["prong_targets"], gamma, event_scale, **loss_kwargs)
 
+    if graph:
+        check_graphable(model, True, mesh, options)
+    elif steps_per_dispatch != 1:
+        raise ValueError("steps_per_dispatch > 1 runs as one CUDA graph: pass graph=True")
     if compile:
         _check_compilable(model, train=True)
         forward_loss = compile_step(forward_loss, shapes)
+    if graph:
+        return make_graph_train_step(forward_loss, clip, shapes, steps_per_dispatch)
     size, shard = mesh.world_size, mesh.data_index
     # with sync-BN the statistics are already the global batch's
     stats = ([] if size == 1 or options.sync_batch_norm else
@@ -258,6 +297,162 @@ def make_train_step(model, options, mesh: Optional[Mesh] = None, compile: bool =
     return step
 
 
+@contextmanager
+def _seeded_cpu(seed: int):
+    """An eager step's draws on the CPU: the default generators seeded
+    with the step's seed, the caller's streams left as they were."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        yield
+
+
+@contextmanager
+def _seeded_graph(device, state: torch.Generator):
+    """Inside a CUDA graph: ``device``'s default generator reads ``state``
+    (registered with the graph and seeded before each replay), so the
+    step draws what an eager step seeded alike draws."""
+    default = torch.cuda.default_generators[device.index or 0]
+    original = default.graphsafe_get_state()
+    default.graphsafe_set_state(state)
+    try:
+        yield
+    finally:
+        default.graphsafe_set_state(original)
+
+
+def make_graph_train_step(forward_loss, clip: float, shapes: int = 1, steps: int = 1):
+    """The train step as one CUDA graph of ``steps`` K whole steps
+    (forward, backward, the gradients' norm, clipping, the
+    :class:`.optimizer.GraphAdamW` update), the counterpart of the JAX
+    package's ``lax.scan`` over K stacked batches (``steps_per_dispatch``).
+
+    ``step(state, batches) -> metrics``: K > 1 takes K stacked batches
+    (every leaf ``[K, ...]``) and returns each metric stacked ``[K]``, as
+    JAX's scanned step does; K = 1 takes one batch and returns 0-d
+    metrics.  Step k of a call computes what the k-th eager step
+    (:func:`make_train_step`) from the same state computes: the host draws
+    its seed from ``state.generator`` and its rate from the schedule at
+    ``state.step + k`` before the replay, the graph reads the K rates from
+    a device buffer, and step k's noise and dropout draw from the k-th
+    generator state registered with the graph, seeded with that seed.
+    Every gradient stays allocated (zeroed in place before each backward),
+    the optimizer's state is restored in place on resume
+    (``TrainState.load_state_dict``), and the norm statistics are copied in
+    with the batches, so the graph keeps reading live memory.  The first
+    call of a batch shape warms the body up (the state it changed put
+    back) and captures it, up to ``shapes`` shapes (:mod:`..utils.graphs`).
+
+    On a state whose model is on the CPU the same body runs without a
+    capture: each step seeded as the eager step seeds, the rates read
+    from a CPU tensor; the tests hold it to JAX there.  On CUDA it never
+    runs uncaptured."""
+    names: List[str] = []
+    bound = {"state": None}
+
+    def body(state, batches, norm, lrs, rng):
+        net = state.model
+        net.train()
+        params = [p for p in net.parameters() if p.requires_grad]
+        grads = [p.grad for p in params]
+        rows = []
+        for k in range(steps):
+            batch = {n: v[k] for n, v in batches.items()}
+            with rng(k):
+                with record_function("train_step.forward"):
+                    total, metrics = forward_loss(net, batch, norm)
+                with record_function("train_step.backward"):
+                    torch._foreach_zero_(grads)
+                    total.backward()
+            with record_function("train_step.optimizer"):
+                norm_ = global_norm(grads)
+                if clip > 0:
+                    clip_by_global_norm_(grads, clip, norm_)
+                state.optimizer.step(lr=lrs[k])
+            metrics["grad_norm"] = norm_
+            if not names:
+                names.extend(metrics)
+            rows.append(torch.stack([metrics[n].float() for n in names]))
+        return torch.stack(rows)
+
+    def graph_body(batches, norm, lrs, states):
+        rates = lrs["lrs"]
+        return body(bound["state"], batches, norm, rates,
+                    lambda k: _seeded_graph(rates.device, states[k]))
+
+    @contextmanager
+    def put_back():
+        """The warm-up's steps leave the state as it was."""
+        with torch.no_grad():
+            live = _state_tensors(bound["state"])
+            kept = [t.clone() for t in live]
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                torch._foreach_copy_(live, kept)
+
+    graphs = StepGraphs(graph_body, "train step graph", shapes, steps, put_back)
+
+    def step(state: TrainState, batches) -> Dict[str, torch.Tensor]:
+        if steps > 1:
+            leading = {v.shape[0] for v in batches.values()}
+            if leading != {steps}:
+                raise ValueError(f"a {steps}-step graph takes {steps} stacked batches "
+                                 f"(every leaf [{steps}, ...]), got leading sizes {leading}")
+        else:
+            batches = {n: v.unsqueeze(0) for n, v in batches.items()}
+        if not isinstance(state.optimizer, GraphAdamW):
+            raise ValueError("graph=True needs the graph-safe AdamW: create the state "
+                             "with create_train_state(..., graph=True)")
+        state.model.train()
+        params = [p for p in state.model.parameters() if p.requires_grad]
+        device = params[0].device
+        seeds = [int(torch.randint(0, 2 ** 62, (1,), generator=state.generator))
+                 for _ in range(steps)]
+        rates = torch.tensor([state.base_lr * state.schedule(state.step + k)
+                              for k in range(steps)], dtype=torch.float32)
+        for p in params:       # every gradient allocated: the body zeroes them
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if device.type != "cuda":
+            out = body(state, batches, state.norm, rates.to(device),
+                       lambda k: _seeded_cpu(seeds[k]))
+        else:
+            if bound["state"] is None:
+                bound["state"], bound["grads"] = state, [p.grad for p in params]
+            elif bound["state"] is not state:
+                raise ValueError("a graph train step serves the TrainState of its first call")
+            for p, g in zip(params, bound["grads"]):
+                p.grad = g     # an eager step may have dropped them
+            # (the rates on the host give the key; a capture copies them in)
+            captured = graphs.get(device, batches, state.norm, {"lrs": rates})
+            captured.load(batches, state.norm)
+            # the rates as fills: no host buffer for a copy to wait on
+            for static, rate in zip(captured.inputs[2]["lrs"], rates.tolist()):
+                static.fill_(rate)
+            for generator, seed in zip(captured.states, seeds):
+                generator.manual_seed(seed)
+            out = captured.replay().clone()
+        state.step += steps
+        if steps == 1:
+            out = out[0]
+        return dict(zip(names, out.unbind(-1)))
+
+    step.graphs = graphs
+    return step
+
+
+def _state_tensors(state: TrainState) -> List[torch.Tensor]:
+    """Every tensor a train step updates in place: parameters, BatchNorm
+    buffers, gradients and the optimizer's state."""
+    optimizer = state.optimizer
+    tensors = [t for t in state.model.state_dict(keep_vars=True).values()]
+    tensors += [p.grad for p in state.model.parameters() if p.grad is not None]
+    tensors += [t for slots in optimizer.state.values() for t in slots.values()
+                if torch.is_tensor(t)]
+    return tensors + [optimizer.count]
+
+
 def _mixed_layouts():
     """torch's optimizers step sharded and plain parameters in one list
     with the plain ones taken as replicated."""
@@ -266,12 +461,17 @@ def _mixed_layouts():
     return implicit_replication()
 
 
-def make_eval_step(model, options, compile: bool = False,
-                   shapes: int = 1) -> Callable[[TrainState, Dict, Dict], Dict]:
+def make_eval_step(model, options, compile: bool = False, shapes: int = 1,
+                   graph: bool = False) -> Callable[[TrainState, Dict, Dict], Dict]:
     """``step(state, batch, totals) -> totals``: eval-mode forward and loss;
     the metric sufficient statistics of the batch are added to ``totals``
     (from :func:`.metrics.init_metric_state`) in place, on the device.
-    ``compile``: all of it compiled, for up to ``shapes`` batch shapes."""
+    ``compile``: all of it compiled, for up to ``shapes`` batch shapes.
+    ``graph``: on the card, one CUDA graph a batch shape computes the
+    batch's statistics into zeroed buffers of its own, and the step adds
+    them to ``totals`` (the statistics are small integer counts and one
+    loss sum: ``totals + (0 + x)`` is ``totals + x`` bit for bit); on the
+    CPU the same body runs without a capture."""
     gamma = options.loss_gamma
     event_scale = options.event_prong_loss_proportion
     loss_kwargs = _loss_kwargs(options, model)
@@ -297,4 +497,35 @@ def make_eval_step(model, options, compile: bool = False,
         net.eval()
         return evaluate(net, batch, state.norm, totals)
 
-    return step
+    if not graph:
+        return step
+    check_graphable(model, False)
+    bound = {}
+
+    @torch.no_grad()
+    def graph_body(batch, norm, totals, states):
+        for t in totals.values():
+            t.zero_()
+        net = bound["state"].model
+        net.eval()
+        return evaluate(net, batch, norm, totals)
+
+    graphs = StepGraphs(graph_body, "eval step graph", shapes)
+
+    def graph_step(state: TrainState, batch, totals):
+        if bound.setdefault("state", state) is not state:
+            raise ValueError("a graph eval step serves the TrainState of its first call")
+        device = next(state.model.parameters()).device
+        state.model.eval()
+        if device.type != "cuda":
+            delta = graph_body(batch, state.norm, {k: torch.empty_like(v)
+                                                   for k, v in totals.items()}, [])
+        else:
+            captured = graphs.get(device, batch, state.norm, totals)
+            captured.load(batch, state.norm)
+            delta = captured.replay()
+        torch._foreach_add_([totals[k] for k in delta], list(delta.values()))
+        return totals
+
+    graph_step.graphs = graphs
+    return graph_step

@@ -1,0 +1,150 @@
+"""CUDA graphs of the port's steps: the counterpart of ``jax.jit``'s one
+program a batch shape, and of ``lax.scan`` over K train steps.
+
+The JAX package runs each predict, eval and train call as one compiled
+program, and ``steps_per_dispatch`` K puts K optimizer steps into one
+(``dune_transformercvn_tpu/train/step.py``).  On the card the port records
+a step's kernels once into a ``torch.cuda.CUDAGraph`` and replays them,
+one launch of the graph a call, instead of thousands of launches from the
+host.  :class:`StepGraphs` keeps one graph for each input shape:
+
+* the first call of a shape copies its inputs into static buffers, warms
+  the body up on a side stream (lazy library handles, the compiled
+  forward's first call) and captures it; every later call copies its
+  inputs into the same buffers and replays;
+* the graphs of one step share one private memory pool, and past
+  ``shapes`` graphs a new shape raises, as ``utils/compile.py``'s
+  recompile limit does;
+* a failure inside the capture raises: no step asked for a graph runs
+  uncaptured on the card;
+* the launch counters of kernels K1 and K2 (``densify_images_cuda``,
+  ``scatter_patches_cuda``) tick during the capture, which launches
+  nothing; the capture takes its ticks back and every replay adds them
+  again, so the counters count the kernels' real launches.
+
+A body draws its random numbers from generator states registered with
+the graph (:func:`generator_states`), which the caller seeds before each
+replay; what a replay reads from the host is what the caller copies in.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
+
+from ..ops.coo_stem import scatter_patches_cuda
+from ..ops.densify import densify_images_cuda
+
+# the wrappers whose ``launches`` count a kernel's launches
+LAUNCH_COUNTERS = (densify_images_cuda, scatter_patches_cuda)
+
+
+def shape_key(*trees: Dict[str, torch.Tensor]):
+    """What decides a graph: every input's name, shape and dtype."""
+    return tuple((i, name, tuple(t.shape), t.dtype)
+                 for i, tree in enumerate(trees) for name, t in sorted(tree.items()))
+
+
+def generator_states(device, count: int) -> List[torch.Generator]:
+    """``count`` fresh states of ``device``'s default CUDA generator, one
+    for each step a graph holds; ``manual_seed`` on one before a replay
+    gives that step the draws an eager step seeded alike makes."""
+    default = torch.cuda.default_generators[torch.device(device).index or 0]
+    return [default.clone_state() for _ in range(count)]
+
+
+class Captured:
+    """One captured graph: its static ``inputs`` (name -> tensor, per
+    tree), ``outputs``, the generator ``states`` it reads, and the kernel
+    launches a replay makes."""
+
+    def __init__(self, graph, inputs, outputs, states, launches):
+        self.graph, self.inputs, self.outputs = graph, inputs, outputs
+        self.states, self.launches = states, launches
+
+    def load(self, *trees: Dict[str, torch.Tensor]) -> None:
+        """Copy a call's tensors into the static inputs (from pinned host
+        memory without waiting; stream order keeps them behind the last
+        replay's reads)."""
+        for static, tree in zip(self.inputs, trees):
+            for name, value in tree.items():
+                static[name].copy_(value, non_blocking=True)
+
+    def replay(self):
+        self.graph.replay()
+        for counter, count in zip(LAUNCH_COUNTERS, self.launches):
+            counter.launches += count
+        return self.outputs
+
+
+class StepGraphs:
+    """The graphs of one step function, one for each input shape, at most
+    ``shapes`` of them, in one memory pool.
+
+    ``body(*inputs, states)`` is the step: it reads the static input trees
+    and returns its outputs (tensors the graph writes at each replay).
+    ``states_per_graph`` generator states are registered with each graph
+    and passed to the body.  ``around_warmup``, when given, is a context
+    manager entered around the warm-up, e.g. one that puts back the state
+    the warm-up steps changed."""
+
+    def __init__(self, body: Callable, name: str, shapes: int = 1,
+                 states_per_graph: int = 0, around_warmup: Optional[Callable] = None):
+        self.body, self.name, self.shapes = body, name, int(shapes)
+        self.states_per_graph = states_per_graph
+        self.around_warmup = around_warmup
+        self.graphs: Dict[tuple, Captured] = {}
+        self.pool = None
+
+    def get(self, device, *trees: Dict[str, torch.Tensor]) -> Captured:
+        """The graph of these inputs' shape on ``device``, captured at its
+        first call (and loaded with them then)."""
+        key = shape_key(*trees)
+        captured = self.graphs.get(key)
+        if captured is None:
+            if len(self.graphs) >= self.shapes:
+                raise RuntimeError(
+                    f"{self.name}: a batch shape past the {self.shapes} graph(s) this "
+                    f"step was made for ({len(self.graphs)} captured); a graph step "
+                    "does not run uncaptured")
+            captured = self.graphs[key] = self._capture(torch.device(device), trees)
+        return captured
+
+    def _capture(self, device, trees: Sequence[Dict[str, torch.Tensor]]) -> Captured:
+        if device.type != "cuda":
+            raise ValueError(f"{self.name}: CUDA graphs need CUDA tensors, got {device}")
+        inputs = tuple({name: torch.empty_like(t, device=device) for name, t in tree.items()}
+                       for tree in trees)
+        for static, tree in zip(inputs, trees):
+            for name, value in tree.items():
+                static[name].copy_(value)
+        states = generator_states(device, self.states_per_graph)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            if self.around_warmup is None:
+                self.body(*inputs, states)
+            else:
+                with self.around_warmup():
+                    self.body(*inputs, states)
+        torch.cuda.current_stream(device).wait_stream(side)
+        # the warm-up's blocks back to the card, for the graph's pool
+        torch.cuda.empty_cache()
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        for state in states:
+            graph.register_generator_state(state)
+        counters = LAUNCH_COUNTERS
+        before = [c.launches for c in counters]
+        try:
+            # thread_local: the batcher's threads may pin host memory meanwhile
+            with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
+                outputs = self.body(*inputs, states)
+        except Exception as error:
+            raise RuntimeError(f"{self.name}: CUDA graph capture failed: {error}") from error
+        launches = [c.launches - b for c, b in zip(counters, before)]
+        for counter, count in zip(counters, before):
+            counter.launches = count
+        return Captured(graph, inputs, outputs, states, launches)

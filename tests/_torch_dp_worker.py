@@ -17,7 +17,8 @@ in-memory training and validation events and ``fit``'s arguments; this
 rank fits an eager and a compiled ``Trainer`` (``compile=True``) and
 writes each one's step metrics and gradients, final state and validation
 result (sharded tensors of a tensor-parallel run gathered whole; also
-started by ``tests/test_torch_port_compile_tp.py``).
+started by ``tests/test_torch_port_compile_tp.py``), and the eager fit's
+spread under a reordering of each data shard's events (``reordered``).
 
 ``trainer``: the input (``torch.save``) holds ``options`` (a dict), the
 JAX Trainer's initial ``variables`` and the run's ``log_dir``; this rank
@@ -109,10 +110,31 @@ def trainer(inputs, rank, world_size):
     return out
 
 
+def reordered(batcher, perm):
+    """``batcher``'s epochs with the events of each data shard's block of
+    every global batch taken in the order ``perm``: the same batches, the
+    same shards, summed in another order."""
+    original, block = batcher.epoch_indices, len(perm)
+
+    def epoch_indices(epoch):
+        order = original(epoch)
+        whole = len(order) // block * block
+        return np.concatenate([order[:whole].reshape(-1, block)[:, list(perm)].reshape(-1),
+                               order[whole:]])
+
+    batcher.epoch_indices = epoch_indices
+
+
 def compiled(inputs, rank, world_size):
     """An eager and a compiled ``Trainer`` (``compile=True``) on the same
     options and events, each fit on this rank's shards: every step's
-    metrics and gradients, the final state and the validation result."""
+    metrics and gradients, the final state and the validation result.
+    Then the eager fit again under each of the other 23 orders of every
+    data shard's 4 events: ``spread`` holds the largest change of each
+    step's metrics, of each running statistic (elementwise) and of the
+    validation loss, float32 summation order alone."""
+    import itertools
+
     from dune_transformercvn_torch import Options
     from dune_transformercvn_torch.data import InMemoryEvents
     from dune_transformercvn_torch.parallel import full_tensors
@@ -121,31 +143,50 @@ def compiled(inputs, rank, world_size):
 
     torch._inductor.config.compile_threads = 1
     setup = torch.load(inputs, weights_only=False)
-    out = {}
-    for compile in (False, True):
+
+    def fit(compile, perm=None, grads=True):
         options = Options()
         options.update_options(setup["options"])
         datasets = (InMemoryEvents(*setup["training"]), InMemoryEvents(*setup["validation"]),
                     None)
         trainer = Trainer(options, debug=True, verbose=False, device="cpu",
                           datasets=datasets, compile=compile)
+        if perm is not None:
+            reordered(trainer.train_batcher, perm)
         steps, step = [], trainer.train_step
 
-        def recorded(state, batch, step=step, steps=steps):
+        def recorded(state, batch):
             metrics = step(state, batch)
             named = dict(state.model.named_parameters())
-            grads = full_tensors([p.grad for p in named.values()])
-            steps.append(({k: float(v) for k, v in metrics.items()},
-                          {n: g.clone() for n, g in zip(named, grads)}))
+            kept = ({n: g.clone() for n, g in zip(named, full_tensors(
+                [p.grad for p in named.values()]))} if grads else None)
+            steps.append(({k: float(v) for k, v in metrics.items()}, kept))
             return metrics
 
         trainer.train_step = recorded
         result = trainer.fit(**setup["fit"])
-        out["compiled" if compile else "eager"] = {
-            "steps": steps,
-            "state": to_host(trainer.state.model.state_dict()),
-            "result": {k: v for k, v in result.items() if np.ndim(v) == 0},
-        }
+        return {"steps": steps, "state": to_host(trainer.state.model.state_dict()),
+                "result": {k: v for k, v in result.items() if np.ndim(v) == 0}}
+
+    out = {"eager": fit(False), "compiled": fit(True)}
+    eager = out["eager"]
+    spread = out["spread"] = {
+        "steps": [dict.fromkeys(metrics, 0.0) for metrics, _ in eager["steps"]],
+        "state": {n: torch.zeros_like(t) for n, t in eager["state"].items() if "running_" in n},
+        "val_loss": 0.0}
+    for perm in itertools.permutations(range(setup["options"]["batch_size"])):
+        if perm == tuple(sorted(perm)):
+            continue
+        got = fit(False, perm, grads=False)
+        for (metrics, _), (want, _), largest in zip(got["steps"], eager["steps"],
+                                                    spread["steps"]):
+            for key in largest:
+                largest[key] = max(largest[key], abs(metrics[key] - want[key]))
+        for name, largest in spread["state"].items():
+            torch.maximum(largest, (got["state"][name] - eager["state"][name]).abs(),
+                          out=largest)
+        spread["val_loss"] = max(spread["val_loss"],
+                                 abs(got["result"]["val_loss"] - eager["result"]["val_loss"]))
     return out
 
 

@@ -12,14 +12,16 @@ ops that keep kernels K1 and K2 inside the compiled graphs.
   with transplanted weights; tiny widths (DenseNet [1], one encoder layer,
   one prong-decoder layer), float32, dropout 0, pixel noise 0.
   ``tests/test_torch_port_compile_coo.py`` runs the coo family.
-* Compiled against eager, and compiled against JAX: probabilities, the
+* Compiled against eager, and compiled against JAX: probabilities and the
   metric statistics (each score histogram's cumulative counts within 2: a
-  probability within rounding of one of the 64 bin edges may cross it),
-  losses, ``grad_norm`` and the BatchNorm running statistics within
-  ``rtol=1e-4, atol=1e-5`` (Inductor fuses and reorders
-  float32 sums; the eager port holds JAX to 1e-5,
-  ``tests/test_torch_port_train.py``); parameters after the Adam steps by
-  ``test_torch_port_train``'s rule.  Every gradient against eager's within
+  probability within rounding of one of the 64 bin edges may cross it)
+  within ``rtol=1e-4, atol=1e-5`` (Inductor fuses and reorders float32
+  sums; the eager port holds JAX to 1e-5, ``tests/test_torch_port_train.py``;
+  an eval-mode forward sums nothing across events); the train steps'
+  losses, ``grad_norm`` and the BatchNorm running statistics within that
+  plus twice the reference's own spread under a reordering of the batch's
+  events (:func:`assert_within_spread`, :func:`train_spreads`); parameters
+  after the Adam steps by ``test_torch_port_train``'s rule.  Every gradient against eager's within
   1e-3 of its tensor's largest element plus 1e-3 of the network's largest
   gradient: the BatchNorms' E[x^2] - E[x]^2 over a batch of 4 turn
   reordered sums into gradient differences of ~1e-4 of a tensor's largest
@@ -40,6 +42,7 @@ Inductor compiles its C++ with one worker here
 
 import copy
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -68,6 +71,7 @@ torch.set_num_threads(2)
 torch._inductor.config.compile_threads = 1
 
 TOL = dict(rtol=1e-4, atol=1e-5)
+ORDER_MULTIPLE = 2
 GRAD_SHARE, GRAD_FLOOR = 1e-3, 1e-3
 HISTOGRAM_SLACK = 2
 # the tiny network the compiled tests share (each graph compiles once a run)
@@ -187,6 +191,65 @@ def network_largest(grads):
     return max(float(g.abs().max()) for g in grads.values())
 
 
+def assert_within_spread(got, want, spread, msg=""):
+    """``|got - want| <= atol + rtol * |want| + ORDER_MULTIPLE * spread``
+    (``TOL``'s ``atol`` and ``rtol``), elementwise; ``spread``: the
+    reference's own largest change when only the order of each batch's
+    events changes.
+
+    A train step's BatchNorms take ``E[x^2] - E[x]^2`` over a batch of 4
+    in float32; where a channel's mean is large against its spread that
+    subtraction cancels most digits, so the order of the sums alone moves
+    the normalised values, the loss, the gradient and its norm.  Inductor
+    sums in its own order, which also depends on the host's vector width
+    (AVX-512 and AVX2 differ; Inductor's ``cpp.simdlen`` at 256 bits
+    moves a compiled result back inside ``TOL``).  The compiled order is
+    one more order: its distance from the reference is at most its own
+    distance from some order's float32 result plus the reference's, each
+    at most one spread, hence ``ORDER_MULTIPLE`` = 2 (as
+    ``test_torch_port_network.test_network_train_mode_matches_jax``);
+    ``TOL`` stays for what is not order (fused multiply-adds, another
+    ``exp``)."""
+    got, want, spread = (np.asarray(x, np.float64) for x in (got, want, spread))
+    diff = np.abs(got - want)
+    bound = TOL["atol"] + TOL["rtol"] * np.abs(want) + ORDER_MULTIPLE * spread
+    assert (diff <= bound).all(), (msg, float(diff.max()),
+                                   float(bound.reshape(-1)[np.argmax(diff - bound)]))
+
+
+def reorderings(batches, synthetic_file, family):
+    """For each of the other 23 orders of 4 events, ``batches`` (those of
+    ``batch_and_norm``) with each batch's events taken in that order."""
+    from test_torch_port_train import batcher_of
+
+    batcher = batcher_of(synthetic_file, family)
+    chunks = batcher.epoch_indices(0)[:4 * len(batches)].reshape(len(batches), 4)
+    for chunk, batch in zip(chunks, batches):
+        same = batcher.build_batch(chunk)
+        assert all(np.array_equal(same[k], v) for k, v in batch.items())
+    for perm in itertools.permutations(range(4)):
+        if perm != (0, 1, 2, 3):
+            yield [batcher.build_batch(chunk[list(perm)]) for chunk in chunks]
+
+
+def train_spreads(runs, reordered):
+    """The largest change of each train step's metrics and of the final
+    running statistics over ``reordered`` (:func:`reorderings`):
+    ``runs(batches) -> ([metrics of each step], {running statistic name:
+    array})`` runs the steps from the same start."""
+    want_steps, want_stats = runs(None)
+    steps = [dict.fromkeys(m, 0.0) for m in want_steps]
+    stats = {n: np.zeros_like(v) for n, v in want_stats.items()}
+    for batches in reordered:
+        got_steps, got_stats = runs(batches)
+        for got, want, largest in zip(got_steps, want_steps, steps):
+            for key in largest:
+                largest[key] = max(largest[key], abs(float(got[key]) - float(want[key])))
+        for name, largest in stats.items():
+            np.maximum(largest, np.abs(got_stats[name] - want_stats[name]), out=largest)
+    return steps, stats
+
+
 def check_compiled_steps(synthetic_file, family, monkeypatch):
     """Predict, eval and two train steps of ``family``: compiled against
     eager and against JAX."""
@@ -223,19 +286,41 @@ def check_compiled_steps(synthetic_file, family, monkeypatch):
     totals_close(totals, jax.device_get(jax_totals))
     assert float(totals["event_count"]) == 8
 
-    # two train steps: metrics, gradients, running statistics, parameters
+    # two train steps: metrics, gradients, running statistics, parameters,
+    # the first three against each reference's spread over the reorderings
     train = make_train_step(model, opts, compile=True)
     eager_train = make_train_step(eager_model, opts)
     jax_train = jax_make_train_step(jax_model, tx, jopts, mesh)
+    start = copy.deepcopy((eager_model, eager_state))
+
+    def jax_runs(reordered):
+        state = jax.tree_util.tree_map(jnp.copy, jax_state)
+        steps = []
+        for batch in reordered or batches:
+            state, metrics = jax_train(state, {k: jnp.asarray(v) for k, v in batch.items()})
+            steps.append(jax.device_get(metrics))
+        sd = state_dict_from_jax(jax.device_get(
+            {"params": state.params, "batch_stats": state.batch_stats}), port_cfg)
+        return steps, {n: t.numpy() for n, t in sd.items() if "running_" in n}
+
+    def eager_runs(reordered):
+        net, state = copy.deepcopy(start)
+        step = make_train_step(net, opts)
+        steps = [step(state, to_device(b, "cpu")) for b in reordered or batches]
+        return steps, {n: t.numpy() for n, t in net.state_dict().items() if "running_" in n}
+
+    orders = list(reorderings(batches, synthetic_file, family))
+    jax_spread, eager_spread = train_spreads(jax_runs, orders), train_spreads(eager_runs, orders)
     stable = {n: torch.ones_like(p, dtype=torch.bool) for n, p in model.named_parameters()}
     for i, (pb, jb) in enumerate(zip(port_batches, jax_batches)):
         got, eager = train(state, pb), eager_train(eager_state, pb)
         jax_state, want = jax_train(jax_state, jb)
         assert set(got) == set(want) == set(eager)
         for key in want:
-            torch.testing.assert_close(got[key], eager[key], **TOL, msg=f"step {i}: {key}")
-            np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), **TOL,
-                                       err_msg=f"step {i}: {key}")
+            assert_within_spread(got[key], eager[key], eager_spread[0][i][key],
+                                 f"step {i}: {key} against eager")
+            assert_within_spread(got[key], want[key], jax_spread[0][i][key],
+                                 f"step {i}: {key} against JAX")
         grads = {n: p.grad for n, p in model.named_parameters()}
         eager_grads = {n: p.grad for n, p in eager_model.named_parameters()}
         grads_close(grads, eager_grads, network_largest(eager_grads))
@@ -246,16 +331,23 @@ def check_compiled_steps(synthetic_file, family, monkeypatch):
     want_sd = state_dict_from_jax(jax.device_get(
         {"params": jax_state.params, "batch_stats": jax_state.batch_stats}), port_cfg)
     stats = [n for n in got_sd if "running_" in n]
-    assert stats
+    assert stats and set(stats) == set(jax_spread[1]) == set(eager_spread[1])
+    assert jax_spread[0][0]["grad_norm"] > 0 and eager_spread[0][0]["grad_norm"] > 0
     for name in stats:
-        torch.testing.assert_close(got_sd[name], eager_sd[name], **TOL, msg=name)
-        np.testing.assert_allclose(got_sd[name].numpy(), want_sd[name].numpy(), **TOL,
-                                   err_msg=name)
+        assert_within_spread(got_sd[name], eager_sd[name], eager_spread[1][name],
+                             f"{name} against eager")
+        assert_within_spread(got_sd[name], want_sd[name], jax_spread[1][name],
+                             f"{name} against JAX")
     assert assert_adam_params_close(got_sd, want_sd, stable, opts.learning_rate, 2) > 100
     assert assert_adam_params_close(got_sd, eager_sd, stable, opts.learning_rate, 2) > 100
 
 
 def test_compiled_dense_steps_match_eager_and_jax(synthetic_file, monkeypatch):
+    """Measured on an AVX-512 host (8 cores): step 0's ``grad_norm``
+    (12.75) compiled 1.43e-3 from JAX against JAX's spread of 8.80e-4 over
+    the 23 reorderings (bound 3.04e-3; ``TOL`` alone allowed 1.29e-3), and
+    1.25e-3 from eager against eager's spread of 8.77e-4; with Inductor's
+    ``cpp.simdlen`` at 256 bits the compiled step falls inside ``TOL``."""
     check_compiled_steps(synthetic_file, "dense", monkeypatch)
 
 

@@ -26,6 +26,9 @@ train step of 2 ranks over ``gloo`` on the one card against a world of one.
 ``torch.library.opcheck`` on the kernels' custom ops with CUDA tensors, and
 the tiny dense and coo networks' compiled predict and train steps
 (``compile=True``) against the eager ones, K1 or K2 inside the graphs.
+CUDA graphs (``graph=True``): a captured K = 2 train step against eager
+steps, the predict graph against eager, K1's launches in a replay read by
+the profiler.
 """
 
 import json
@@ -832,3 +835,144 @@ def test_compiled_steps_on_the_card_match_eager(cuda, embedder):
         metrics.append(make_train_step(model, options, compile=compile)(state, batch))
     for key in ("train_loss", "grad_norm"):
         torch.testing.assert_close(metrics[1][key], metrics[0][key], rtol=1e-4, atol=1e-4)
+
+
+def graph_setup(cuda, embedder="dense", dropout=0.1, noise=0.01):
+    """The tiny network of the compiled tests on the card, with dropout and
+    pixel noise, its options and 4 batches of 4 events in one shape."""
+    from dune_transformercvn_torch.data import Batcher
+    from dune_transformercvn_torch.predict import to_device
+
+    cfg = ModelConfig(
+        hidden_dim=32, initial_feature_dim=8, initial_pixel_dim=16,
+        feature_embedding_dim=8, pixel_embedding_dim=16, position_embedding_dim=8,
+        num_encoder_layers=1, num_prong_decoder_layers=1, num_attention_heads=4,
+        densenet_structure=(1, 1), densenet_growth_rate=8, image_height=48,
+        image_width=40, compute_dtype="float32", embedder=embedder, dropout=dropout,
+        pixel_noise_std=noise)
+    ds = InMemoryEvents(16, 3, (48, 40))
+    batches = [to_device(b, cuda) for b in Batcher(ds, batch_size=4, fixed_shape=True)
+               .epoch(0)]
+    options = Options()
+    options.update_options(dict(optimizer="AdamW", learning_rate=1e-3, gradient_clip=0.5,
+                                l2_penalty=0.05))
+    return cfg, ds, batches, options
+
+
+def test_captured_steps_equal_eager_steps(cuda):
+    """Two replays of a captured K = 2 train step (dropout and pixel noise
+    on) against 4 eager steps from the same state, both with the graph-safe
+    AdamW: each step's metrics and the running statistics within 2^-7 of
+    their largest, the optimizer's count equal, K1 twice a step in each
+    replay; the parameters within ``2 * steps * lr`` of eager's.  The graph
+    launches eager's kernels, so these are mostly bit-equal, but some of
+    the card's kernels sum in no fixed order, and a bias ahead of a
+    BatchNorm has an exact gradient of 0 and a float one of rounding
+    noise, which Adam turns into a step of about lr either way (measured:
+    the event stem's ``conv0.bias`` 5.2e-4 from eager after 4 steps)."""
+    from dune_transformercvn_torch.train import create_train_state, make_train_step
+
+    cfg, ds, batches, options = graph_setup(cuda)
+    start = TransformerCVN(cfg, generator=torch.Generator().manual_seed(0))
+    runs = []
+    for graph in (False, True):
+        model = TransformerCVN(cfg).to(cuda)
+        model.load_state_dict(start.state_dict())
+        state = create_train_state(model, options, ds.norm(), 4, seed=3, graph=True)
+        if graph:
+            step = make_train_step(model, options, graph=True, steps_per_dispatch=2)
+            groups = [{k: torch.stack([a[k], b[k]]) for k in a}
+                      for a, b in (batches[:2], batches[2:])]
+            first = step(state, groups[0])
+            before = k1.densify_images_cuda.launches
+            second = step(state, groups[1])
+            assert k1.densify_images_cuda.launches == before + 4
+            (captured,) = step.graphs.graphs.values()
+            assert captured.launches == [4, 0]
+            metrics = {k: torch.cat([first[k], second[k]]).cpu() for k in first}
+        else:
+            step = make_train_step(model, options)
+            steps = [step(state, b) for b in batches]
+            metrics = {k: torch.stack([m[k].float() for m in steps]).cpu() for k in steps[0]}
+        assert state.step == 4 and int(state.optimizer.count) == 4
+        runs.append((metrics, {k: v.cpu() for k, v in model.state_dict().items()}))
+    (want_m, want_sd), (got_m, got_sd) = runs
+    params = {n for n, _ in start.named_parameters()}
+    assert got_m.keys() == want_m.keys() and got_sd.keys() == want_sd.keys()
+    for key, w in list(want_m.items()) + list(want_sd.items()):
+        gap = float(((got_m if key in want_m else got_sd)[key].double() - w.double())
+                    .abs().max())
+        bound = (2 * 4 * options.learning_rate if key in params
+                 else 2 ** -7 * max(float(w.abs().max()), 1e-30))
+        assert gap <= bound, (key, gap, bound)
+
+
+def test_predict_graph_equals_eager(cuda):
+    """``predict_split(graph=True)`` against eager on the tiny dense and coo
+    networks: the same kernels on the same shapes, equal; K1 (K2) twice a
+    batch from the graph's replays."""
+    from dune_transformercvn_torch.predict import predict_split
+
+    for embedder, counter in (("dense", k1.densify_images_cuda),
+                              ("coo", k2.scatter_patches_cuda)):
+        cfg, ds, _, _ = graph_setup(cuda, embedder, 0.0, 0.0)
+        model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(0)).to(cuda)
+        want = predict_split(model, ds, ds.norm(), 4, cuda, fixed_shape=True)
+        before = counter.launches
+        got = predict_split(model, ds, ds.norm(), 4, cuda, fixed_shape=True, graph=True)
+        # the warm-up's forward, then a replay a batch
+        assert counter.launches == before + 2 + 2 * 4
+        for key, value in want.items():
+            np.testing.assert_array_equal(got[key], value, err_msg=(embedder, key))
+
+
+def test_profiler_sees_k1_in_a_replay(cuda):
+    """One replay of a K = 2 train graph under ``torch.profiler``: the
+    trace holds K1's kernel 4 times, as the graph's count says."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dune_transformercvn_torch.train import create_train_state, make_train_step
+
+    cfg, ds, batches, options = graph_setup(cuda)
+    model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(0)).to(cuda)
+    state = create_train_state(model, options, ds.norm(), 4, seed=3, graph=True)
+    step = make_train_step(model, options, graph=True, steps_per_dispatch=2)
+    group = {k: torch.stack([a, b]) for k, a, b in zip(batches[0], batches[0].values(),
+                                                        batches[1].values())}
+    step(state, group)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, group)
+        torch.cuda.synchronize()
+    traced = sum(e.count for e in prof.key_averages() if "densify_kernel" in e.key)
+    (captured,) = step.graphs.graphs.values()
+    assert traced == captured.launches[0] == 4, traced
+
+
+def test_compiled_graph_steps_on_the_card(cuda):
+    """``graph=True`` with ``compile=True``: the compiled forward and loss
+    warmed up outside the capture and captured inside the train graph and
+    the predict graph; the first loss and the probabilities against the
+    compiled steps run without a graph (float32, TF32 off, dropout and
+    noise 0) within 1e-4."""
+    from dune_transformercvn_torch.predict import make_predict_step
+    from dune_transformercvn_torch.train import create_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, ds, batches, options = graph_setup(cuda, "dense", 0.0, 0.0)
+    norm = {k: torch.as_tensor(v).to(cuda) for k, v in ds.norm().items()}
+    models = [TransformerCVN(cfg, generator=torch.Generator().manual_seed(0)).to(cuda)
+              for _ in range(2)]
+    want = make_predict_step(models[0], compile=True)(batches[0], norm)
+    got = make_predict_step(models[1], compile=True, graph=True)(batches[0], norm)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    metrics = []
+    for model, graph in zip(models, (False, True)):
+        state = create_train_state(model, options, ds.norm(), 4, seed=0, graph=True)
+        step = make_train_step(model, options, compile=True, graph=graph)
+        metrics.append([step(state, b) for b in batches[:2]])
+    for key in ("train_loss", "grad_norm"):
+        for g, w in zip(metrics[1], metrics[0]):
+            torch.testing.assert_close(g[key], w[key], rtol=1e-4, atol=1e-4)

@@ -1,0 +1,281 @@
+"""The port's graph-safe steps (``graph=True``: CUDA graphs on the card) on
+the CPU, where the same step bodies run without a capture.
+
+* The K-step train body (``make_train_step(..., graph=True,
+  steps_per_dispatch=K)``) at K = 2 and 3 against the JAX package's scanned
+  step (``make_train_step(..., steps_per_dispatch=K)``) on the same stacked
+  batches with transplanted weights (tiny dense network, float32, dropout
+  0, noise 0, clipping active, a warm-up then cosine rate): the stacked
+  metrics at ``test_torch_port_train``'s tolerances (``grad_norm``
+  ``rtol=1e-4``, the losses ``rtol=1e-5, atol=1e-7``), the running
+  statistics at ``rtol=atol=1e-5`` and the parameters by its Adam rule.
+* The same body against the eager step (``graph=False``) from the same
+  state, with dropout and pixel noise on, dense and coo: equal bit for bit
+  (metrics, parameters, BatchNorm buffers, the optimizer's moments and
+  count, the generator): step k of a call draws what the k-th eager step
+  draws.
+* :class:`GraphAdamW` over 4 steps against optax's ``adamw`` within
+  ``test_torch_port_optimizers``' ``PARAM_TOL`` (it takes optax's float32
+  bias corrections), against ``torch.optim.AdamW`` within its
+  ``ADAMW_TOL``, and its rate read from a tensor (the graph's way) equal
+  bit for bit to its rate from the group.
+* The eval body (statistics into zeroed buffers, then added) and
+  ``predict_split(graph=True)`` against eager, bit for bit.
+* What ``graph=True`` does not take raises: a multi-rank mesh, an optax
+  chain, remat, int8 convolutions, K > 1 without a graph, batches not
+  stacked K deep, a state without the graph-safe optimizer, CUDA without a
+  card, a batch shape past the bound.
+"""
+
+import copy
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dune_transformercvn_tpu.train.step import make_train_step as jax_make_train_step
+from dune_transformercvn_torch import Options
+from dune_transformercvn_torch.data import InMemoryEvents
+from dune_transformercvn_torch.from_jax import load_jax_variables, state_dict_from_jax
+from dune_transformercvn_torch.models import TransformerCVN
+from dune_transformercvn_torch.ops import quant
+from dune_transformercvn_torch.parallel import Mesh
+from dune_transformercvn_torch.predict import make_predict_step, predict_split, to_device
+from dune_transformercvn_torch.train import (create_optimizer, create_train_state,
+                                             init_metric_state, make_eval_step,
+                                             make_train_step, schedules)
+from dune_transformercvn_torch.train.optimizer import (GraphAdamW, clip_by_global_norm_,
+                                                       global_norm)
+from dune_transformercvn_torch.train.step import check_graphable
+from dune_transformercvn_torch.utils.graphs import StepGraphs
+from test_torch_port_optimizers import (ADAMW_TOL, PARAM_TOL, STEPS_PER_EPOCH as OPT_EPOCH,
+                                        assert_params_close, jax_run, network, optimizer_step,
+                                        options, port_grads, steps)
+from test_torch_port_train import (LOSS_TOL, STEPS_PER_EPOCH, assert_adam_params_close,
+                                   batch_and_norm, family_config, start_both, step_options)
+
+torch.set_num_threads(2)
+
+assert network and steps   # fixtures of test_torch_port_optimizers
+
+
+def stacked(batches):
+    return {k: torch.stack([torch.as_tensor(b[k]) for b in batches]) for k in batches[0]}
+
+
+def graph_state(model, opts, norm, seed=0):
+    return create_train_state(model, opts, norm, STEPS_PER_EPOCH, seed=seed, graph=True)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_graph_steps_match_jax_scan(synthetic_file, k):
+    batches, norm = batch_and_norm(synthetic_file, k, "dense")
+    (jax_model, jopts, tx, mesh, jax_state), (model, opts, _), port_cfg = start_both(
+        "dense", 0.5, 0.5, batches, norm)
+    state = graph_state(model, opts, norm)
+    assert isinstance(state.optimizer, GraphAdamW)
+    jax_step = jax_make_train_step(jax_model, tx, jopts, mesh, steps_per_dispatch=k)
+    jax_state, want = jax_step(jax_state, {n: jnp.asarray(v) for n, v in stacked(
+        batches).items()})
+    stable = {n: torch.ones_like(p, dtype=torch.bool) for n, p in model.named_parameters()}
+    grads = []
+    step = make_train_step(model, opts, graph=True, steps_per_dispatch=k)
+
+    # the gradients of each of the K steps: the body keeps them in place,
+    # so they are read after each step's clipping by a hook on the update
+    update = state.optimizer.step
+
+    def recorded(*args, **kwargs):
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+        return update(*args, **kwargs)
+
+    state.optimizer.step = recorded
+    got = step(state, stacked([to_device(b, "cpu") for b in batches]))
+    assert state.step == int(jax_state.step) == k and len(grads) == k
+    assert set(got) == set(want)
+    for key in want:
+        assert got[key].shape == (k,)
+        tol = dict(rtol=1e-4) if key == "grad_norm" else LOSS_TOL
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), **tol,
+                                   err_msg=key)
+    assert float(got["grad_norm"][0]) > 0.5                 # clipping was active
+    for step_grads in grads:
+        for n, g in step_grads.items():
+            stable[n] &= g.abs() > 1e-4
+    want_sd = state_dict_from_jax(jax.device_get(
+        {"params": jax_state.params, "batch_stats": jax_state.batch_stats}), port_cfg)
+    got_sd = model.state_dict()
+    for name, want_t in want_sd.items():
+        if name not in stable:                              # BatchNorm statistics
+            np.testing.assert_allclose(got_sd[name].numpy(), want_t.numpy(),
+                                       rtol=1e-5, atol=1e-5, err_msg=name)
+    assert assert_adam_params_close(got_sd, want_sd, stable, opts.learning_rate, k) > 1000
+
+
+def everything(state):
+    """A state's tensors, the host step and the generator, for equality."""
+    optimizer = state.optimizer
+    return {"step": state.step, "generator": state.generator.get_state(),
+            "count": optimizer.count.clone(),
+            **{f"model.{n}": t.clone() for n, t in state.model.state_dict().items()},
+            **{f"slot.{i}.{name}": t.clone()
+               for i, slots in enumerate(optimizer.state.values())
+               for name, t in slots.items()}}
+
+
+def assert_identical(got, want):
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        if torch.is_tensor(value):
+            assert torch.equal(got[key], value), key
+        else:
+            assert got[key] == value, key
+
+
+@pytest.mark.parametrize("family", ["dense", "coo"])
+def test_graph_body_is_the_eager_step(synthetic_file, family):
+    """Three steps as one call of the graph body and three eager steps from
+    the same state, dropout 0.1 and pixel noise 0.02: equal bit for bit."""
+    batches, norm = batch_and_norm(synthetic_file, 3, family)
+    _, port_cfg = family_config(family)
+    port_cfg = dataclasses.replace(port_cfg, dropout=0.1, pixel_noise_std=0.02)
+    opts = step_options(Options, 0.5, 0.5)
+    model = TransformerCVN(port_cfg, generator=torch.Generator().manual_seed(3))
+    eager_model = copy.deepcopy(model)
+    state, eager_state = graph_state(model, opts, norm, 7), graph_state(eager_model, opts,
+                                                                        norm, 7)
+    got = make_train_step(model, opts, graph=True, steps_per_dispatch=3)(
+        state, stacked([to_device(b, "cpu") for b in batches]))
+    eager_step = make_train_step(eager_model, opts)
+    want = [eager_step(eager_state, to_device(b, "cpu")) for b in batches]
+    assert got.keys() == want[0].keys()
+    for key, value in got.items():
+        assert torch.equal(value, torch.stack([w[key].float() for w in want])), key
+    assert_identical(everything(state), everything(eager_state))
+    # the noise and dropout drew: another seed moves the losses
+    other = copy.deepcopy(eager_model)
+    other_state = graph_state(other, opts, norm, 8)
+    assert not torch.equal(make_train_step(other, opts)(other_state, to_device(
+        batches[0], "cpu"))["train_loss"], want[0]["train_loss"])
+
+
+def test_graph_adamw_matches_optax_and_adamw(network, steps):
+    """Four steps of clipped, scheduled updates: the graph-safe AdamW
+    against optax's adamw, against ``torch.optim.AdamW``, and with its rate
+    read from a tensor against its rate from the group."""
+    variables, port_cfg = network
+    want = jax_run("adamw", variables, steps)
+    opts = options(Options, "adamw")
+    schedule = schedules.from_options(opts, OPT_EPOCH)
+    runs = []
+    for kind in ("graph", "tensor", "adamw"):
+        model = load_jax_variables(TransformerCVN(port_cfg), variables)
+        optimizer = create_optimizer(opts, model, graph=kind != "adamw")
+        for step, grads in enumerate(steps):
+            port_grads(model, variables, grads)
+            if kind == "tensor":
+                g = [p.grad for p in model.parameters()]
+                clip_by_global_norm_(g, 3.0, global_norm(g))
+                optimizer.step(lr=torch.tensor(opts.learning_rate * schedule(step)))
+            else:
+                optimizer_step(optimizer, model, opts.learning_rate, schedule, step)
+        runs.append(model)
+    graph, tensor, adamw = runs
+    assert_params_close(graph, variables, want, **PARAM_TOL)
+    for (name, p), q, r in zip(graph.named_parameters(), tensor.parameters(),
+                               adamw.parameters()):
+        assert torch.equal(p, q), name
+        np.testing.assert_allclose(p.detach().numpy(), r.detach().numpy(), **ADAMW_TOL,
+                                   err_msg=name)
+
+
+def test_graph_eval_and_predict_are_eager(synthetic_file):
+    """The eval body's statistics (into zeroed buffers, then added to the
+    caller's totals) and ``predict_split(graph=True)``'s probabilities
+    against the eager steps', bit for bit."""
+    batches, norm = batch_and_norm(synthetic_file, 2, "dense")
+    _, port_cfg = family_config("dense")
+    opts = step_options(Options, 0.5, 0.0)
+    model = TransformerCVN(port_cfg, generator=torch.Generator().manual_seed(4))
+    state = graph_state(model, opts, norm)
+    totals, eager_totals = init_metric_state(4, 8, 64), init_metric_state(4, 8, 64)
+    graph_eval, eager_eval = make_eval_step(model, opts, graph=True), make_eval_step(model, opts)
+    for batch in batches:
+        graph_eval(state, to_device(batch, "cpu"), totals)
+        eager_eval(state, to_device(batch, "cpu"), eager_totals)
+    assert float(totals["event_count"]) == 8
+    for key, value in eager_totals.items():
+        assert torch.equal(totals[key], value), key
+    ds = InMemoryEvents(10, 5, (port_cfg.image_height, port_cfg.image_width))
+    kwargs = dict(coo_granularity=1024, prong_bucket_multipliers=[4])
+    got = predict_split(model, ds, ds.norm(), 4, "cpu", graph=True, **kwargs)
+    want = predict_split(model, ds, ds.norm(), 4, "cpu", **kwargs)
+    assert got.keys() == want.keys() and len(got["event_probabilities"]) == 10
+    for key, value in want.items():
+        np.testing.assert_array_equal(got[key], value, err_msg=key)
+
+
+def test_what_graph_does_not_take_raises(synthetic_file):
+    (batch,), norm = batch_and_norm(synthetic_file, 1, "dense")
+    _, port_cfg = family_config("dense")
+    model = TransformerCVN(port_cfg, generator=torch.Generator().manual_seed(5))
+    opts = step_options(Options, 0.5, 0.0)
+    with pytest.raises(ValueError, match="one process"):
+        make_train_step(model, opts, Mesh(2, 1, 0), graph=True)
+    with pytest.raises(ValueError, match="one process"):
+        check_graphable(model, False, Mesh(1, 2, 1))
+    lamb = step_options(Options, 0.5, 0.0)
+    lamb.optimizer = "lamb"
+    with pytest.raises(ValueError, match="AdamW optimizer only"):
+        make_train_step(model, lamb, graph=True)
+    with pytest.raises(ValueError, match="AdamW optimizer only"):
+        create_optimizer(lamb, model, graph=True)
+    remat = TransformerCVN(dataclasses.replace(port_cfg, remat_cnn=True))
+    with pytest.raises(ValueError, match="remat"):
+        make_train_step(remat, opts, graph=True)
+    with pytest.raises(ValueError, match="graph=True"):
+        make_train_step(model, opts, steps_per_dispatch=2)
+    step = make_train_step(model, opts, graph=True, steps_per_dispatch=2)
+    with pytest.raises(ValueError, match="2 stacked batches"):
+        step(graph_state(model, opts, norm), stacked([to_device(batch, "cpu")] * 3))
+    with pytest.raises(ValueError, match="graph-safe AdamW"):
+        step(create_train_state(model, opts, norm, STEPS_PER_EPOCH),
+             stacked([to_device(batch, "cpu")] * 2))
+    predict = make_predict_step(model, graph=True)
+    with quant.quantized_convs(model, {n: 1.0 for n in quant._convs(model)}, device="cpu"):
+        with pytest.raises(RuntimeError, match="int8"):
+            predict(to_device(batch, "cpu"), to_device(norm, "cpu"))
+
+
+def test_graphs_need_a_card_and_keep_their_bound(monkeypatch):
+    """A graph is captured on CUDA only, and past its ``shapes`` bound a new
+    batch shape raises rather than running uncaptured."""
+    graphs = StepGraphs(lambda x, states: x["x"] * 2, "a step", shapes=2)
+    with pytest.raises(ValueError, match="need CUDA tensors"):
+        graphs.get("cpu", {"x": torch.zeros(3)})
+    with pytest.raises((RuntimeError, AssertionError), match="CUDA|NVIDIA|compiled"):
+        graphs.get("cuda", {"x": torch.zeros(3)})
+    monkeypatch.setattr(StepGraphs, "_capture", lambda self, device, trees: object())
+    graphs.graphs.clear()
+    first = graphs.get("cuda", {"x": torch.zeros(3)})
+    assert graphs.get("cuda", {"x": torch.ones(3)}) is first      # the same shape
+    graphs.get("cuda", {"x": torch.zeros(4)})
+    with pytest.raises(RuntimeError, match="past the 2 graph"):
+        graphs.get("cuda", {"x": torch.zeros(5)})
+
+
+def test_the_predict_graphs_stay_with_their_model(synthetic_file):
+    """``predict_split(graph=True)`` keeps its graph step on the model, so a
+    later call replays the graphs already captured (its bound raised by
+    the call's), and a copy of the model gets a step of its own."""
+    from dune_transformercvn_torch.predict import graph_predict_step
+
+    _, port_cfg = family_config("dense")
+    model = TransformerCVN(port_cfg, generator=torch.Generator().manual_seed(6))
+    step = graph_predict_step(model, False, 2)
+    assert graph_predict_step(model, False, 3) is step and step.graphs.shapes == 5
+    assert graph_predict_step(copy.deepcopy(model), False, 2) is not step
+    assert graph_predict_step(model, True, 2) is not step

@@ -45,15 +45,15 @@ TOL = dict(rtol=1e-4, atol=1e-5)
 LEARNING_RATE = 1e-5
 
 
-def fit_both(root, max_steps=4, eval_interval=2, **overrides):
-    """A JAX Trainer and a port Trainer from the JAX one's initial weights,
-    each fit on the same file."""
+def fit_both(root, max_steps=4, eval_interval=2, graph=False, **overrides):
+    """A JAX Trainer and a port Trainer (``graph``: its graph-safe steps)
+    from the JAX one's initial weights, each fit on the same file."""
     common = dict(training_file=small_synthetic_file(root / "train.h5", 64, 7),
                   learning_rate=LEARNING_RATE, **overrides)
     theirs = JaxTrainer(tiny_options(JaxOptions, **common), run_dir=str(root / "jax"),
                         log_every_n_steps=1)
     ours = Trainer(tiny_options(**common), run_dir=str(root / "torch"), device="cpu",
-                   log_every_n_steps=1)
+                   log_every_n_steps=1, graph=graph)
     load_jax_variables(ours.state.model, jax.device_get(
         {"params": theirs.state.params, "batch_stats": theirs.state.batch_stats}))
     results = (ours.fit(max_steps=max_steps, eval_interval=eval_interval),

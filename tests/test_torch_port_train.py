@@ -143,14 +143,22 @@ def test_schedule_from_options_matches_jax(cycles):
         np.testing.assert_allclose(ours(s), float(theirs(s)), rtol=1e-6, atol=1e-6)
 
 
+def batcher_of(synthetic_file, family="coo"):
+    """The batcher :func:`batch_and_norm` lays the dense and coo families'
+    batches out with: 4 events, a fixed shape, over the scaled dataset."""
+    assert family in ("dense", "coo"), family
+    ds = EventDataset(synthetic_file, limit_index=(0.0, 0.3), event_current_targets=True)
+    ds.compute_statistics()
+    return Batcher(Scaled(ds), batch_size=4, coo_granularity=512, fixed_shape=True)
+
+
 def batch_and_norm(synthetic_file, count=1, family="coo"):
     if family not in ("dense", "coo"):
         return batches_and_norm(synthetic_file, family, count)
-    ds = EventDataset(synthetic_file, limit_index=(0.0, 0.3), event_current_targets=True)
-    ds.compute_statistics()
+    batcher = batcher_of(synthetic_file, family)
+    ds = batcher.dataset.dataset
     norm = {"mean": ds.mean, "std": ds.std,
             "extra_mean": ds.extra_mean, "extra_std": ds.extra_std}
-    batcher = Batcher(Scaled(ds), batch_size=4, coo_granularity=512, fixed_shape=True)
     batches = [b for _, b in zip(range(count), batcher.epoch(0))]
     return batches, norm
 
