@@ -3,12 +3,21 @@
 
     python3 chip_smoke.py
 
-Phases, each of which raises on failure.  Phases 1-7, 10, one-hot
-pixels in 12 and a step of 14 run the option file's network whole;
-phases 8, 9, 11-15 run
-its widths at a cut depth (``CUT_DEPTH``: one dense block of one
-bottleneck, one encoder layer), so that the smoke, with the compiles of
-phases 13 and 15 and the bench, fits its time limit:
+Phases, each of which raises on failure, run in the order 1-9, 11-13,
+14, 15, 17's compiled step, 16, 18.  Beside them, in processes of their
+own: the slowest of the graphs that phases 15 and 17 load from the
+compile cache compile beside phases 1-12 at a low priority; the rest,
+and phase 14's compiled ranks, compile beside 13; phases 17 (but
+its compiled step) and 10 run one after the other in one process while
+phase 13's main process compiles, and 13 times its packages only once
+that process has ended, so no two phases run on the card at once (a
+compile's first call runs its graph there for seconds).  The readings that share the host's cores with compiles are those
+of phases 8-12 (niced compiles), of 17 and 10, and of 13.  The ``[time]``
+lines count from the script's start, imports included.  Phases 1-7, 10, one-hot pixels in
+12 and a step of 14 run the option file's network whole; phases 8, 9,
+11-15 run its widths at a cut depth (``CUT_DEPTH``: one dense block of
+one bottleneck, one encoder layer), so that the smoke, with the compiles
+of phases 13 and 15 and the bench, fits its time limit:
 
 1. Device and build: the card's name and power limit from ``nvidia-smi``;
    every kernel under ``dune_transformercvn_torch/csrc`` is built with
@@ -79,7 +88,8 @@ phases 13 and 15 and the bench, fits its time limit:
    random weights from a seed, each path with the kernel counts reset
    before it and K1 asserted twice a batch and a step.  sdxl with
    ``embedder_chunk`` 16: ``predict_split`` at batch 16 and 64 (128 and 256
-   events) as in phase 4; the train step at batch 16, 2 warm-up and 5 timed steps (ms/step,
+   events), a warm-up and one timed pass; the train step at batch 16, 2
+   warm-up and 5 timed steps (ms/step,
    events/s, peak memory); the same with ``embedder_chunk_save_spatial``;
    the unchunked step at batch 8 (the largest the memory reckoning in
    PERF.md keeps far under 80 GB); and, in float32, the chunked network
@@ -146,18 +156,20 @@ phases 13 and 15 and the bench, fits its time limit:
    afterwards, whose peak must lie above each rank's.
    ``check_tensor_parallel(smi)`` runs it alone.  The compiled TP step
    (``compile=True``, ``CUT_DEPTH``, static shapes, dropout and noise 0)
-   runs in two more ranks that compile, at a low priority, beside phase 13
-   and are timed after it and after phase 15's graphs, which compile
-   beside it too (``start_compiled_tp`` / ``finish_compiled_tp``): its
+   runs in two more ranks that compile, at a low priority, beside phase
+   13 and are timed after it and after phase 15's graphs, which compile
+   beside them too (``start_compiled_tp`` / ``finish_compiled_tp``): its
    first step against the eager TP step's on the same batch and weights,
    its first call's seconds (the compile), ms/step and K1 launches from
    inside the graph.
 15. The compiled steps (``compile=True``, Inductor; the counterpart of the
    JAX package's ``jax.jit``), on the option file's dense network at
-   ``CUT_DEPTH``, full width.  The eight graphs below and the bench's
-   compile side by side into an empty cache, one process each, at a low
-   priority beside phase 13 (``start_warming``; the smoke waits for them
-   after phase 13 and before it times phase 14's compiled TP ranks).
+   ``CUT_DEPTH``, full width.  The eight graphs below, phase 17's compiled
+   ``remat_cnn`` step and the bench's compile into an empty cache, one
+   process each (``start_warming``), at a low priority: the four train
+   graphs, the slowest, beside phases 1-12 (``EARLY_GRAPHS``), the rest
+   beside phase 13; the smoke waits for them after
+   phase 13 and before it times phase 14's compiled TP ranks.
    Then the port's bench
    (``python -m dune_transformercvn_torch.bench``) as a subprocess on the
    option file at ``CUT_DEPTH``; its JSON line is logged (serving at batch
@@ -198,13 +210,38 @@ phases 13 and 15 and the bench, fits its time limit:
    as the count says.  K1 and K2 launch from the graphs' replays, and
    those launches count in the kernels' line.  ``check_graphs(smi)`` runs
    it alone.
-17. A JSON line of every ported kernel, then, as the last line,
+17. The memory recipes and the optax chains in one dispatch.  In a
+   process of its own started with phase 13, then phase 10 in it
+   (``Side``; their timings share the host with the compiles), at ``CUT_DEPTH``,
+   bf16, b16, static shapes, the option file's dropout and noise: each of
+   the seven optax chains as 2 replays of a 2-step graph against 4 eager
+   steps from the same state (metrics, parameters, statistics, the
+   chain's slots and count bit for bit, or within 2^-7 with the cause
+   printed); ``remat_embedder`` the same for dense (K1 2 a step) and coo,
+   whose stem lies inside the rematted embedder, so the backward's
+   recompute launches K2 again: 4 a step.  At full width: the sdxl b16
+   step with ``embedder_chunk`` 16 as replays of the one-step graph
+   against eager (ms/step, peak); the dense b16 step with ``remat_cnn``
+   as 4 replays of a 4-step graph against 16 eager steps, as phase 16
+   does without remat (ms/step, peak and reserved memory).  After phase
+   15, in the smoke's process: the compiled ``remat_cnn`` step from the
+   cache (warmed beside phase 13 with phase 15's graphs): first call,
+   ms/step and peak beside the compiled plain step's.  K1 and K2 launches
+   from these paths count in the kernels' line.
+   ``check_recipes(smi, compiled=False)`` runs it alone in one process.
+   ``recipes_probe.py`` holds this slice's readings outside the smoke.
+18. A JSON line of every ported kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
 """
 
 from __future__ import annotations
+
+import time
+
+# the [time] lines count from here, the imports below included
+STARTED = time.perf_counter()
 
 import contextlib
 import copy
@@ -221,7 +258,6 @@ import struct
 import subprocess
 import sys
 import tempfile
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -406,7 +442,10 @@ CUT_DEPTH = dict(densenet_structure=(1,), num_encoder_layers=1)
 # equal wherever eager's two largest probabilities lie more than
 # 2 FOLD_SHARE apart (closer ones may swap within the tolerance).
 WARM_GRAPHS = ("serve_b16", "serve_b64", "train_b16", "train_b64", "eval_b16", "coo_b16",
-               "float32_predict", "float32_train")
+               "float32_predict", "float32_train", "remat_train_b16")
+# the slowest of them (train graphs: 300-520 s each beside phase 13's
+# compiles on the H100 host), compiled beside phases 1-12 instead
+EARLY_GRAPHS = ("train_b16", "train_b64", "remat_train_b16", "float32_train")
 WARM_THREADS, WARM_TIMEOUT_S = 2, 600
 BENCH_TIMEOUT_S = 600
 COMPILED_WARMUP, COMPILED_STEPS = 3, 10
@@ -420,6 +459,15 @@ GRAPH_K, GRAPH_REPLAYS, GRAPH_TIMED = 4, 4, 3
 GRAPH_SERVE_EVENTS = ((16, 128), (64, 256))
 GRAPH_COO_STEPS, GRAPH_FIT_STEPS, GRAPH_FIT_EVAL = 3, 8, 4
 GRAPH_TOL = 2 ** -7
+# Phase 17: the chains' graph K, replays and steps; the remat_embedder
+# graphs' K and replays; the sdxl graph's chunk and its eager steps and
+# replays (after the first of each); the compiled remat_cnn step's warm-up
+# and timed steps; the time limit of the process phases 17 and 10 run in.
+CHAIN_K, CHAIN_REPLAYS = 2, 2
+RECIPE_K, RECIPE_REPLAYS = 2, 2
+SDXL_GRAPH_CHUNK, SDXL_GRAPH_STEPS = 16, 3
+REMAT_COMPILED_WARMUP, REMAT_COMPILED_STEPS = 2, 5
+SIDE_TIMEOUT_S = 900
 
 
 def log(msg: str = ""):
@@ -1400,7 +1448,7 @@ def check_families(smi):
     """Phase 10; returns K1's launches."""
     launches = 0
     sdxl = family_config("sdxl", embedder_chunk=SDXL_CHUNK)
-    _, counts = check_serving("sdxl", sdxl, SDXL_SERVE_EVENTS)
+    _, counts = check_serving("sdxl", sdxl, SDXL_SERVE_EVENTS, passes=1)
     launches += int(counts[0])
     free_memory()
     ms, peak, k1 = train_reading(sdxl, TRAIN_BATCH, SDXL_WARMUP, SDXL_STEPS, SEED + 10)
@@ -2007,16 +2055,18 @@ def loader_reading(stderr, prefix):
     return next(line for line in stderr.splitlines() if line.startswith(prefix))
 
 
-def check_aoti_serving(smi, served, export_dir):
+def check_aoti_serving(smi, served, export_dir, card_free=None):
     """Phase 13: phase 11's ``pid`` programs (the option file's network at
     ``CUT_DEPTH``) at P = 4 and 20 packaged with AOTInductor for the card
     (``package_run_dir`` with its bench), then the C++ loader built and run
     as a subprocess on one real event, each output held to the eager graph
-    of the rung it chose."""
+    of the rung it chose.  ``card_free``: called before the first package
+    is timed (``timing_after``), to wait for other work on the card."""
     model, norm, ds = served
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(1) as pool, (
+            timing_after(card_free) if card_free else contextlib.nullcontext()):
         # g++ builds the loader on a spare core while Inductor compiles
         loader_build = pool.submit(lambda: (build_loader(), time.perf_counter() - t0))
         paths = package_run_dir(None, export_dir, variants=("pid",), prong_buckets=AOTI_RUNGS,
@@ -2258,9 +2308,9 @@ def tp_layout(ranks):
 
 def compiled_tp_rank(rank, ranks, backend, rendezvous, go_path, out_path):
     """One rank of the compiled TP step (a process of its own, at a low
-    priority, so that it compiles beside phase 13 without taking its
-    timings' cores): compiles, then waits for ``go_path`` before it is
-    timed."""
+    priority, so that it compiles beside phases 13 and 10 without taking
+    their timings' cores): compiles, then waits for ``go_path`` before it
+    is timed."""
     import torch.distributed as dist
 
     os.nice(10)
@@ -2472,14 +2522,16 @@ def serving_events(batch_size):
     return InMemoryEvents(bench.SERVE_EVENTS[batch_size], bench.SEED + 1)
 
 
-def bf16_train_setup():
-    """The bench's b16 train row: the option file at ``CUT_DEPTH`` in bf16,
-    its batch, a fresh model and train state."""
+def bf16_train_setup(**flags):
+    """The bench's b16 train row: the option file at ``CUT_DEPTH`` in bf16
+    (``flags``: model config fields, e.g. a memory recipe), its batch, a
+    fresh model and train state."""
     options = fit_options()
     ds = InMemoryEvents(TRAIN_BATCH, bench.SEED + 2)
     batch = to_device(Batcher(ds, batch_size=TRAIN_BATCH).build_batch(
         np.arange(TRAIN_BATCH)), "cuda")
-    model = serving_model()
+    model = TransformerCVN(dataclasses.replace(cut_config("bfloat16"), **flags),
+                           generator=torch.Generator().manual_seed(SEED)).cuda()
     state = create_train_state(model, options, ds.norm(), 100, seed=SEED)
     return options, model, state, batch
 
@@ -2541,6 +2593,9 @@ def warm_graph(name, nice=0):
         eval_pass(model, options, state, eval_batches()[1], True)
     elif name == "coo_b16":
         coo_serving(serving_model("coo"), True)
+    elif name == "remat_train_b16":
+        options, model, state, batch = bf16_train_setup(remat_cnn=True)
+        make_train_step(model, options, compile=True)(state, batch)
     else:
         cfg, options, ds, batch = float32_setup()
         model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED)).cuda()
@@ -2554,20 +2609,21 @@ def warm_graph(name, nice=0):
                       "fx_graph_cache": cache_counts()}), flush=True)
 
 
-def start_warming(work, nice=0):
-    """Every graph of phase 15 and of the bench compiling at once, one
-    process each (``warm_graph``, ``WARM_THREADS`` compile workers each),
-    started; ``finish_warming`` waits for them.  Inductor spends a graph's
-    compile in Python on one core (lowering, scheduling and code
-    generation: 25 of a cut-depth serving graph's 36 s on the H100 host,
-    Triton's own compiles 1.3 s), so the graphs compile side by side in
-    about the time of the slowest, and the bench and the checks below load
-    them from the cache.  The smoke starts them at a low priority beside
-    phase 13, whose compile leaves most cores idle."""
+def start_warming(work, names=WARM_GRAPHS, nice=0):
+    """The graphs ``names`` of phases 15 and 17 and of the bench compiling
+    at once, one process each (``warm_graph``, ``WARM_THREADS`` compile
+    workers each), started; ``finish_warming`` waits for them.  Inductor
+    spends a graph's compile in Python on one core (lowering, scheduling
+    and code generation: 25 of a cut-depth serving graph's 36 s on the
+    H100 host, Triton's own compiles 1.3 s), so the graphs compile side by
+    side in about the time of the slowest, and the bench and the checks
+    below load them from the cache.  The smoke starts the slowest beside
+    phases 1-12, which leave most cores idle, and the rest beside phase
+    13, all at a low priority."""
     enable_compile_cache()
     env = {**os.environ, "TORCHINDUCTOR_COMPILE_THREADS": str(WARM_THREADS)}
     here = os.path.dirname(os.path.abspath(__file__))
-    logs = {name: os.path.join(work, f"warm_{name}.log") for name in WARM_GRAPHS}
+    logs = {name: os.path.join(work, f"warm_{name}.log") for name in names}
     procs = {}
     for name, path in logs.items():
         with open(path, "w") as out:
@@ -2599,8 +2655,8 @@ def finish_warming(started, smi, beside=""):
                               if line.startswith('{"graph"')][-1])
         readings.append(f"{name} {reading['seconds']:.1f} s")
     log(f"[compiled] {len(procs)} graphs at depth {CUT_DEPTH} compiled side by side "
-        f"into an empty cache{beside} in {seconds:.1f} s (each process's compile and "
-        f"first call: {'; '.join(readings)}) ({smi})")
+        f"into the cache{beside}, all done {seconds:.1f} s after they started (each "
+        f"process's compile and first call: {'; '.join(readings)}) ({smi})")
 
 
 def run_bench(work):
@@ -2852,10 +2908,11 @@ def relative_gap(got, want):
     return worst, name
 
 
-def graph_train_batches(cfg, seed, steps):
-    """``steps`` batches of 16 events in one static shape, on the card."""
-    ds = InMemoryEvents(TRAIN_BATCH * steps, seed)
-    batcher = Batcher(ds, batch_size=TRAIN_BATCH, fixed_shape=True)
+def graph_train_batches(cfg, seed, steps, batch_size=TRAIN_BATCH):
+    """``steps`` batches of ``batch_size`` events in one static shape, on
+    the card."""
+    ds = InMemoryEvents(batch_size * steps, seed)
+    batcher = Batcher(ds, batch_size=batch_size, fixed_shape=True)
     return ds, [to_device(b, "cuda") for b in batcher.epoch(0)]
 
 
@@ -2868,14 +2925,16 @@ def kernel_launches_in(prof, name):
     return sum(e.count for e in prof.key_averages() if name in e.key)
 
 
-def graph_training(smi):
+def graph_training(smi, flags=None, profiled=True):
     """The option file's dense network whole, bf16, b16, its dropout and
-    noise: ``GRAPH_K`` x ``GRAPH_REPLAYS`` steps as replays of one CUDA
-    graph of K steps against as many eager steps from the same state (both
-    with the graph-safe AdamW), then one more replay under
+    noise (``flags``: model config fields, a memory recipe):
+    ``GRAPH_K`` x ``GRAPH_REPLAYS`` steps as replays of one CUDA graph of
+    K steps against as many eager steps from the same state (both with the
+    graph-safe AdamW), then (``profiled``) one more replay under
     ``torch.profiler``; returns K1's launches."""
     options = Options.load(OPTION_FILE)
-    cfg = production_config("bfloat16")
+    cfg = dataclasses.replace(production_config("bfloat16"), **(flags or {}))
+    tag = "+".join(flags or {}) or "plain"
     assert (cfg.dropout, cfg.pixel_noise_std) == (0.1, 0.001) and options.optimizer == "AdamW"
     k, steps = GRAPH_K, GRAPH_K * GRAPH_REPLAYS
     ds, batches = graph_train_batches(cfg, SEED + 50, steps)
@@ -2937,8 +2996,8 @@ def graph_training(smi):
     for value in got_metrics.values():
         assert torch.isfinite(value).all(), got_metrics
     eager_ms, graph_ms = (1e3 * s / (GRAPH_TIMED * k) for s in (eager_s, graph_s))
-    log(f"[graph] dense train step, full depth, bf16, b{TRAIN_BATCH}: ms/step over the last "
-        f"{GRAPH_TIMED * k} of {steps} steps: eager {eager_ms:.2f} (host dispatch "
+    log(f"[graph] dense train step ({tag}), full depth, bf16, b{TRAIN_BATCH}: ms/step over "
+        f"the last {GRAPH_TIMED * k} of {steps} steps: eager {eager_ms:.2f} (host dispatch "
         f"{1e3 * eager_host_s / (GRAPH_TIMED * k):.2f}), {k}-step graph {graph_ms:.2f} (host "
         f"{1e3 * graph_host_s / (GRAPH_TIMED * k):.3f}): {eager_ms / graph_ms:.2f}x; the "
         f"first graph call (warm-up of {k} steps, capture, replay) {capture_s:.2f} s; peak "
@@ -2958,11 +3017,15 @@ def graph_training(smi):
         agreement = (f"not bit for bit: largest relative gap {gap:.3g} ({where}), within "
                      f"2^-7; cause: {cause}")
     assert graph_reserved < 2 * eager_peak, (graph_reserved, eager_peak)
-    log(f"[graph] dense train step: {GRAPH_REPLAYS} replays of the {k}-step graph against "
-        f"{steps} eager steps from the same state (dropout {cfg.dropout}, noise "
+    log(f"[graph] dense train step ({tag}): {GRAPH_REPLAYS} replays of the {k}-step graph "
+        f"against {steps} eager steps from the same state (dropout {cfg.dropout}, noise "
         f"{cfg.pixel_noise_std}): metrics, parameters, running statistics and AdamW's "
         f"moments {agreement}; train_loss {float(got_metrics['train_loss'][0]):.5f} -> "
         f"{float(got_metrics['train_loss'][-1]):.5f}")
+    if not profiled:
+        del model, state, step, groups, batches
+        free_memory()
+        return first_counts[0] + counts[0] + eager_counts[0]
     # one replay under the profiler, last in the phase: CUPTI stays attached
     from torch.profiler import ProfilerActivity, profile
 
@@ -3203,67 +3266,334 @@ def check_graphs(smi, compiled=True):
     return k1, k2
 
 
+# ---------------------------------------------------------------------------
+# phase 17
+# ---------------------------------------------------------------------------
+
+def graph_against_eager(cfg, options, ds, batches, k, per_step):
+    """``batches`` as eager steps and as replays of a ``k``-step graph
+    from the same start (the graph-safe optimizer in both).  Asserts the
+    kernels' launches (``per_step``: K1's and K2's a step, a recompute's
+    included) and the two runs equal bit for bit or within ``GRAPH_TOL``.
+    Returns (agreement, eager ms/step, graph ms/step, eager peak GiB,
+    graph peak GiB, (K1, K2) launches of both runs); ms/step over every
+    call after the first (the graph's first: warm-up, capture, replay)."""
+    start = TransformerCVN(cfg, generator=torch.Generator().manual_seed(SEED))
+    calls = {False: batches, True: stack_groups(batches, k) if k > 1 else batches}
+    runs, launches = [], np.zeros(2, np.int64)
+    for graph in (False, True):
+        model = copy.deepcopy(start).cuda()
+        state = create_train_state(model, options, ds.norm(), 100, seed=SEED, graph=True)
+        step = (make_train_step(model, options, graph=True, steps_per_dispatch=k)
+                if graph else make_train_step(model, options))
+        torch.cuda.reset_peak_memory_stats()
+        first, first_counts = counted(lambda: step(state, calls[graph][0]))
+
+        def rest():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = [step(state, c) for c in calls[graph][1:]]
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        (out, seconds), counts = counted(rest)
+        steps_per_call = k if graph else 1
+        want = tuple(n * steps_per_call * (len(calls[graph]) - 1) for n in per_step)
+        assert counts == want, (counts, want)
+        if graph:
+            (captured,) = step.graphs.graphs.values()
+            assert captured.launches == [n * k for n in per_step], captured.launches
+            # the first call: the warm-up's k steps and one replay
+            assert first_counts == tuple(2 * n * k for n in per_step), first_counts
+        launches += np.array(first_counts) + np.array(counts)
+        metrics = [first] + out
+        stacked = {n: (torch.cat if graph and k > 1 else torch.stack)(
+            [m[n].float() for m in metrics]).cpu() for n in first}
+        assert state.step == len(batches) and int(state.optimizer.count) == len(batches)
+        runs.append((stacked, host_state(model, state.optimizer),
+                     1e3 * seconds / (steps_per_call * (len(calls[graph]) - 1)),
+                     torch.cuda.max_memory_allocated() / 2 ** 30))
+        del model, state, step, first, out
+        free_memory()
+    (want_m, want, eager_ms, eager_peak), (got_m, got, graph_ms, graph_peak) = runs
+    for value in got_m.values():
+        assert torch.isfinite(value).all(), got_m
+    gap, where = relative_gap({**got, **got_m}, {**want, **want_m})
+    if gap == 0:
+        agreement = "bit for bit"
+    else:
+        cause = graph_gap_cause(start, options, ds, batches[:k])
+        assert gap <= GRAPH_TOL, (gap, where, cause)
+        agreement = f"largest relative gap {gap:.3g} ({where}), within 2^-7; cause: {cause}"
+    return agreement, eager_ms, graph_ms, eager_peak, graph_peak, tuple(int(n) for n in launches)
+
+
+def chain_graphs(smi):
+    """Each of the seven optax chains at ``CUT_DEPTH``: ``CHAIN_REPLAYS``
+    replays of a ``CHAIN_K``-step graph against as many eager steps.
+    Returns K1's launches."""
+    from dune_transformercvn_torch.train.optimizer import CHAINS
+
+    cfg = cut_config("bfloat16")
+    steps = CHAIN_K * CHAIN_REPLAYS
+    ds, batches = graph_train_batches(cfg, SEED + 80, steps)
+    readings, k1 = [], 0
+    for name in CHAINS:
+        options = fit_options()
+        options.optimizer = name
+        agreement, eager_ms, graph_ms, _, _, counts = graph_against_eager(
+            cfg, options, ds, batches, CHAIN_K, (2, 0))
+        k1 += counts[0]
+        readings.append(f"{name} {agreement}, eager {eager_ms:.2f} / graph {graph_ms:.2f} "
+                        "ms/step")
+    log(f"[recipes] the optax chains' train steps, depth {CUT_DEPTH}, bf16, b{TRAIN_BATCH}, "
+        f"dropout {cfg.dropout}: {CHAIN_REPLAYS} replays of a {CHAIN_K}-step graph against "
+        f"{steps} eager steps (metrics, parameters, statistics, slots and count): "
+        + "; ".join(readings) + f" ({smi})")
+    return k1
+
+
+def remat_embedder_graphs(smi):
+    """``remat_embedder`` at ``CUT_DEPTH``, dense and coo: ``RECIPE_REPLAYS``
+    replays of a ``RECIPE_K``-step graph against eager.  The coo stem lies
+    inside the rematted embedder, so the backward's recompute launches K2
+    again: 4 a step.  Returns the K1 and K2 launches."""
+    options = fit_options()
+    steps = RECIPE_K * RECIPE_REPLAYS
+    launches = np.zeros(2, np.int64)
+    for embedder, per_step in (("dense", (2, 0)), ("coo", (0, 4))):
+        cfg = dataclasses.replace(cut_config("bfloat16"), embedder=embedder,
+                                  remat_embedder=True)
+        ds, batches = graph_train_batches(cfg, SEED + 90, steps)
+        agreement, eager_ms, graph_ms, eager_peak, graph_peak, counts = graph_against_eager(
+            cfg, options, ds, batches, RECIPE_K, per_step)
+        launches += counts
+        log(f"[recipes] {embedder} train step with remat_embedder, depth {CUT_DEPTH}, bf16, "
+            f"b{TRAIN_BATCH}: {RECIPE_REPLAYS} replays of a {RECIPE_K}-step graph against "
+            f"{steps} eager steps {agreement}; ms/step eager {eager_ms:.2f}, graph "
+            f"{graph_ms:.2f}; peak {eager_peak:.2f} / {graph_peak:.2f} GiB; "
+            f"{'K2' if embedder == 'coo' else 'K1'} {max(per_step)} a step "
+            f"({counts} in all) ({smi})")
+    return launches
+
+
+def compiled_remat(smi):
+    """The compiled ``remat_cnn`` train step at ``CUT_DEPTH`` (its graph
+    from the cache, warmed beside phases 13 and 10) beside the compiled plain step
+    (phase 15's): first call, ms/step and peak memory.  Returns K1's
+    launches."""
+    readings, k1 = [], 0
+    for flags in ({}, {"remat_cnn": True}):
+        options, model, state, batch = bf16_train_setup(**flags)
+        step = make_train_step(model, options, compile=True)
+        before = cache_counts()
+        t0 = time.perf_counter()
+        _, first = counted(lambda: step(state, batch))
+        first_s = time.perf_counter() - t0
+        cache = cache_reading(before)
+        _, warm = counted(lambda: [step(state, batch) for _ in range(REMAT_COMPILED_WARMUP)])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics, timed = counted(lambda: [step(state, batch)
+                                          for _ in range(REMAT_COMPILED_STEPS)][-1])
+        ms = 1e3 * (time.perf_counter() - t0) / REMAT_COMPILED_STEPS
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        assert (first, warm, timed) == ((2, 0), (2 * REMAT_COMPILED_WARMUP, 0),
+                                        (2 * REMAT_COMPILED_STEPS, 0)), (first, warm, timed)
+        assert math.isfinite(float(metrics["train_loss"])), metrics
+        k1 += first[0] + warm[0] + timed[0]
+        readings.append(f"{'+'.join(flags) or 'plain'}: first call {first_s:.1f} s ({cache}), "
+                        f"{ms:.2f} ms/step, peak {peak:.2f} GiB")
+        del model, state, step
+        free_memory()
+    log(f"[recipes] compiled train step, depth {CUT_DEPTH}, bf16, b{TRAIN_BATCH} "
+        f"({REMAT_COMPILED_STEPS} steps after {REMAT_COMPILED_WARMUP + 1}): "
+        + "; ".join(readings) + f" ({smi})")
+    return k1
+
+
+def sdxl_chunk_graph(smi):
+    """The sdxl family at full width, ``embedder_chunk`` 16, bf16, b16,
+    static shapes: ``SDXL_GRAPH_STEPS`` + 1 replays of the one-step graph
+    against as many eager steps.  Returns K1's launches."""
+    options = Options.load(OPTION_FILE)
+    cfg = family_config("sdxl", embedder_chunk=SDXL_GRAPH_CHUNK)
+    ds, batches = graph_train_batches(cfg, SEED + 100, SDXL_GRAPH_STEPS + 1)
+    agreement, eager_ms, graph_ms, eager_peak, graph_peak, counts = graph_against_eager(
+        cfg, options, ds, batches, 1, (2, 0))
+    log(f"[recipes] sdxl train step, chunk {SDXL_GRAPH_CHUNK}, full width, bf16, "
+        f"b{TRAIN_BATCH}, static shapes ({batches[0]['slot_batch'].shape[0]} prong slots): "
+        f"the one-step graph against eager {agreement}; ms/step over {SDXL_GRAPH_STEPS} "
+        f"steps eager {eager_ms:.2f}, graph {graph_ms:.2f}; peak {eager_peak:.2f} / "
+        f"{graph_peak:.2f} GiB ({smi})")
+    return counts[0]
+
+
+def check_recipes(smi, compiled=True):
+    """Phase 17: the memory recipes and the optax chains in one dispatch;
+    returns the K1 and K2 launches of its paths.  ``compiled``: with the
+    compiled ``remat_cnn`` step from phase 15's cache (the smoke runs the
+    rest in a process of its own, ``side_child``)."""
+    k1 = chain_graphs(smi)
+    k1_embedder, k2 = remat_embedder_graphs(smi)
+    k1 += int(k1_embedder)
+    k1 += sdxl_chunk_graph(smi)
+    k1 += graph_training(smi, {"remat_cnn": True}, profiled=False)
+    if compiled:
+        with bench_precision():
+            k1 += compiled_remat(smi)
+    return k1, int(k2)
+
+
+def side_child(smi, out_path):
+    """Phases 17 (but its compiled step) and 10, one after the other, in a
+    process of its own (``Side``), with phase 1's TF32 switch: logs
+    to its output, writes their K1 and K2 launches to ``out_path``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    k1, k2 = check_recipes(smi, compiled=False)
+    log(f"[time] phase 17 (but its compiled step) took {time.perf_counter() - t0:.1f} s "
+        "in the side process")
+    t0 = time.perf_counter()
+    k1 += check_families(smi)
+    log(f"[time] phase 10 took {time.perf_counter() - t0:.1f} s in the side process")
+    with open(out_path, "w") as f:
+        json.dump({"k1": k1, "k2": k2}, f)
+
+
+class Side:
+    """``side_child`` started: phases 17 (but its compiled step) and 10 run
+    on the card while phase 13 compiles on the host.  ``wait()`` waits for
+    the process (once), logs its lines and returns its K1 and K2 launches,
+    or raises with its output if it failed."""
+
+    def __init__(self, work, smi):
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.out, self.log_path = os.path.join(work, "side.json"), os.path.join(work, "side.log")
+        self.launches = None
+        with open(self.log_path, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c",
+                 f"import chip_smoke; chip_smoke.side_child({smi!r}, {self.out!r})"],
+                cwd=here, stdout=f, stderr=subprocess.STDOUT)
+
+    def wait(self):
+        if self.launches is None:
+            try:
+                self.proc.wait(timeout=SIDE_TIMEOUT_S)
+            finally:
+                stop([self.proc])
+            with open(self.log_path) as f:
+                text = f.read()
+            if self.proc.returncode != 0:
+                raise RuntimeError(f"phases 17 and 10 exited {self.proc.returncode}:\n"
+                                   f"{text[-8000:]}")
+            for line in text.splitlines():
+                if line.startswith("["):
+                    log(line)
+            with open(self.out) as f:
+                launches = json.load(f)
+            self.launches = launches["k1"], launches["k2"]
+        return self.launches
+
+
+@contextlib.contextmanager
+def timing_after(wait):
+    """Inside it, the AOTInductor packaging's bucket timing
+    (``aoti._time_bucket_ms``) calls ``wait()`` first, so that it times a
+    package on a card no other process of the smoke is timing work on."""
+    from dune_transformercvn_torch import aoti
+
+    timer = aoti._time_bucket_ms
+
+    def timed(*args, **kwargs):
+        wait()
+        return timer(*args, **kwargs)
+
+    aoti._time_bucket_ms = timed
+    try:
+        yield
+    finally:
+        aoti._time_bucket_ms = timer
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this smoke "
                  "test needs an NVIDIA GPU")
-    start = time.perf_counter()
 
     def done(phases):
-        log(f"[time] phases {phases} done at {time.perf_counter() - start:.1f} s")
+        log(f"[time] phases {phases} done at {time.perf_counter() - STARTED:.1f} s")
 
     smi = device_and_build()
-    k1 = check_k1()
-    dense_model, dense_counts = check_serving("dense")
-    conv0 = dense_model.prong_embedding.event_pixel_embedding.features.conv0
-    k2 = check_k2(conv0.weight.detach().float(), conv0.bias.detach().float())
-    _, coo_counts = check_serving("coo")
-    train_launches = check_training()
-    check_paths(dense_model)
-    del dense_model, conv0
-    gc.collect()
-    torch.cuda.empty_cache()
-    done("1-7")
-    trainer_launches = check_trainer(smi)
-    remat_readings(smi)
-    gc.collect()
-    torch.cuda.empty_cache()
-    done("8")
-    trainer_launches += check_data_parallel(smi)
-    check_world_of_one()
-    done("9")
-    trainer_launches += check_families(smi)
-    done("10")
-    export_dir = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    work = tempfile.mkdtemp(prefix="chip_smoke_work_")
+    procs = []
     try:
-        launches, served = check_serving_variants(smi, export_dir)
+        # the slowest graphs of phases 15 and 17 compile beside phases 1-12
+        early = start_warming(work, EARLY_GRAPHS, nice=10)
+        procs += early[0].values()
+        k1 = check_k1()
+        dense_model, dense_counts = check_serving("dense")
+        conv0 = dense_model.prong_embedding.event_pixel_embedding.features.conv0
+        k2 = check_k2(conv0.weight.detach().float(), conv0.bias.detach().float())
+        _, coo_counts = check_serving("coo")
+        train_launches = check_training()
+        check_paths(dense_model)
+        del dense_model, conv0
+        gc.collect()
+        torch.cuda.empty_cache()
+        done("1-7")
+        trainer_launches = check_trainer(smi)
+        remat_readings(smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        done("8")
+        trainer_launches += check_data_parallel(smi)
+        check_world_of_one()
+        done("9")
+        launches, served = check_serving_variants(smi, work)
         trainer_launches += launches
         done("11")
         trainer_launches += check_remaining_modules(smi)
         done("12")
-        # phase 14's compiled TP ranks and phase 15's graphs compile beside
-        # phase 13, at a low priority; the TP ranks are timed once the
-        # graphs are in the cache
-        compiled_tp = start_compiled_tp(export_dir)
-        warming = start_warming(export_dir, nice=10)
-        try:
-            check_aoti_serving(smi, served, export_dir)
-            done("13")
-            finish_warming(warming, smi, beside=" beside phase 13")
-            trainer_launches += finish_compiled_tp(compiled_tp, smi)
-        finally:
-            stop(compiled_tp[1][0])
-            stop(warming[0].values())
+        # phase 14's compiled TP ranks and the other graphs compile at a
+        # low priority beside phase 13, and phases 17 and 10 run on the
+        # card while phase 13 compiles; phase 13 times its packages once
+        # they are done, and the TP ranks are timed once every graph is in
+        # the cache
+        compiled_tp = start_compiled_tp(work)
+        procs += compiled_tp[1][0]
+        late = start_warming(work, tuple(n for n in WARM_GRAPHS if n not in EARLY_GRAPHS),
+                             nice=10)
+        procs += late[0].values()
+        side = Side(work, smi)
+        procs.append(side.proc)
+        check_aoti_serving(smi, served, work, card_free=side.wait)
+        del served
+        free_memory()
+        done("13")
+        side_k1, side_k2 = side.wait()
+        trainer_launches += side_k1
+        train_launches += side_k2
+        done("17 (but its compiled step) and 10, beside 13,")
+        finish_warming(early, smi, beside=" (started before phase 2, at nice 10)")
+        finish_warming(late, smi, beside=" (started with phase 13, at nice 10)")
+        trainer_launches += finish_compiled_tp(compiled_tp, smi)
     finally:
-        shutil.rmtree(export_dir, ignore_errors=True)
-    del served
-    free_memory()
+        stop(procs)
+        shutil.rmtree(work, ignore_errors=True)
     trainer_launches += check_tensor_parallel(smi)
     done("14")
     compiled_k1, compiled_k2 = check_compiled(smi, warmed=True)
     trainer_launches += compiled_k1
     train_launches += compiled_k2
     done("15")
+    # phase 17's compiled step, from the cache; before phase 16, whose
+    # profiler reading stays last
+    with bench_precision():
+        trainer_launches += compiled_remat(smi)
+    done("17's compiled step")
     graph_k1, graph_k2 = check_graphs(smi)
     trainer_launches += graph_k1
     train_launches += graph_k2

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.masked import MaskedBatchNorm, PReLU
+from ..ops.masked import Dropout, MaskedBatchNorm, PReLU
 from ..parallel.mesh import whole
 
 
@@ -50,7 +50,7 @@ class OutputBlock(nn.Module):
         self.linear = nn.Linear(in_features, output_dim, bias=False)
         self.norm = MaskedBatchNorm(output_dim)
         self.relu = PReLU(output_dim)
-        self.dropout = nn.Dropout(dropout) if dropout > 0.0 else None
+        self.dropout = Dropout(dropout) if dropout > 0.0 else None
 
     def forward(self, x, mask, dtype):
         x = self.relu(self.norm(dense(self.linear, x, dtype), mask))
@@ -76,7 +76,7 @@ class LinearBlock(nn.Module):
                                 bias=force_bias or not batch_norm)
         self.norm = MaskedBatchNorm(features) if batch_norm else None
         self.activation = PReLU(features) if prelu else nn.ReLU()
-        self.dropout = nn.Dropout(dropout) if dropout > 0.0 else None
+        self.dropout = Dropout(dropout) if dropout > 0.0 else None
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
         x = dense(self.linear, x, self.compute_dtype)

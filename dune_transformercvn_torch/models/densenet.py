@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import quant
-from ..ops.masked import MaskedBatchNorm, PReLU, remat
+from ..ops.masked import Dropout, MaskedBatchNorm, PReLU, remat
 from ..parallel.mesh import copy_to_row, piece, reduce_from_row, whole
 from .blocks import OutputBlock
 
@@ -121,7 +121,7 @@ class Bottleneck(nn.Module):
             relu2=PReLU(expand),
             conv2=nn.Conv2d(expand, growth_rate, 3, padding=1),
         ))
-        self.dropout = nn.Dropout(dropout) if dropout > 0.0 else None
+        self.dropout = Dropout(dropout) if dropout > 0.0 else None
         self.tp = None
 
     def tensor_parallel_pieces(self, model_parallel: int):

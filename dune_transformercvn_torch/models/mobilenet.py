@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.masked import MaskedBatchNorm
+from ..ops.masked import Dropout, MaskedBatchNorm
 from .blocks import dense, make_divisible
 from .densenet import conv_nhwc
 
@@ -61,7 +61,7 @@ class ConvBlock(nn.Module):
                               padding=((kh - 1) // 2, (kw - 1) // 2),
                               groups=in_channels if depthwise else 1, bias=False)
         self.norm = MaskedBatchNorm(features)
-        self.dropout = nn.Dropout(dropout) if dropout > 0.0 else None
+        self.dropout = Dropout(dropout) if dropout > 0.0 else None
 
     def forward(self, x, mask, dtype):
         c = self.conv
@@ -99,7 +99,7 @@ class InvertedResidual(nn.Module):
             MaskedBatchNorm(features),
         ]
         self.convolutions = nn.ModuleList(layers)
-        self.dropout = nn.Dropout(dropout) if dropout > 0.0 else None
+        self.dropout = Dropout(dropout) if dropout > 0.0 else None
         self.residual = stride == 1 and in_channels == features
 
     def forward(self, x, mask, dtype):

@@ -280,11 +280,35 @@ def apply_embedder(cnn: nn.Module, images, mask, chunk: int = 0, save_spatial: i
             stacklevel=2,
         )
         return cnn(images, mask)
-    policy = partial(_save_small_convs, save_spatial) if save_spatial > 0 else None
     return torch.cat([
-        remat(cnn, images[i:i + chunk], None if mask is None else mask[i:i + chunk],
-              policy=policy)
+        _OwnGradient.apply(_chunk_step(
+            cnn, images[i:i + chunk], None if mask is None else mask[i:i + chunk],
+            save_spatial))
         for i in range(0, n, chunk)])
+
+
+class _OwnGradient(torch.autograd.Function):
+    """The identity, whose backward hands on a copy of the gradient: each
+    chunk's cotangent is a tensor of its own rather than a slice of the
+    bank's (``cat``'s backward), so the compiled chunk region traces its
+    backward once, not once a slice offset."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.clone()
+
+
+@torch.compiler.nested_compile_region
+def _chunk_step(cnn, images, mask, save_spatial: int):
+    """One chunk of :func:`apply_embedder`: ``cnn`` under remat.  Compiled,
+    every chunk of a bank is one call of a region traced once (JAX's
+    ``nn.scan`` body), not a copy of it a chunk."""
+    policy = partial(_save_small_convs, save_spatial) if save_spatial > 0 else None
+    return remat(cnn, images, mask, policy=policy)
 
 
 class ProngEmbedding(nn.Module):

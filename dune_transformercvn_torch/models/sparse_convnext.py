@@ -38,7 +38,9 @@ def _remask(features: torch.Tensor, occupancy: torch.Tensor) -> torch.Tensor:
 
 class DropPath(nn.Module):
     """Per-sample stochastic depth: in training, each sample's branch is
-    kept with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``."""
+    kept with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``.
+    The mask is drawn out of place, so that :func:`..ops.masked.remat`
+    keeps it."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -49,7 +51,7 @@ class DropPath(nn.Module):
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.empty(shape, device=x.device).bernoulli_(keep)
+        mask = torch.empty(shape, device=x.device).bernoulli(keep)
         return x * mask.to(x.dtype) / keep
 
 

@@ -30,7 +30,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops.masked import MaskedBatchNorm, PReLU, remat
+from ..ops.masked import Dropout, MaskedBatchNorm, PReLU, remat
 from ..ops.sparse import SparseGrid, sparse_avg_pool, sparse_conv, sparse_global_avg_pool
 from ..parallel.mesh import whole
 from .blocks import OutputBlock
@@ -71,7 +71,7 @@ class SparseBottleneck(nn.Module):
             relu2=PReLU(expand),
             conv2=nn.Conv2d(expand, growth_rate, 3, bias=False),
         ))
-        self.dropout = nn.Dropout(dropout) if dropout > 0.0 else None
+        self.dropout = Dropout(dropout) if dropout > 0.0 else None
 
     def forward(self, grid: SparseGrid) -> SparseGrid:
         b, o = self.bottleneck_block, self.output_block

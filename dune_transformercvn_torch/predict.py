@@ -83,7 +83,7 @@ def make_predict_step(model, compile: bool = False, shapes: int = 1,
         if (compile or graph) and quant.active():
             raise RuntimeError("int8 convolutions (ops.quant.quantized_convs) run "
                                "eagerly: predict with compile=False and graph=False "
-                               "inside the context")
+                               "inside the context (ROADMAP.md item 20)")
         if not graph or device.type != "cuda":
             return forward(batch, norm)
         captured = graphs.get(device, batch, norm)

@@ -218,10 +218,14 @@ def parser() -> ArgumentParser:
                    help="Device to train on (default cuda; no fallback).")
     p.add_argument("--compile", action="store_true",
                    help="Compile the train, eval and predict steps with torch.compile "
-                        "(Inductor), one graph a batch shape: the counterpart of jax.jit.")
+                        "(Inductor), one graph a batch shape: the counterpart of jax.jit. "
+                        "Takes the option file's remat_cnn, remat_embedder and "
+                        "embedder_chunk.")
     p.add_argument("--cuda_graph", action="store_true",
                    help="Replay the train (K steps a graph), eval and predict steps as "
-                        "CUDA graphs, one a batch shape: one process, AdamW, no remat.")
+                        "CUDA graphs, one a batch shape: one process; every optimizer "
+                        "and the option file's remat_cnn, remat_embedder and "
+                        "embedder_chunk.")
     return p
 
 

@@ -82,15 +82,17 @@ class Trainer:
     (JAX's ``lax.scan``), the tail as the one-step graph (JAX's
     ``_train_dispatch_iter``), the logs read the group's last step, and
     validation and ``predict_split`` replay graphs of their own.  It takes
-    one process, AdamW (the state holds :class:`.optimizer.GraphAdamW`)
-    and no remat (``step.check_graphable`` raises otherwise); on a
-    ``"cpu"`` device the same step bodies run without a capture.
+    one process (``step.check_graphable`` raises otherwise), every
+    optimizer (AdamW as :class:`.optimizer.GraphAdamW`; the optax chains
+    are graph-safe) and every memory recipe (``remat_cnn``,
+    ``remat_embedder``, ``embedder_chunk``); on a ``"cpu"`` device the
+    same step bodies run without a capture.
 
     ``compile=True`` compiles the train, eval and predict steps (the JAX
     package jits them): one Inductor graph for each batch shape, with
     Dynamo's recompile limit raised by the shapes each batcher can lay out
-    (``Batcher.shape_bound``; past it a step raises) (``train/step.py``
-    says what stays eager).
+    (``Batcher.shape_bound``; past it a step raises), the memory recipes
+    included (``train/step.py`` says what stays eager).
     """
 
     def __init__(

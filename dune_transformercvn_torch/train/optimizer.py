@@ -34,13 +34,17 @@ unknown name falls back to AdamW with the JAX package's message.
   packs several leaves along its first axis (the attention's q/k/v
   ``in_proj_weight`` / ``in_proj_bias``) takes one ratio per leaf
   (:func:`..from_jax.jax_leaf_splits`).
-* **Graph-safe AdamW** (:class:`GraphAdamW`, ``create_optimizer(...,
-  graph=True)``): optax's ``adamw`` in ``_foreach_`` ops whose step count
-  and learning rate are tensors on the parameters' device, so a CUDA graph
-  captures its update and each replay reads the rate the host wrote
-  (``train/step.py``'s ``graph=True``).  Its bias corrections are optax's
-  float32 ``1 - b ** count``, computed on the device.  The seven chains
-  keep their count and rate on the host and raise under ``graph=True``.
+* **No host state in an update** (:class:`GraphSafe`): the seven chains
+  and the graph-safe AdamW (:class:`GraphAdamW`, ``create_optimizer(...,
+  graph=True)``) keep optax's step count (int32) and the learning rate as
+  0-d tensors on the parameters' device and make their slots with the
+  optimizer, so a CUDA graph captures an update and each replay reads the
+  rate the host wrote (``train/step.py``'s ``graph=True``); eagerly they
+  launch the same kernels.  The bias corrections are optax's float32
+  ``1 - b ** count``, computed on the device.  A checkpoint keeps the
+  count as an int in each saved param group (the chains) or as each
+  parameter's ``step`` (AdamW's layout), and a restore copies into the
+  live tensors, so a captured graph keeps reading them.
 * optax updates every leaf, so a parameter that got no gradient gets a zero
   one here (its moments stay zero, its decay still applies).
 * **Tensor parallelism** (``parallel.shard_parameters``): a sharded
@@ -56,7 +60,6 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -77,21 +80,25 @@ def _decayed(g, p, group):
     return g + wd * p if wd else g
 
 
-def _bias_correction(decay: float, count: int) -> float:
-    """optax's ``1 - decay ** count`` in float32: 0.999 is no float32, so
-    at small counts this differs from the float64 value by up to 1.3e-5 of
-    itself (numpy's float32 power gives XLA's bits)."""
-    return float(np.float32(1) - np.float32(decay) ** np.float32(count))
+def bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
+    """optax's ``1 - decay ** count`` in float32, on ``count``'s device
+    (``count``: a float32 0-d tensor): 0.999 is no float32, so at small
+    counts this differs from the float64 value by up to 1.3e-5 of itself.
+    On the CPU, ``torch.pow`` of 0-d float32 tensors gives XLA's bits at
+    every count up to 2^17 (numpy's float32 power differs by an ulp from
+    count 4 on; ``tests/test_torch_port_graph_chains.py``); the card's
+    against the CPU's: ``tests/test_torch_port_cuda.py``."""
+    return 1.0 - torch.pow(torch.full_like(count, decay), count)
 
 
-def _adam(g, state, count: int, b1: float, b2: float, eps: float):
+def _adam(g, state, corrections, b1: float, b2: float, eps: float):
     """optax's ``scale_by_adam`` (eps outside the square root), its moments
-    updated in place."""
+    updated in place; ``corrections``: decay -> its bias correction."""
     mu, nu = state["mu"], state["nu"]
     mu.mul_(b1).add_(g, alpha=1 - b1)
     nu.mul_(b2).addcmul_(g, g, value=1 - b2)
-    mu_hat = mu / _bias_correction(b1, count)
-    nu_hat = nu / _bias_correction(b2, count)
+    mu_hat = mu / corrections[b1]
+    nu_hat = nu / corrections[b2]
     return mu_hat / (nu_hat.sqrt() + eps)
 
 
@@ -129,51 +136,108 @@ def _trust_ratio(u, p, leaves: int, coefficient: float, shard=None):
     return u * ratio[leaf].reshape((rows,) + (1,) * (u.ndim - 1))
 
 
-class OptaxChain(torch.optim.Optimizer):
+class GraphSafe(torch.optim.Optimizer):
+    """An optimizer with no host state in its update: ``count`` (optax's
+    step count, int32) and ``lr`` are 0-d tensors on the parameters'
+    device, and the slots are made with the optimizer.  ``step(lr=t)``
+    reads the rate from the tensor ``t`` (a graph's buffer the host fills
+    before each replay); ``step()`` fills ``lr`` from ``group["lr"]``
+    first, as the eager train step sets it."""
+
+    def _make_scalars(self, lr: float) -> None:
+        device = self.param_groups[0]["params"][0].device
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
+        self.lr = torch.full((), float(lr), device=device)
+
+    def _advance(self, lr: torch.Tensor = None):
+        """The step's rate and its count (float32), the count advanced."""
+        if lr is None:
+            lr = self.lr.fill_(self.param_groups[0]["lr"])
+        self.count.add_(1)
+        return lr, self.count.float()
+
+    def _load_in_place(self, state_dict) -> None:
+        """``torch.optim.Optimizer.load_state_dict``, then its slot tensors
+        copied into the live ones, which stay in ``self.state``.  A sharded
+        parameter's slots (tensor parallelism, never in a graph) keep the
+        whole tensors loaded, for ``parallel.reshard_optimizer_state``."""
+        live = {p: self.state[p] for group in self.param_groups for p in group["params"]
+                if shard_spec(p) is None}
+        super().load_state_dict(state_dict)
+        for p, tensors in live.items():
+            for name, tensor in tensors.items():
+                tensor.copy_(self.state[p][name])
+            self.state[p] = tensors
+
+
+class OptaxChain(GraphSafe):
     """One of the JAX package's optax chains.  Each group holds ``lr`` (the
-    step's rate), ``weight_decay`` and ``count`` (optax's step count, in
-    the checkpoint with the groups); ``slots`` names each parameter's state
-    tensors and their initial values; ``leaves`` maps a parameter to the
-    JAX leaves it packs.  Each subclass's ``update(p, g, state, group)``
+    step's rate), ``weight_decay`` and ``count``: optax's step count, live
+    the one device tensor ``self.count`` that every group holds, an int in
+    the checkpoint's param groups;
+    ``slots`` names each parameter's state tensors and their initial
+    values, ``decays`` the decays whose bias corrections the update reads;
+    ``leaves`` maps a parameter to the JAX leaves it packs.  Each
+    subclass's ``update(p, g, state, group, lr, corrections, leaves)``
     gives the increment added to a parameter."""
 
     slots: Dict[str, float] = {}
+    decays = ()
 
     def __init__(self, groups, lr: float, leaves: Dict[nn.Parameter, int]):
-        super().__init__(groups, dict(lr=lr, weight_decay=0.0, count=0))
+        super().__init__(groups, dict(lr=lr, weight_decay=0.0))
         self.leaves = leaves
+        self._make_scalars(lr)
+        self._share_count()
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p] = {name: torch.full_like(p, value,
+                                                       memory_format=torch.preserve_format)
+                                 for name, value in self.slots.items()}
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, lr: torch.Tensor = None):
+        lr, count = self._advance(lr)
+        corrections = {decay: bias_correction(decay, count) for decay in self.decays}
         for group in self.param_groups:
-            group["count"] += 1
             for p in group["params"]:
-                state = self.state[p]
-                if not state:
-                    for name, value in self.slots.items():
-                        state[name] = torch.full_like(p, value,
-                                                      memory_format=torch.preserve_format)
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
-                pieces = {name: local(value) for name, value in state.items()}
-                local(p).add_(self.update(local(p), local(g), pieces, group,
+                pieces = {name: local(value) for name, value in self.state[p].items()}
+                local(p).add_(self.update(local(p), local(g), pieces, group, lr, corrections,
                                           (self.leaves[p], shard_spec(p))))
+
+    def state_dict(self):
+        state = super().state_dict()
+        count = int(self.count)
+        state["param_groups"] = [{**group, "count": count} for group in state["param_groups"]]
+        return state
+
+    def load_state_dict(self, state_dict):
+        self._load_in_place(state_dict)
+        self.count.fill_(int(state_dict["param_groups"][0]["count"]))
+        self._share_count()
+
+    def _share_count(self) -> None:
+        """Every group's ``count`` the live tensor: one count, never stale."""
+        for group in self.param_groups:
+            group["count"] = self.count
 
 
 class Adam(OptaxChain):
     """``chain(add_decayed_weights(wd, mask), adam(lr))``."""
 
     slots = {"mu": 0.0, "nu": 0.0}
+    decays = (0.9, 0.999)
 
-    def update(self, p, g, state, group, leaves):
-        return -group["lr"] * _adam(_decayed(g, p, group), state, group["count"],
-                                    0.9, 0.999, 1e-8)
+    def update(self, p, g, state, group, lr, corrections, leaves):
+        return -lr * _adam(_decayed(g, p, group), state, corrections, 0.9, 0.999, 1e-8)
 
 
 class SGD(OptaxChain):
     """``chain(add_decayed_weights(wd, mask), sgd(lr))``: no momentum."""
 
-    def update(self, p, g, state, group, leaves):
-        return -group["lr"] * _decayed(g, p, group)
+    def update(self, p, g, state, group, lr, corrections, leaves):
+        return -lr * _decayed(g, p, group)
 
 
 class RMSprop(OptaxChain):
@@ -182,11 +246,11 @@ class RMSprop(OptaxChain):
 
     slots = {"nu": 0.0}
 
-    def update(self, p, g, state, group, leaves):
+    def update(self, p, g, state, group, lr, corrections, leaves):
         g = _decayed(g, p, group)
         nu = state["nu"]
         nu.mul_(0.9).addcmul_(g, g, value=1 - 0.9)
-        return -group["lr"] * (g * torch.rsqrt(nu + 1e-8))
+        return -lr * (g * torch.rsqrt(nu + 1e-8))
 
 
 class Adagrad(OptaxChain):
@@ -195,12 +259,12 @@ class Adagrad(OptaxChain):
 
     slots = {"sum_of_squares": 0.1}
 
-    def update(self, p, g, state, group, leaves):
+    def update(self, p, g, state, group, lr, corrections, leaves):
         g = _decayed(g, p, group)
         total = state["sum_of_squares"]
         total.addcmul_(g, g)
         scale = torch.where(total > 0, torch.rsqrt(total + 1e-7), torch.zeros_like(total))
-        return -group["lr"] * (scale * g)
+        return -lr * (scale * g)
 
 
 class Lamb(OptaxChain):
@@ -208,10 +272,11 @@ class Lamb(OptaxChain):
     masked decay, the trust ratio of each leaf, then ``-lr``."""
 
     slots = {"mu": 0.0, "nu": 0.0}
+    decays = (0.9, 0.999)
 
-    def update(self, p, g, state, group, leaves):
-        u = _decayed(_adam(g, state, group["count"], 0.9, 0.999, 1e-6), p, group)
-        return -group["lr"] * _trust_ratio(u, p, leaves[0], 1.0, leaves[1])
+    def update(self, p, g, state, group, lr, corrections, leaves):
+        u = _decayed(_adam(g, state, corrections, 0.9, 0.999, 1e-6), p, group)
+        return -lr * _trust_ratio(u, p, leaves[0], 1.0, leaves[1])
 
 
 class Lars(OptaxChain):
@@ -220,8 +285,8 @@ class Lars(OptaxChain):
 
     slots = {"trace": 0.0}
 
-    def update(self, p, g, state, group, leaves):
-        u = -group["lr"] * _trust_ratio(_decayed(g, p, group), p, leaves[0], 1e-3, leaves[1])
+    def update(self, p, g, state, group, lr, corrections, leaves):
+        u = -lr * _trust_ratio(_decayed(g, p, group), p, leaves[0], 1e-3, leaves[1])
         return state["trace"].mul_(0.9).add_(u)
 
 
@@ -231,26 +296,21 @@ class Lion(OptaxChain):
 
     slots = {"mu": 0.0}
 
-    def update(self, p, g, state, group, leaves):
+    def update(self, p, g, state, group, lr, corrections, leaves):
         mu = state["mu"]
         u = torch.sign((1 - 0.9) * g + 0.9 * mu)
         mu.mul_(0.99).add_(g, alpha=1 - 0.99)
-        return -group["lr"] * _decayed(u, p, group)
+        return -lr * _decayed(u, p, group)
 
 
-class GraphAdamW(torch.optim.Optimizer):
+class GraphAdamW(GraphSafe):
     """optax's ``adamw`` (betas 0.9 / 0.999, eps 1e-8, the groups' masked
-    decay) with no host state in its update: ``count`` (optax's step
-    count, int32) and ``lr`` are 0-d tensors on the parameters' device,
-    the moments ``exp_avg`` / ``exp_avg_sq`` are made with the optimizer,
-    and :meth:`step` launches the same kernels whether it runs eagerly or
-    inside a CUDA graph's capture.  ``step(lr=t)`` reads the rate from the
-    tensor ``t`` (a graph's buffer the host fills before each replay);
-    ``step()`` fills ``lr`` from ``group["lr"]`` first, as the eager train
-    step sets it.  Its checkpoint has ``torch.optim.AdamW``'s layout (the
-    count as each parameter's ``step``), so either optimizer restores the
-    other's; :meth:`load_state_dict` restores into the live tensors, so a
-    captured graph keeps reading them."""
+    decay) in ``_foreach_`` ops, with no host state in its update
+    (:class:`GraphSafe`; the moments ``exp_avg`` / ``exp_avg_sq``).  Its
+    checkpoint has ``torch.optim.AdamW``'s layout (the count as each
+    parameter's ``step``), so either optimizer restores the other's;
+    :meth:`load_state_dict` restores into the live tensors, so a captured
+    graph keeps reading them."""
 
     betas = (0.9, 0.999)
     eps = 1e-8
@@ -258,9 +318,7 @@ class GraphAdamW(torch.optim.Optimizer):
     def __init__(self, groups, lr: float):
         super().__init__(groups, dict(lr=lr, betas=self.betas, eps=self.eps,
                                       weight_decay=0.0))
-        device = self.param_groups[0]["params"][0].device
-        self.count = torch.zeros((), dtype=torch.int32, device=device)
-        self.lr = torch.full((), float(lr), device=device)
+        self._make_scalars(lr)
         for group in self.param_groups:
             for p in group["params"]:
                 self.state[p] = {name: torch.zeros_like(p, memory_format=torch.preserve_format)
@@ -268,14 +326,9 @@ class GraphAdamW(torch.optim.Optimizer):
 
     @torch.no_grad()
     def step(self, closure=None, lr: torch.Tensor = None):
-        if lr is None:
-            lr = self.lr.fill_(self.param_groups[0]["lr"])
+        lr, count = self._advance(lr)
         b1, b2 = self.betas
-        self.count.add_(1)
-        count = self.count.float()
-        # optax's bias corrections in float32
-        c1 = 1.0 - torch.pow(torch.full_like(count, b1), count)
-        c2 = 1.0 - torch.pow(torch.full_like(count, b2), count)
+        c1, c2 = bias_correction(b1, count), bias_correction(b2, count)
         for group in self.param_groups:
             params = group["params"]
             if not params:
@@ -308,12 +361,7 @@ class GraphAdamW(torch.optim.Optimizer):
         slots = {i: dict(s) for i, s in state_dict["state"].items()}
         steps = [s.pop("step") for s in slots.values() if "step" in s]
         state_dict["state"] = slots
-        live = {p: self.state[p] for group in self.param_groups for p in group["params"]}
-        super().load_state_dict(state_dict)
-        for p, tensors in live.items():
-            for name, tensor in tensors.items():
-                tensor.copy_(self.state[p][name])
-            self.state[p] = tensors
+        self._load_in_place(state_dict)
         if steps:
             self.count.copy_(steps[0].round())
 
@@ -333,24 +381,16 @@ def optimizer_name(options) -> str:
     return name
 
 
-def check_graph_safe(options) -> None:
-    """``graph=True`` takes AdamW alone (:class:`GraphAdamW`): the optax
-    chains count and scale on the host."""
-    name = _ALIASES.get(options.optimizer.lower(), options.optimizer.lower())
-    if name in CHAINS:
-        raise ValueError(
-            f"graph=True (CUDA graphs) supports the AdamW optimizer only; "
-            f"{options.optimizer!r} keeps its step count and rate on the host "
-            "(ROADMAP.md item 20)")
+def graph_safe(optimizer) -> bool:
+    """Whether a graph step can capture ``optimizer``'s update."""
+    return isinstance(optimizer, GraphSafe)
 
 
 def create_optimizer(options, model: nn.Module, graph: bool = False) -> torch.optim.Optimizer:
     """``options.optimizer`` over ``model``'s parameters in two groups,
     decayed and not, with ``lr`` set to the base rate (the train step scales
-    it by the schedule before every update).  ``graph``: the graph-safe
-    :class:`GraphAdamW` (AdamW only; another optimizer raises)."""
-    if graph:
-        check_graph_safe(options)
+    it by the schedule before every update).  ``graph``: AdamW as the
+    graph-safe :class:`GraphAdamW` (every optax chain is graph-safe)."""
     name = optimizer_name(options)
     mask = decay_mask(model)
     params = dict(model.named_parameters())
@@ -360,9 +400,9 @@ def create_optimizer(options, model: nn.Module, graph: bool = False) -> torch.op
         {"params": [p for n, p in params.items() if not mask[n]],
          "weight_decay": 0.0},
     ]
-    if graph:
-        return GraphAdamW(groups, options.learning_rate)
     if name == "adamw":
+        if graph:
+            return GraphAdamW(groups, options.learning_rate)
         return torch.optim.AdamW(groups, lr=options.learning_rate, betas=(0.9, 0.999),
                                  eps=1e-8)
     splits = jax_leaf_splits(model)

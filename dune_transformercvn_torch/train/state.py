@@ -55,8 +55,9 @@ class TrainState:
         same groups (``create_optimizer`` on the same model config).  Whole
         tensors saved from any layout load into a sharded state as this
         rank's pieces.  The parameters, BatchNorm buffers, norm statistics
-        and a :class:`.optimizer.GraphAdamW`'s slots and count are copied
-        into the live tensors, so the CUDA graphs of a ``graph=True`` step
+        and a graph-safe optimizer's slots and count
+        (:class:`.optimizer.GraphSafe`) are copied into the live tensors,
+        so the CUDA graphs of a ``graph=True`` step
         go on reading them; the graphs' generator states are seeded from
         ``generator`` before every replay, so its state is theirs."""
         self.step = int(state["step"])

@@ -50,25 +50,31 @@ the train step compiles its region from the network's forward through the
 loss, and AOTAutograd gives it a compiled backward; the seed draw, the
 zeroing of the gradients, the data-parallel all-reduce, the clipping and
 the optimizer stay eager around it.  Sync-BN's all-reduce and the
-tensor-parallel layers' collectives are traced into the graph.  The eval step compiles its forward through the metric
-statistics.  Compiled dropout and pixel noise draw Inductor's Philox
-offsets from the default generator the step seeds, so a compiled run is
-reproducible from the state (its masks are not eager's).  Not with
-``remat`` (``remat_cnn``, ``remat_embedder``, ``embedder_chunk``): that
-raises (ROADMAP.md).
+tensor-parallel layers' collectives are traced into the graph.  The eval
+step compiles its forward through the metric statistics.  Compiled
+dropout and pixel noise draw Inductor's Philox offsets from the default
+generator the step seeds, so a compiled run is reproducible from the
+state (its masks are not eager's).  The memory recipes (``remat_cnn``,
+``remat_embedder``, ``embedder_chunk``, :func:`..ops.masked.remat`)
+compile into the same one graph: each rematted region a checkpoint region
+whose backward recomputes it, the running statistics updated once a step
+outside it, the dropout masks drawn in the forward kept for the backward
+(the backward graph draws nothing), and the chunks of a bank calls of one
+region traced once (JAX's ``nn.scan``).  A graph break raises.
 
 ``graph=True`` is the counterpart of the JAX package's dispatch: on the
 card the train step is one CUDA graph of ``steps_per_dispatch`` K whole
 steps over K stacked batches (its ``lax.scan``; :func:`make_graph_train_step`)
 and the eval step one graph a batch shape (:mod:`..utils.graphs`).  The
-graph holds the forward, the backward, the gradients' norm, the clipping
-and the :class:`.optimizer.GraphAdamW` update; outside it stay the draws
-of each step's seed from ``state.generator``, the schedule's rates, the
-copies of the batches and the norm statistics into the graph's buffers,
-and the copy of the stacked metrics out.  It composes with ``compile``
-(the compiled forward and loss, warmed up before the capture, run inside
-the graph).  :func:`check_graphable` raises for what it does not take:
-more than one process, remat, an optimizer other than AdamW.
+graph holds the forward (a remat recipe's recompute in its backward), the
+backward, the gradients' norm, the clipping and the optimizer's update
+(the graph-safe AdamW or any optax chain: :class:`.optimizer.GraphSafe`);
+outside it stay the draws of each step's seed from ``state.generator``,
+the schedule's rates, the copies of the batches and the norm statistics
+into the graph's buffers, and the copy of the stacked metrics out.  It
+composes with ``compile`` (the compiled forward and loss, warmed up before
+the capture, run inside the graph).  :func:`check_graphable` raises for
+what it does not take: more than one process, int8 convolutions.
 """
 
 from __future__ import annotations
@@ -81,12 +87,13 @@ from torch.profiler import record_function
 
 from ..ops.losses import (binary_event_loss, class_balanced_loss,
                           softmax_focal_loss, split_event_targets)
-from ..ops.masked import MaskedBatchNorm
+from ..ops import quant
+from ..ops.masked import MaskedBatchNorm, keep_draws
 from ..parallel import Mesh, all_reduce_, default_mesh, local, shard_spec
 from ..utils.compile import compile_step
 from ..utils.graphs import StepGraphs
 from .metrics import update_metric_state
-from .optimizer import GraphAdamW, check_graph_safe, clip_by_global_norm_, global_norm
+from .optimizer import clip_by_global_norm_, global_norm, graph_safe
 from .state import TrainState
 
 # folds the data shard into a step's seed (shard 0 keeps it): the 64-bit golden ratio
@@ -176,31 +183,19 @@ def _loss_kwargs(options, model) -> Dict:
     )
 
 
-def _check_compilable(model, train: bool):
-    """What ``compile=True`` does not take yet raises here (ROADMAP.md)."""
-    cfg = model.cfg
-    if train and (cfg.remat_cnn or cfg.remat_embedder or cfg.embedder_chunk):
-        raise ValueError("compile=True with remat_cnn, remat_embedder or embedder_chunk "
-                         "is not supported: the recompute's BatchNorm freezing runs "
-                         "eagerly")
-
-
-def check_graphable(model, train: bool, mesh: Optional[Mesh] = None, options=None):
+def check_graphable(mesh: Optional[Mesh] = None):
     """What ``graph=True`` does not take yet raises here (ROADMAP.md item
-    20): more than one process, remat, an optimizer that keeps host state."""
+    20): a process group of more than one rank, and int8 convolutions (a
+    graph predict step also raises inside their context)."""
     mesh = mesh or default_mesh()
     if mesh.world_size > 1:
         raise ValueError(
             f"graph=True runs in one process; this one is rank {mesh.rank} of "
             f"{mesh.world_size} (data- and tensor-parallel graphs over nccl are not "
-            "ported yet)")
-    cfg = model.cfg
-    if train and (cfg.remat_cnn or cfg.remat_embedder or cfg.embedder_chunk):
-        raise ValueError("graph=True with remat_cnn, remat_embedder or embedder_chunk "
-                         "is not supported: the recompute's BatchNorm freezing runs "
-                         "on the host")
-    if options is not None:
-        check_graph_safe(options)
+            "ported yet: ROADMAP.md item 20)")
+    if quant.active():
+        raise RuntimeError("graph=True does not capture int8 convolutions "
+                           "(ops.quant.quantized_convs; ROADMAP.md item 20)")
 
 
 def make_train_step(model, options, mesh: Optional[Mesh] = None, compile: bool = False,
@@ -227,11 +222,10 @@ def make_train_step(model, options, mesh: Optional[Mesh] = None, compile: bool =
                               batch["prong_targets"], gamma, event_scale, **loss_kwargs)
 
     if graph:
-        check_graphable(model, True, mesh, options)
+        check_graphable(mesh)
     elif steps_per_dispatch != 1:
         raise ValueError("steps_per_dispatch > 1 runs as one CUDA graph: pass graph=True")
     if compile:
-        _check_compilable(model, train=True)
         forward_loss = compile_step(forward_loss, shapes)
     if graph:
         return make_graph_train_step(forward_loss, clip, shapes, steps_per_dispatch)
@@ -322,8 +316,8 @@ def _seeded_graph(device, state: torch.Generator):
 
 def make_graph_train_step(forward_loss, clip: float, shapes: int = 1, steps: int = 1):
     """The train step as one CUDA graph of ``steps`` K whole steps
-    (forward, backward, the gradients' norm, clipping, the
-    :class:`.optimizer.GraphAdamW` update), the counterpart of the JAX
+    (forward, backward, the gradients' norm, clipping, the graph-safe
+    optimizer's update), the counterpart of the JAX
     package's ``lax.scan`` over K stacked batches (``steps_per_dispatch``).
 
     ``step(state, batches) -> metrics``: K > 1 takes K stacked batches
@@ -334,7 +328,9 @@ def make_graph_train_step(forward_loss, clip: float, shapes: int = 1, steps: int
     its seed from ``state.generator`` and its rate from the schedule at
     ``state.step + k`` before the replay, the graph reads the K rates from
     a device buffer, and step k's noise and dropout draw from the k-th
-    generator state registered with the graph, seeded with that seed.
+    generator state registered with the graph, seeded with that seed (a
+    remat recompute draws nothing: it keeps the forward's draws,
+    :func:`..ops.masked.keep_draws`).
     Every gradient stays allocated (zeroed in place before each backward),
     the optimizer's state is restored in place on resume
     (``TrainState.load_state_dict``), and the norm statistics are copied in
@@ -357,7 +353,7 @@ def make_graph_train_step(forward_loss, clip: float, shapes: int = 1, steps: int
         rows = []
         for k in range(steps):
             batch = {n: v[k] for n, v in batches.items()}
-            with rng(k):
+            with rng(k), keep_draws():
                 with record_function("train_step.forward"):
                     total, metrics = forward_loss(net, batch, norm)
                 with record_function("train_step.backward"):
@@ -401,9 +397,10 @@ def make_graph_train_step(forward_loss, clip: float, shapes: int = 1, steps: int
                                  f"(every leaf [{steps}, ...]), got leading sizes {leading}")
         else:
             batches = {n: v.unsqueeze(0) for n, v in batches.items()}
-        if not isinstance(state.optimizer, GraphAdamW):
-            raise ValueError("graph=True needs the graph-safe AdamW: create the state "
-                             "with create_train_state(..., graph=True)")
+        if not graph_safe(state.optimizer):
+            raise ValueError("graph=True needs the graph-safe AdamW (any optax chain is "
+                             "graph-safe): create the state with "
+                             "create_train_state(..., graph=True)")
         state.model.train()
         params = [p for p in state.model.parameters() if p.requires_grad]
         device = params[0].device
@@ -488,7 +485,6 @@ def make_eval_step(model, options, compile: bool = False, shapes: int = 1,
                                    prong_logits, batch["prong_targets"], total)
 
     if compile:
-        _check_compilable(model, train=False)
         evaluate = compile_step(evaluate, shapes)
 
     @torch.no_grad()
@@ -499,7 +495,7 @@ def make_eval_step(model, options, compile: bool = False, shapes: int = 1,
 
     if not graph:
         return step
-    check_graphable(model, False)
+    check_graphable()
     bound = {}
 
     @torch.no_grad()

@@ -18,10 +18,21 @@ Kernels K1 and K2 are custom ops (``tcvn::densify``,
 all-reduce is a functional collective inside the graph.  Inductor compiles
 the C++ of CPU graphs with :func:`..aoti.inductor_compiler`, and its caches
 live where :func:`.cache.enable_compile_cache` puts them.
+
+Each step is one Dynamo graph (``fullgraph``) or its first call raises: a
+graph break would run the code around it eagerly (inside a checkpoint, the
+whole rematted region).  A remat body (:func:`..ops.masked.remat`) hands
+its BatchNorms' running-statistic updates out through a Python list, a
+side effect inside the checkpoint that Dynamo traces only when told that
+the recompute need not repeat it
+(``skip_fwd_side_effects_in_bwd_under_checkpoint``), which is the remat
+contract: the recompute computes activations only.  That Dynamo setting is
+process-wide, so a compiled step sets it only around its own calls.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -38,12 +49,19 @@ def _raise_recompile_limit(shapes: int):
 
 
 def compile_step(fn: Callable, shapes: int = 1) -> Callable:
-    """``fn`` compiled by Inductor with static shapes, for ``shapes`` more
-    batch shapes under Dynamo's recompile limit; past the limit a call
-    raises."""
+    """``fn`` compiled by Inductor with static shapes, one Dynamo graph,
+    for ``shapes`` more batch shapes under Dynamo's recompile limit; a
+    graph break, or a shape past the limit, raises."""
     from ..aoti import inductor_compiler
 
     enable_compile_cache()
     torch._inductor.config.cpp.cxx = (inductor_compiler(),)
     _raise_recompile_limit(shapes)
-    return torch.compile(fn, backend="inductor", dynamic=False)
+    compiled = torch.compile(fn, backend="inductor", dynamic=False, fullgraph=True)
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with torch._dynamo.config.patch(skip_fwd_side_effects_in_bwd_under_checkpoint=True):
+            return compiled(*args, **kwargs)
+
+    return call

@@ -33,8 +33,8 @@ ops that keep kernels K1 and K2 inside the compiled graphs.
   shape that comes again compiles nothing; ``Batcher.shape_bound`` covers
   every shape a shuffled batcher lays out, and a shape past the recompile
   limit ``compile_step`` sets raises.
-* What ``compile=True`` does not take raises: remat (with tensor
-  parallelism too, which compiles), int8 convolutions.
+* What ``compile=True`` does not take raises: int8 convolutions.  (Remat
+  compiles: ``tests/test_torch_port_remat_compile.py``.)
 
 Inductor compiles its C++ with one worker here
 (``compile_threads = 1``), beside the test workers.
@@ -413,21 +413,15 @@ def test_a_shape_past_the_recompile_limit_raises(monkeypatch):
 
 
 def test_compile_refuses_what_it_does_not_take():
-    """Remat raises when the step is made, with tensor parallelism as
-    without (a tensor-parallel step is made; it compiles,
-    ``tests/test_torch_port_compile_tp.py``); a compiled predict step
+    """A tensor-parallel step is made (it compiles,
+    ``tests/test_torch_port_compile_tp.py``), and so are remat steps
+    (``tests/test_torch_port_remat_compile.py``); a compiled predict step
     raises inside an int8 context.  Nothing compiles."""
     cfg = small_configs("dense")[1]
     model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(0))
     opts = step_options(Options, 43.0, 0.0)
     tp = Mesh(dp=1, mp=2, rank=0)
     make_train_step(model, opts, tp, compile=True)
-    for flag in ("remat_cnn", "remat_embedder"):
-        remat = TransformerCVN(dataclasses.replace(cfg, **{flag: True}))
-        for mesh in (None, tp):
-            with pytest.raises(ValueError, match="remat"):
-                make_train_step(remat, opts, mesh, compile=True)
-        make_eval_step(remat, opts, compile=True)          # no recompute without grad
     before = compile_count()
     step = make_predict_step(model, compile=True)
     with quant.quantized_convs(model, {}, device="cpu"), \

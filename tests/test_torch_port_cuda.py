@@ -28,7 +28,11 @@ the tiny dense and coo networks' compiled predict and train steps
 (``compile=True``) against the eager ones, K1 or K2 inside the graphs.
 CUDA graphs (``graph=True``): a captured K = 2 train step against eager
 steps, the predict graph against eager, K1's launches in a replay read by
-the profiler.
+the profiler.  The memory recipes and the chains in one dispatch: captured
+K = 2 steps with ``remat_cnn`` and ``remat_embedder`` (dense; coo, whose
+recompute launches K2 again) and with lamb against eager, the compiled
+``remat_cnn`` step against eager, and the optimizers' float32 bias
+correction on the card against the CPU's.
 """
 
 import json
@@ -976,3 +980,128 @@ def test_compiled_graph_steps_on_the_card(cuda):
     for key in ("train_loss", "grad_norm"):
         for g, w in zip(metrics[1], metrics[0]):
             torch.testing.assert_close(g[key], w[key], rtol=1e-4, atol=1e-4)
+
+
+def captured_against_eager(cuda, cfg, ds, batches, options):
+    """Two replays of a captured K = 2 train step against 4 eager steps
+    from the same state (the graph-safe optimizer in both): the stacked
+    metrics, the state dict and the optimizer's count, and the graph's
+    kernel launches a replay."""
+    from dune_transformercvn_torch.train import create_train_state, make_train_step
+
+    start = TransformerCVN(cfg, generator=torch.Generator().manual_seed(0))
+    runs = []
+    for graph in (False, True):
+        model = TransformerCVN(cfg).to(cuda)
+        model.load_state_dict(start.state_dict())
+        state = create_train_state(model, options, ds.norm(), 4, seed=3, graph=True)
+        if graph:
+            step = make_train_step(model, options, graph=True, steps_per_dispatch=2)
+            groups = [{k: torch.stack([a[k], b[k]]) for k in a}
+                      for a, b in (batches[:2], batches[2:])]
+            outs = [step(state, group) for group in groups]
+            metrics = {k: torch.cat([o[k] for o in outs]).cpu() for k in outs[0]}
+            (captured,) = step.graphs.graphs.values()
+            launches = captured.launches
+        else:
+            step = make_train_step(model, options)
+            steps = [step(state, b) for b in batches]
+            metrics = {k: torch.stack([m[k].float() for m in steps]).cpu() for k in steps[0]}
+        assert state.step == 4 and int(state.optimizer.count) == 4
+        runs.append((metrics, {k: v.cpu() for k, v in model.state_dict().items()}))
+    return runs, {n for n, _ in start.named_parameters()}, launches
+
+
+def assert_captured_close(runs, params, lr):
+    """``test_captured_steps_equal_eager_steps``' bounds: metrics and
+    running statistics within 2^-7 of their largest, parameters within
+    ``2 * steps * lr``."""
+    (want_m, want_sd), (got_m, got_sd) = runs
+    assert got_m.keys() == want_m.keys() and got_sd.keys() == want_sd.keys()
+    for key, w in list(want_m.items()) + list(want_sd.items()):
+        gap = float(((got_m if key in want_m else got_sd)[key].double() - w.double())
+                    .abs().max())
+        bound = (2 * 4 * lr if key in params
+                 else 2 ** -7 * max(float(w.abs().max()), 1e-30))
+        assert gap <= bound, (key, gap, bound)
+
+
+@pytest.mark.parametrize("embedder,flag,launches", [
+    ("dense", "remat_cnn", [4, 0]),
+    ("dense", "remat_embedder", [4, 0]),
+    # the coo stem lies inside the rematted embedder: the backward's
+    # recompute launches K2 again, 4 times a step
+    ("coo", "remat_embedder", [0, 8]),
+])
+def test_captured_remat_steps_equal_eager_steps(cuda, embedder, flag, launches):
+    """A captured K = 2 train step with a memory recipe (dropout and pixel
+    noise on) against 4 eager steps with it, within
+    ``test_captured_steps_equal_eager_steps``' bounds; the kernels a replay
+    launches, the recompute's included."""
+    import dataclasses
+
+    cfg, ds, batches, options = graph_setup(cuda, embedder)
+    cfg = dataclasses.replace(cfg, **{flag: True})
+    runs, params, got = captured_against_eager(cuda, cfg, ds, batches, options)
+    assert got == launches
+    assert_captured_close(runs, params, options.learning_rate)
+
+
+def test_captured_lamb_step_equals_eager(cuda):
+    """A captured K = 2 train step with lamb (count, rate and per-leaf
+    trust ratios on the card) against 4 eager lamb steps."""
+    cfg, ds, batches, options = graph_setup(cuda)
+    options.update_options(dict(optimizer="lamb"))
+    runs, params, launches = captured_against_eager(cuda, cfg, ds, batches, options)
+    assert launches == [4, 0]
+    assert_captured_close(runs, params, options.learning_rate)
+
+
+def test_compiled_remat_step_on_the_card(cuda):
+    """``compile=True`` with ``remat_cnn``: one graph, the first two losses
+    and ``grad_norm`` against the eager remat step (float32, TF32 off,
+    dropout and noise 0) within 1e-4."""
+    import dataclasses
+
+    from dune_transformercvn_torch.train import create_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, ds, batches, options = graph_setup(cuda, "dense", 0.0, 0.0)
+    cfg = dataclasses.replace(cfg, remat_cnn=True)
+    metrics = []
+    for compile in (False, True):
+        model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(0)).to(cuda)
+        state = create_train_state(model, options, ds.norm(), 4, seed=0)
+        step = make_train_step(model, options, compile=compile)
+        metrics.append([step(state, b) for b in batches[:2]])
+    for key in ("train_loss", "grad_norm"):
+        for g, w in zip(metrics[1], metrics[0]):
+            torch.testing.assert_close(g[key], w[key], rtol=1e-4, atol=1e-4)
+
+
+def test_bias_correction_on_the_card(cuda):
+    """The optimizers' float32 ``1 - b ** count`` on the card against the
+    same on the CPU, 0-d as the optimizers compute it (XLA's bits there,
+    ``tests/test_torch_port_graph_chains.py``), for b 0.9 and 0.999 and
+    counts 1 to 2^16: the powers at most one unit in the last place apart,
+    so each correction within 2^-23 / (1 - b ** count) of itself, 1.2e-4
+    at count 1 and 1.2e-7 from count 2^16 on (the counts that differ are
+    printed)."""
+    from dune_transformercvn_torch.train.optimizer import bias_correction
+
+    counts = np.arange(1, 2 ** 16 + 1, dtype=np.float32)
+    for decay in (0.9, 0.999):
+        want = np.array([float(bias_correction(decay, torch.tensor(float(c))))
+                         for c in counts], np.float32)
+        got = bias_correction(decay, torch.from_numpy(counts).to(cuda)).cpu().numpy()
+        power = torch.pow(torch.full((counts.size,), decay, device=cuda),
+                          torch.from_numpy(counts).to(cuda)).cpu().numpy()
+        cpu_power = np.array([float(torch.pow(torch.tensor(decay), torch.tensor(float(c))))
+                              for c in counts], np.float32)
+        ulps = np.abs(power.view(np.int32).astype(np.int64) - cpu_power.view(np.int32))
+        print(f"bias correction {decay}: {int((ulps > 0).sum())} of {counts.size} "
+              f"powers differ, at most {int(ulps.max())} ulp, the correction at most "
+              f"{float(np.max(np.abs(got / want - 1))):.3g} of itself")
+        assert ulps.max() <= 1
+        np.testing.assert_allclose(got, want, rtol=2 ** -23 / (1 - decay), atol=0)

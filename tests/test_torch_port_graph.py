@@ -21,10 +21,11 @@ the CPU, where the same step bodies run without a capture.
   bit for bit to its rate from the group.
 * The eval body (statistics into zeroed buffers, then added) and
   ``predict_split(graph=True)`` against eager, bit for bit.
-* What ``graph=True`` does not take raises: a multi-rank mesh, an optax
-  chain, remat, int8 convolutions, K > 1 without a graph, batches not
-  stacked K deep, a state without the graph-safe optimizer, CUDA without a
-  card, a batch shape past the bound.
+* What ``graph=True`` does not take raises: a multi-rank mesh, int8
+  convolutions, K > 1 without a graph, batches not stacked K deep, a state
+  without the graph-safe optimizer, CUDA without a card, a batch shape
+  past the bound.  (Remat and the optax chains:
+  ``tests/test_torch_port_graph_chains.py``.)
 """
 
 import copy
@@ -226,16 +227,7 @@ def test_what_graph_does_not_take_raises(synthetic_file):
     with pytest.raises(ValueError, match="one process"):
         make_train_step(model, opts, Mesh(2, 1, 0), graph=True)
     with pytest.raises(ValueError, match="one process"):
-        check_graphable(model, False, Mesh(1, 2, 1))
-    lamb = step_options(Options, 0.5, 0.0)
-    lamb.optimizer = "lamb"
-    with pytest.raises(ValueError, match="AdamW optimizer only"):
-        make_train_step(model, lamb, graph=True)
-    with pytest.raises(ValueError, match="AdamW optimizer only"):
-        create_optimizer(lamb, model, graph=True)
-    remat = TransformerCVN(dataclasses.replace(port_cfg, remat_cnn=True))
-    with pytest.raises(ValueError, match="remat"):
-        make_train_step(remat, opts, graph=True)
+        check_graphable(Mesh(1, 2, 1))
     with pytest.raises(ValueError, match="graph=True"):
         make_train_step(model, opts, steps_per_dispatch=2)
     step = make_train_step(model, opts, graph=True, steps_per_dispatch=2)

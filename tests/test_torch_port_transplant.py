@@ -244,7 +244,8 @@ def test_port_loads_nothing_of_the_jax_package():
     # the smoke's JSON line cites each TPU kernel it replaces by file:line
     citation = re.compile(r"dune_transformercvn_tpu/[\w/]+\.py:\d+")
     for path in sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                                 REPO / "compile_probe.py"]:
+                                                 REPO / "compile_probe.py",
+                                                 REPO / "recipes_probe.py"]:
         for text in code_strings(path):
             if citation.fullmatch(text):
                 continue
@@ -259,8 +260,8 @@ def test_port_loads_nothing_of_the_jax_package():
 
 
 def test_chip_smoke_imports_no_jax():
-    """The smoke, and the compile probe beside it, stand on the port alone:
-    no JAX and nothing of the JAX package."""
+    """The smoke, and the compile and recipes probes beside it, stand on
+    the port alone: no JAX and nothing of the JAX package."""
     names = set(imported_modules(REPO / "chip_smoke.py"))
     assert not {n for n in names if n.split(".")[0] in FORBIDDEN}
     assert "dune_transformercvn_torch.data" in names
@@ -268,6 +269,8 @@ def test_chip_smoke_imports_no_jax():
     probe = set(imported_modules(REPO / "compile_probe.py"))
     assert not {n for n in probe if n.split(".")[0] in FORBIDDEN}
     assert {"chip_smoke", "dune_transformercvn_torch"} <= probe, probe
+    recipes = set(imported_modules(REPO / "recipes_probe.py"))
+    assert "torch" in recipes and not {n for n in recipes if n.split(".")[0] in FORBIDDEN}
 
 
 def test_importing_the_port_builds_and_loads_no_cuda(tmp_path):
