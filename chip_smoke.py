@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Phases, each of which raises on failure, run in the order 1-9, 11-13,
-14, 15, 17's compiled step, 16, 18.  Beside them, in processes of their
+14, 15, 17's compiled step, 16, 18, 19.  Beside them, in processes of their
 own: the slowest of the graphs that phases 15 and 17 load from the
 compile cache compile beside phases 1-12 at a low priority; the rest,
 and phase 14's compiled ranks, compile beside 13; phases 17 (but
 its compiled step) and 10 run one after the other in one process while
 phase 13's main process compiles, and 13 times its packages only once
 that process has ended, so no two phases run on the card at once (a
-compile's first call runs its graph there for seconds).  The readings that share the host's cores with compiles are those
+compile's first call runs its graph there for seconds).  That process
+runs phase 10, whose steps take up to 34 GiB of the card, first, while
+most of the compiles have not reached their first call on the card, and
+17 (up to 20 GiB) after it.  The readings that share the host's cores with compiles are those
 of phases 8-12 (niced compiles), of 17 and 10, and of 13.  The ``[time]``
 lines count from the script's start, imports included.  Phases 1-7, 10, one-hot pixels in
 12 and a step of 14 run the option file's network whole; phases 8, 9,
@@ -230,7 +233,25 @@ of phases 13 and 15 and the bench, fits its time limit:
    from these paths count in the kernels' line.
    ``check_recipes(smi, compiled=False)`` runs it alone in one process.
    ``recipes_probe.py`` holds this slice's readings outside the smoke.
-18. A JSON line of every ported kernel, then, as the last line,
+18. Multi-card training in one dispatch (``graph=True`` in a process
+   group: the step's all-reduces, sync-BN's, the tensor-parallel row's
+   and ``global_norm``'s inside the CUDA graph, on nccl).  On one card:
+   ``Trainer(graph=True)`` at ``CUT_DEPTH``, 2 steps a replay, in a world
+   of one over nccl against the same Trainer with no process group, its
+   state bit for bit (``check_world_of_one(graph=True)``); the multi-card
+   part prints a line saying it needs 2 or 4 cards.  On 4 cards (2: dp2
+   and dp1 x mp2), one process a card (``check_graph_parallel(smi)``):
+   the option file's network whole, bf16, b16 a data shard, static
+   shapes, sync-BN, its dropout and noise; a world of one first, then dp4,
+   then dp2 x mp2, each from the same seeded start: 16 eager steps, 4
+   replays of a 4-step graph, 16 of the one-step graph (world of one and
+   dp4), and the 4-step graph with sync-BN off (dp4); each graph run's
+   metrics, whole parameters, running statistics and AdamW's moments
+   against the eager run's on every rank, bit for bit (or within 2^-7
+   with the cause printed), the ranks' whole states equal, K1 twice a step
+   from the replays; per rank ms/step over the last 12 steps, the host's
+   part, events/s over the ranks, first call seconds and peak memory.
+19. A JSON line of every ported kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -249,6 +270,7 @@ import dataclasses
 import datetime
 import gc
 import hashlib
+import itertools
 import json
 import math
 import os
@@ -343,6 +365,8 @@ REMAT_WARMUP, REMAT_STEPS = 2, 5
 DP_RANKS, DP_BATCH, DP_EVENTS, DP_VAL_EVENTS, DP_STEPS = 2, 8, 512, 64, 6
 DP_BARE_WARMUP, DP_BARE_STEPS, ONE_RANK_STEPS = 1, 4, 3
 DP_TIMEOUT_S = 400
+# Phase 18's world of one: the graph Trainer's steps a replay and steps.
+ONE_RANK_GRAPH_K, ONE_RANK_GRAPH_STEPS = 2, 4
 # Phase 10.  sdxl: the chunk, the save-spatial threshold of its selective
 # remat (conv outputs of 100x70 and smaller are kept), the unchunked step's
 # batch, warm-up and timed steps of the chunked step and of each reading,
@@ -468,6 +492,23 @@ RECIPE_K, RECIPE_REPLAYS = 2, 2
 SDXL_GRAPH_CHUNK, SDXL_GRAPH_STEPS = 16, 3
 REMAT_COMPILED_WARMUP, REMAT_COMPILED_STEPS = 2, 5
 SIDE_TIMEOUT_S = 900
+# Phase 18: the data- and tensor-parallel graphs, one process a card over
+# nccl (on 2 or 4 cards; one card runs only the world of one): the option
+# file's network whole, bf16, b16 a data shard, static shapes, sync-BN,
+# its dropout and noise.  Each run takes PAR_STEPS steps from the same
+# start; a graph run as PAR_STEPS / K replays of a K-step graph; ms/step
+# over the last PAR_TIMED steps.  The runs of each layout: (name, K,
+# graph, sync-BN).  Graph against eager: bit for bit, or within GRAPH_TOL
+# with the cause printed (two eager runs against each other).
+PAR_STEPS, PAR_K, PAR_TIMED = 16, 4, 12
+PAR_RUNS = {
+    "one": (("eager", 1, False, True), ("graph_k4", PAR_K, True, True),
+            ("graph_k1", 1, True, True)),
+    "dp": (("eager", 1, False, True), ("graph_k4", PAR_K, True, True),
+           ("graph_k1", 1, True, True), ("graph_k4_unsynced", PAR_K, True, False)),
+    "tp": (("eager", 1, False, True), ("graph_k4", PAR_K, True, True)),
+}
+PAR_TIMEOUT_S = 900
 
 
 def log(msg: str = ""):
@@ -1321,26 +1362,33 @@ def check_data_parallel(smi, ranks=DP_RANKS, batch=DP_BATCH):
         shutil.rmtree(work, ignore_errors=True)
 
 
-def check_world_of_one():
+def check_world_of_one(graph=False):
     """The Trainer in a world of one over ``nccl`` against the Trainer with
     no process group: the states after the same steps equal bit for bit
-    (cuDNN set to deterministic algorithms for both runs)."""
+    (cuDNN set to deterministic algorithms for both runs).  ``graph``: both
+    ``Trainer(graph=True)`` at ``steps_per_dispatch`` ``ONE_RANK_GRAPH_K``,
+    ``ONE_RANK_GRAPH_STEPS`` steps.  Returns K1's launches."""
     import torch.distributed as dist
 
     work = tempfile.mkdtemp(prefix="chip_smoke_one_")
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
+    steps = ONE_RANK_GRAPH_STEPS if graph else ONE_RANK_STEPS
     try:
-        digests = []
+        digests, launches = [], 0
         for grouped in (False, True):
             if grouped:
                 dist.init_process_group("nccl", init_method=f"file://{work}/rendezvous",
                                         world_size=1, rank=0)
             try:
-                trainer = Trainer(fit_options(), debug=True, verbose=False,
-                                  datasets=fit_datasets())
+                options = fit_options()
+                if graph:
+                    options.steps_per_dispatch = ONE_RANK_GRAPH_K
+                trainer = Trainer(options, debug=True, verbose=False, datasets=fit_datasets(),
+                                  graph=graph)
                 assert trainer.num_shards == 1
-                trainer.fit(max_steps=ONE_RANK_STEPS, eval_interval=ONE_RANK_STEPS)
+                _, counts = counted(lambda: trainer.fit(max_steps=steps, eval_interval=steps))
+                launches += counts[0]
                 digests.append(state_digest(trainer.state.model))
                 del trainer
                 gc.collect()
@@ -1348,9 +1396,13 @@ def check_world_of_one():
             finally:
                 if grouped:
                     dist.destroy_process_group()
-        assert digests[0] == digests[1], "a world of one over nccl changed the Trainer's state"
-        log(f"[dp] world of one over nccl: state after {ONE_RANK_STEPS} steps equal bit for "
-            f"bit to the Trainer's with no process group")
+        what = (f"Trainer(graph=True), {ONE_RANK_GRAPH_K} steps a replay" if graph
+                else "Trainer")
+        assert digests[0] == digests[1], f"a world of one over nccl changed the {what}'s state"
+        log(f"[{'graph-dp' if graph else 'dp'}] world of one over nccl, {what}: state after "
+            f"{steps} steps equal bit for bit to the same Trainer's with no process group; "
+            f"K1 {launches}")
+        return launches
     finally:
         torch.backends.cudnn.deterministic = deterministic
         shutil.rmtree(work, ignore_errors=True)
@@ -3445,25 +3497,242 @@ def check_recipes(smi, compiled=True):
     return k1, int(k2)
 
 
+# ---------------------------------------------------------------------------
+# phase 18
+# ---------------------------------------------------------------------------
+
+def parallel_trainer(ranks, mp, device, sync_bn):
+    """The option file's whole network, bf16, ``TRAIN_BATCH`` a data shard
+    over ``ranks`` ranks of ``mp`` a row, static shapes, sync-BN as asked:
+    a graph Trainer (the graph-safe AdamW) and its first ``PAR_STEPS``
+    batches (this rank's shards) on the card."""
+    options = Options.load(OPTION_FILE)
+    options.compute_dtype = "bfloat16"
+    options.batch_size = TRAIN_BATCH
+    options.num_gpu, options.model_parallel = ranks, mp
+    options.sync_batch_norm = sync_bn
+    options.static_batch_shapes = True      # a world of one takes a group's shapes
+    dp = ranks // mp
+    trainer = Trainer(options, debug=True, device=device, verbose=False, graph=True,
+                      datasets=(InMemoryEvents(dp * TRAIN_BATCH * PAR_STEPS, SEED + 80),
+                                InMemoryEvents(DP_VAL_EVENTS, SEED + 81), None))
+    assert (trainer.mesh.dp, trainer.mesh.mp) == (dp, mp), trainer.mesh
+    batches = [to_device(b, device) for b in
+               itertools.islice(trainer.train_batcher.epoch(0), PAR_STEPS)]
+    return trainer, batches
+
+
+def flat_state(host):
+    """A host ``TrainState.state_dict()``'s tensors by name."""
+    out = {f"model.{n}": t for n, t in host["model"].items()}
+    for i, slots in host["optimizer"]["state"].items():
+        out.update({f"adamw.{i}.{k}": t for k, t in slots.items() if torch.is_tensor(t)})
+    return out
+
+
+def meet(device):
+    """The ranks in step (no-op without a group): one all-reduce, waited for."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.all_reduce(torch.zeros(1, device=device))
+    torch.cuda.synchronize(device)
+
+
+def parallel_run(ranks, mp, device, k, graph, sync_bn):
+    """``PAR_STEPS`` train steps from the option file's seeded start:
+    eager, or replays of a ``k``-step graph.  Returns the whole state on
+    the host, the stacked metrics and the readings."""
+    free_memory()
+    trainer, batches = parallel_trainer(ranks, mp, device, sync_bn)
+    model, options, mesh = trainer.state.model, trainer.options, trainer.mesh
+    if graph:
+        step = make_train_step(model, options, mesh, graph=True, steps_per_dispatch=k)
+        calls = stack_groups(batches, k) if k > 1 else batches
+    else:
+        step = make_train_step(model, options, mesh)
+        calls = batches
+    untimed = len(calls) - PAR_TIMED // k
+    torch.cuda.reset_peak_memory_stats(device)
+
+    def run():
+        out, first_s = [], None
+        for i, call in enumerate(calls):
+            if i == untimed:
+                meet(device)
+                t0 = time.perf_counter()
+            t = time.perf_counter()
+            out.append(step(trainer.state, call))
+            if i == 0:
+                torch.cuda.synchronize(device)
+                first_s = time.perf_counter() - t
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize(device)
+        return out, first_s, host_s, time.perf_counter() - t0
+
+    (metrics, first_s, host_s, seconds), counts = counted(run)
+    forwards = PAR_STEPS + (k if graph else 0)        # a capture's warm-up steps
+    assert counts == (2 * forwards, 0), (counts, forwards)
+    if graph:
+        for captured in step.graphs.graphs.values():
+            assert captured.launches == [2 * k, 0], captured.launches
+        metrics = {n: torch.cat([m[n].reshape(-1) for m in metrics]).cpu() for n in metrics[0]}
+    else:
+        metrics = {n: torch.stack([m[n].float() for m in metrics]).cpu() for n in metrics[0]}
+    reading = dict(ms_per_step=1e3 * seconds / PAR_TIMED, host_ms=1e3 * host_s / PAR_TIMED,
+                   first_s=first_s, k1=counts[0],
+                   peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30,
+                   reserved_gib=torch.cuda.memory_reserved(device) / 2 ** 30,
+                   losses=metrics["train_loss"].tolist())
+    host = to_host(trainer.state.state_dict())     # a sharded state gathered whole
+    assert trainer.state.step == PAR_STEPS and all(
+        torch.isfinite(v).all() for v in metrics.values()), metrics
+    del trainer, model, step, calls, batches
+    free_memory()
+    return host, metrics, reading
+
+
+def graph_parallel_rank(rank, ranks, backend, rendezvous, mp, layout, out_path):
+    """One rank of phase 18 (a process of its own; ``ranks`` 1 joins no
+    group): the layout's runs (``PAR_RUNS``) from the same start, each
+    graph run's state and metrics against the eager run's, and the
+    readings, written to ``out_path``."""
+    import torch.distributed as dist
+
+    mp = int(mp)
+    if ranks > 1:
+        device = join_tp_group(rank, ranks, backend, rendezvous)
+    else:
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    out = dict(rank=rank, device=str(device), runs={}, against_eager={})
+    try:
+        eager = None
+        for name, k, graph, sync_bn in PAR_RUNS[layout]:
+            host, metrics, reading = parallel_run(ranks, mp, device, k, graph, sync_bn)
+            reading["digest"] = host_digest(host)
+            out["runs"][name] = reading
+            if name == "eager":
+                eager = {**flat_state(host), **{f"metric.{n}": v for n, v in metrics.items()}}
+            elif sync_bn:
+                got = {**flat_state(host), **{f"metric.{n}": v for n, v in metrics.items()}}
+                exact = all(torch.equal(got[n], eager[n]) for n in eager)
+                gap, where = (0.0, None) if exact else relative_gap(got, eager)
+                out["against_eager"][name] = dict(exact=exact, gap=gap, where=where)
+        # the cause, where a graph run is not eager's on some rank: two
+        # eager runs against each other (every rank runs them, together)
+        differs = torch.tensor([float(not all(r["exact"] for r in
+                                              out["against_eager"].values()))], device=device)
+        if ranks > 1:
+            dist.all_reduce(differs, op=dist.ReduceOp.MAX)
+        if float(differs):
+            runs = [flat_state(parallel_run(ranks, mp, device, 1, False, True)[0])
+                    for _ in range(2)]
+            out["eager_gap"] = relative_gap(*runs)
+    finally:
+        if ranks > 1:
+            dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def check_graph_parallel(smi, ranks=None):
+    """Phase 18's multi-card part: on 4 cards dp4 and dp2 x mp2, on 2 dp2
+    and dp1 x mp2, one process a card over nccl, beside a world of one in
+    its own process first; each layout's graph runs (4-step and one-step
+    graphs, and the 4-step graph with sync-BN off) against its eager run
+    from the same start, bit for bit (or within 2^-7 with the cause
+    printed), the ranks' whole states equal, K1 from the replays; ms/step,
+    events/s over the ranks and peak memory per rank.  Returns K1's
+    launches over every rank; on one card logs that it needs 2 or 4 and
+    returns 0."""
+    cards = torch.cuda.device_count()
+    ranks = ranks or (4 if cards >= 4 else 2 if cards >= 2 else 1)
+    if ranks < 2 or cards < ranks:
+        log(f"[graph-dp] the data- and tensor-parallel graph steps need 2 or 4 cards, one a "
+            f"rank over nccl; this machine has {cards}: not run here "
+            "(chip_smoke.check_graph_parallel on a machine with 4)")
+        return 0
+    layouts = [("one", 1, 1), ("dp", ranks, 1), ("tp", ranks, TP_MP)]
+    work = tempfile.mkdtemp(prefix="chip_smoke_graph_dp_")
+    launches = 0
+    try:
+        results = {}
+        for layout, n, mp in layouts:
+            where = os.path.join(work, layout)
+            os.makedirs(where)
+            t0 = time.perf_counter()
+            results[layout] = finish_tp_ranks(*start_tp_ranks(
+                "graph_parallel_rank", n, "nccl", where, mp, layout), PAR_TIMEOUT_S)
+            log(f"[graph-dp] {layout}: {n} process(es) done in "
+                f"{time.perf_counter() - t0:.1f} s")
+        one = results["one"][0]["runs"]
+        for layout, n, mp in layouts:
+            dp = n // mp
+            shape = "world of one" if layout == "one" else f"dp{dp} x mp{mp}"
+            for r in results[layout]:
+                launches += sum(run["k1"] for run in r["runs"].values())
+                for name, run in r["runs"].items():
+                    base = one.get(name)
+                    beside = (f"; world of one {base['ms_per_step']:.2f} ms/step, peak "
+                              f"{base['peak_gib']:.2f} GiB" if base and layout != "one"
+                              else "")
+                    log(f"[graph-dp] {shape} ({'nccl' if n > 1 else 'no group'}), full depth, "
+                        f"bf16, b{TRAIN_BATCH} a data shard, rank {r['rank']} on "
+                        f"{r['device']}, {name}: {run['ms_per_step']:.2f} ms/step over the last "
+                        f"{PAR_TIMED} of {PAR_STEPS} steps (host "
+                        f"{run['host_ms']:.2f}), {dp * TRAIN_BATCH / run['ms_per_step'] * 1e3:.2f} "
+                        f"events/s over the ranks; first call {run['first_s']:.2f} s; peak "
+                        f"{run['peak_gib']:.2f} GiB, reserved {run['reserved_gib']:.2f}; K1 "
+                        f"{run['k1']}{beside} ({smi})")
+            for name in results[layout][0]["against_eager"]:
+                verdicts = [r["against_eager"][name] for r in results[layout]]
+                digests = {r["runs"][name]["digest"] for r in results[layout]}
+                assert len(digests) == 1, f"{shape} {name}: the ranks' whole states differ"
+                if all(v["exact"] for v in verdicts):
+                    agreement = "bit for bit"
+                else:
+                    cause = results[layout][0].get("eager_gap")
+                    worst = max(verdicts, key=lambda v: v["gap"])
+                    agreement = (f"not bit for bit: largest relative gap {worst['gap']:.3g} "
+                                 f"({worst['where']}); two eager runs differ by "
+                                 f"{cause[0]:.3g} ({cause[1]})")
+                    assert worst["gap"] <= GRAPH_TOL, (shape, name, worst, cause)
+                losses = results[layout][0]["runs"][name]["losses"]
+                log(f"[graph-dp] {shape}, full depth: {name} against {PAR_STEPS} eager steps "
+                    f"from the "
+                    f"same start (dropout and noise on), every rank: metrics, whole "
+                    f"parameters, running statistics and AdamW's moments {agreement}; the "
+                    f"ranks' whole states equal; train_loss {losses[0]:.5f} -> "
+                    f"{losses[-1]:.5f}")
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def side_child(smi, out_path):
-    """Phases 17 (but its compiled step) and 10, one after the other, in a
-    process of its own (``Side``), with phase 1's TF32 switch: logs
-    to its output, writes their K1 and K2 launches to ``out_path``."""
+    """Phases 10 and 17 (but its compiled step), one after the other, in a
+    process of its own (``Side``), with phase 1's TF32 switch: logs to its
+    output, writes their K1 and K2 launches to ``out_path``."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    k1, k2 = check_recipes(smi, compiled=False)
+    k1 = check_families(smi)
+    log(f"[time] phase 10 took {time.perf_counter() - t0:.1f} s in the side process")
+    free_memory()
+    t0 = time.perf_counter()
+    recipes_k1, k2 = check_recipes(smi, compiled=False)
+    k1 += recipes_k1
     log(f"[time] phase 17 (but its compiled step) took {time.perf_counter() - t0:.1f} s "
         "in the side process")
-    t0 = time.perf_counter()
-    k1 += check_families(smi)
-    log(f"[time] phase 10 took {time.perf_counter() - t0:.1f} s in the side process")
     with open(out_path, "w") as f:
         json.dump({"k1": k1, "k2": k2}, f)
 
 
 class Side:
-    """``side_child`` started: phases 17 (but its compiled step) and 10 run
+    """``side_child`` started: phases 10 and 17 (but its compiled step) run
     on the card while phase 13 compiles on the host.  ``wait()`` waits for
     the process (once), logs its lines and returns its K1 and K2 launches,
     or raises with its output if it failed."""
@@ -3487,7 +3756,7 @@ class Side:
             with open(self.log_path) as f:
                 text = f.read()
             if self.proc.returncode != 0:
-                raise RuntimeError(f"phases 17 and 10 exited {self.proc.returncode}:\n"
+                raise RuntimeError(f"phases 10 and 17 exited {self.proc.returncode}:\n"
                                    f"{text[-8000:]}")
             for line in text.splitlines():
                 if line.startswith("["):
@@ -3558,7 +3827,7 @@ def main():
         trainer_launches += check_remaining_modules(smi)
         done("12")
         # phase 14's compiled TP ranks and the other graphs compile at a
-        # low priority beside phase 13, and phases 17 and 10 run on the
+        # low priority beside phase 13, and phases 10 and 17 run on the
         # card while phase 13 compiles; phase 13 times its packages once
         # they are done, and the TP ranks are timed once every graph is in
         # the cache
@@ -3576,7 +3845,7 @@ def main():
         side_k1, side_k2 = side.wait()
         trainer_launches += side_k1
         train_launches += side_k2
-        done("17 (but its compiled step) and 10, beside 13,")
+        done("10 and 17 (but its compiled step), beside 13,")
         finish_warming(early, smi, beside=" (started before phase 2, at nice 10)")
         finish_warming(late, smi, beside=" (started with phase 13, at nice 10)")
         trainer_launches += finish_compiled_tp(compiled_tp, smi)
@@ -3598,6 +3867,9 @@ def main():
     trainer_launches += graph_k1
     train_launches += graph_k2
     done("16")
+    trainer_launches += check_world_of_one(graph=True)
+    trainer_launches += check_graph_parallel(smi)
+    done("18")
     kernels = []
     for (err, ms, plain_ms, lib_ms, bound_ms), name, source, replaces, launches in (
             (k1, "densify", "dune_transformercvn_torch/csrc/densify.cu",

@@ -94,6 +94,7 @@ any layout.
 
 from __future__ import annotations
 
+import hashlib
 import os
 from dataclasses import dataclass
 from datetime import timedelta
@@ -140,6 +141,14 @@ def world() -> Tuple[int, int]:
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size(), dist.get_rank()
     return 1, 0
+
+
+def group_backend() -> Optional[str]:
+    """The default process group's backend ("nccl", "gloo"); ``None``
+    without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_backend()
+    return None
 
 
 def local_rank() -> int:
@@ -333,8 +342,9 @@ def all_gather_rows(tensors: Sequence[torch.Tensor], group=None) -> List[np.ndar
     all-gather for all of them."""
     size = dist.get_world_size(group)
     rows = tensors[0].shape[0]
-    # nccl gathers on the card; gloo gathers only host tensors
-    device = tensors[0].device if dist.get_backend(group) == "nccl" else torch.device("cpu")
+    # nccl gathers on this process's card; gloo gathers only host tensors
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend(group) == "nccl" else torch.device("cpu"))
     flat = torch.cat([t.reshape(rows, -1).to(device, torch.float64) for t in tensors], 1)
     parts = [torch.empty_like(flat) for _ in range(size)]
     dist.all_gather(parts, flat, group=group)
@@ -347,6 +357,41 @@ def barrier() -> None:
     """Wait for every rank (no-op in a world of one)."""
     if world()[0] > 1:
         dist.barrier()
+
+
+# the default group and the gloo group over its ranks that host-side checks
+# beside an nccl world run on (the default group held, so a later one is
+# never taken for it)
+_HOST_GROUP: List[object] = []
+
+
+def _host_group():
+    """A ``gloo`` group of every rank (the default group itself when that is
+    gloo), made at the first call in a default group, which every rank
+    makes at the same point of the program, as ``new_group`` asks."""
+    if dist.get_backend() == "gloo":
+        return dist.group.WORLD
+    if not _HOST_GROUP or _HOST_GROUP[0] is not dist.group.WORLD:
+        _HOST_GROUP[:] = [dist.group.WORLD,
+                          dist.new_group(backend="gloo", timeout=GROUP_TIMEOUT)]
+    return _HOST_GROUP[1]
+
+
+def assert_same_on_every_rank(value: str, what: str) -> None:
+    """Raise on every rank unless every rank of the default group passed an
+    equal ``value``: one all-reduce of a digest of it over a ``gloo`` group
+    on the host (a round trip of the ranks' hosts, no device work).  No-op
+    in a world of one."""
+    size, rank = world()
+    if size == 1:
+        return
+    digest = int.from_bytes(hashlib.sha256(value.encode()).digest()[:7], "big")
+    seen = torch.tensor([digest, -digest], dtype=torch.int64)
+    dist.all_reduce(seen, op=dist.ReduceOp.MAX, group=_host_group())
+    if int(seen[0]) != digest or -int(seen[1]) != digest:
+        raise RuntimeError(
+            f"{what} differs between the ranks (rank {rank}: {value}); every rank must "
+            "make the same call, or the collectives of one meet those of another")
 
 
 # ---------------------------------------------------------------------------

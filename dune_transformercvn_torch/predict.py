@@ -144,14 +144,13 @@ def predict_split(
     ``compile`` predicts through the compiled step (:func:`make_predict_step`),
     one graph for each batch shape the batcher lays out
     (``Batcher.shape_bound`` of them at most).  ``graph`` predicts through
-    the CUDA graph step (one process only), from pinned batches, and
-    copies each batch's probabilities to pinned host memory without
-    waiting: a batch's rows are read while the next batch runs.
+    the CUDA graph step, from pinned batches, and copies each batch's
+    probabilities to pinned host memory without waiting: a batch's rows
+    are read while the next batch runs.  In a group each rank replays its
+    own graphs on its shard (the eval-mode forward of whole parameters
+    holds no collective) and the rows are gathered as above.
     """
     mesh = mesh or default_mesh()
-    if graph and mesh.world_size > 1:
-        raise ValueError("graph=True runs in one process; predict_split is in a group of "
-                         f"{mesh.world_size}")
     model = unsharded_copy(model)
     if fold_eval_bn:
         model = folded_copy(model)
@@ -202,6 +201,10 @@ def predict_split(
             event.synchronize()
             probs_e, probs_p = (h.numpy().copy() for h in host)
             event_targets, prong_targets = batch["event_targets"], batch["prong_targets"]
+            if size > 1:
+                probs_e, probs_p, event_targets, prong_targets = all_gather_rows([
+                    torch.from_numpy(a) for a in (probs_e, probs_p, event_targets,
+                                                  prong_targets)], mesh.data_group)
         elif size == 1:
             probs = step(to_device(batch, device), norm_t)
             probs_e, probs_p = (p.cpu().numpy() for p in probs)

@@ -18,6 +18,11 @@ exit; ``num_gpu`` (``--gpus``) is clamped to the world size::
 
     torchrun --nproc_per_node 2 -m dune_transformercvn_torch.train -o <options.json> \
         -n <name> --gpus 2 --device cpu
+
+``--cuda_graph`` (with ``--steps_per_dispatch`` K, K steps a replay)
+captures each rank's steps with their collectives on nccl, one process a
+card; with ``--device cpu`` the ranks run the same step bodies uncaptured
+over gloo.
 """
 
 from __future__ import annotations
@@ -223,7 +228,8 @@ def parser() -> ArgumentParser:
                         "embedder_chunk.")
     p.add_argument("--cuda_graph", action="store_true",
                    help="Replay the train (K steps a graph), eval and predict steps as "
-                        "CUDA graphs, one a batch shape: one process; every optimizer "
+                        "CUDA graphs, one a batch shape: one process, or one a card "
+                        "under torchrun (nccl; --model_parallel too); every optimizer "
                         "and the option file's remat_cnn, remat_embedder and "
                         "embedder_chunk.")
     return p

@@ -82,11 +82,15 @@ class Trainer:
     (JAX's ``lax.scan``), the tail as the one-step graph (JAX's
     ``_train_dispatch_iter``), the logs read the group's last step, and
     validation and ``predict_split`` replay graphs of their own.  It takes
-    one process (``step.check_graphable`` raises otherwise), every
-    optimizer (AdamW as :class:`.optimizer.GraphAdamW`; the optax chains
-    are graph-safe) and every memory recipe (``remat_cnn``,
-    ``remat_embedder``, ``embedder_chunk``); on a ``"cpu"`` device the
-    same step bodies run without a capture.
+    one process, or a process group of one process a card over nccl (data-
+    and tensor-parallel: each rank replays its data shard's K steps with
+    the step's collectives inside, in lockstep with the others, every rank
+    in the batch shapes the global index list gives; gloo with CUDA
+    tensors raises, ``step.check_graphable``), every optimizer (AdamW
+    as :class:`.optimizer.GraphAdamW`; the optax chains are graph-safe)
+    and every memory recipe (``remat_cnn``, ``remat_embedder``,
+    ``embedder_chunk``); on a ``"cpu"`` device the same step bodies run
+    without a capture, a group's over gloo.
 
     ``compile=True`` compiles the train, eval and predict steps (the JAX
     package jits them): one Inductor graph for each batch shape, with

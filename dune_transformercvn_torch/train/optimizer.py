@@ -53,7 +53,9 @@ unknown name falls back to AdamW with the JAX package's message.
   chains update each rank's pieces, a trust ratio sums its norms' squares
   over the TP row, and :func:`global_norm` counts each sharded gradient
   once.  ``torch.optim.AdamW`` steps a mix of sharded and plain parameters
-  under DTensor's ``implicit_replication`` (the train step enters it).
+  under DTensor's ``implicit_replication`` (the train step enters it); the
+  graph-safe AdamW steps each rank's pieces, as the chains do, so a CUDA
+  graph of a tensor-parallel step captures plain kernels.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ import torch
 from torch import nn
 
 from ..from_jax import jax_leaf_names, jax_leaf_splits
-from ..parallel.mesh import local, shard_spec
+from ..parallel.mesh import local, shard_like, shard_spec
 
 _ALIASES = {"apex_adam": "adamw", "apex_lamb": "lamb", "apex_sgd": "sgd"}
 
@@ -158,15 +160,17 @@ class GraphSafe(torch.optim.Optimizer):
 
     def _load_in_place(self, state_dict) -> None:
         """``torch.optim.Optimizer.load_state_dict``, then its slot tensors
-        copied into the live ones, which stay in ``self.state``.  A sharded
-        parameter's slots (tensor parallelism, never in a graph) keep the
-        whole tensors loaded, for ``parallel.reshard_optimizer_state``."""
-        live = {p: self.state[p] for group in self.param_groups for p in group["params"]
-                if shard_spec(p) is None}
+        copied into the live ones, which stay in ``self.state``: a sharded
+        parameter's (tensor parallelism) as this rank's piece of the whole
+        tensor loaded."""
+        live = {p: self.state[p] for group in self.param_groups for p in group["params"]}
         super().load_state_dict(state_dict)
         for p, tensors in live.items():
             for name, tensor in tensors.items():
-                tensor.copy_(self.state[p][name])
+                value = self.state[p][name]
+                if shard_spec(value) is None:
+                    value = shard_like(value, tensor)
+                local(tensor).copy_(local(value))
             self.state[p] = tensors
 
 
@@ -330,12 +334,14 @@ class GraphAdamW(GraphSafe):
         b1, b2 = self.betas
         c1, c2 = bias_correction(b1, count), bias_correction(b2, count)
         for group in self.param_groups:
-            params = group["params"]
-            if not params:
+            if not group["params"]:
                 continue
-            grads = [p.grad for p in params]
-            mu = [self.state[p]["exp_avg"] for p in params]
-            nu = [self.state[p]["exp_avg_sq"] for p in params]
+            # each rank's pieces of sharded tensors: plain tensors, one
+            # kernel list (no DTensor dispatch, nothing to redistribute)
+            params = [local(p) for p in group["params"]]
+            grads = [local(p.grad) for p in group["params"]]
+            mu = [local(self.state[p]["exp_avg"]) for p in group["params"]]
+            nu = [local(self.state[p]["exp_avg_sq"]) for p in group["params"]]
             torch._foreach_mul_(mu, b1)
             torch._foreach_add_(mu, grads, alpha=1 - b1)
             torch._foreach_mul_(nu, b2)

@@ -73,8 +73,17 @@ outside it stay the draws of each step's seed from ``state.generator``,
 the schedule's rates, the copies of the batches and the norm statistics
 into the graph's buffers, and the copy of the stacked metrics out.  It
 composes with ``compile`` (the compiled forward and loss, warmed up before
-the capture, run inside the graph).  :func:`check_graphable` raises for
-what it does not take: more than one process, int8 convolutions.
+the capture, run inside the graph).  In a process group (one process a
+card, ``nccl``) the graph holds the step's data-parallel work as the
+eager step runs it: each data shard's seed, the loss's ``1 / world``, the
+same all-reduces in the same order and grouping (one function,
+:func:`_reduction`, for both), sync-BN's and the tensor-parallel row's
+collectives and ``global_norm``'s, so a replay's K steps are K eager
+data-parallel steps bit for bit, the counterpart of the JAX package's
+``shard_map`` of its ``lax.scan`` over the data axis.
+:func:`check_graphable` raises for what it does not take: a group whose
+collectives are not nccl's on the card (gloo with CUDA tensors), int8
+convolutions.
 """
 
 from __future__ import annotations
@@ -89,7 +98,7 @@ from ..ops.losses import (binary_event_loss, class_balanced_loss,
                           softmax_focal_loss, split_event_targets)
 from ..ops import quant
 from ..ops.masked import MaskedBatchNorm, keep_draws
-from ..parallel import Mesh, all_reduce_, default_mesh, local, shard_spec
+from ..parallel import Mesh, all_reduce_, default_mesh, group_backend, local, shard_spec
 from ..utils.compile import compile_step
 from ..utils.graphs import StepGraphs
 from .metrics import update_metric_state
@@ -183,19 +192,65 @@ def _loss_kwargs(options, model) -> Dict:
     )
 
 
-def check_graphable(mesh: Optional[Mesh] = None):
-    """What ``graph=True`` does not take yet raises here (ROADMAP.md item
-    20): a process group of more than one rank, and int8 convolutions (a
-    graph predict step also raises inside their context)."""
+def check_graphable(mesh: Optional[Mesh], device):
+    """What ``graph=True`` does not take raises here (ROADMAP.md item 20): a
+    process group of more than one rank on CUDA tensors whose backend is
+    not nccl (gloo stages its collectives on the host, which a capture
+    cannot record, and puts several ranks on one card), and int8
+    convolutions (a graph predict step also raises inside their context).
+    On the CPU a group's graph step runs uncaptured, over gloo."""
     mesh = mesh or default_mesh()
-    if mesh.world_size > 1:
+    backend = group_backend()
+    if mesh.world_size > 1 and torch.device(device).type == "cuda" and backend != "nccl":
         raise ValueError(
-            f"graph=True runs in one process; this one is rank {mesh.rank} of "
-            f"{mesh.world_size} (data- and tensor-parallel graphs over nccl are not "
-            "ported yet: ROADMAP.md item 20)")
+            f"graph=True in a process group of {mesh.world_size} ranks captures its "
+            f"collectives on nccl, one process a card; this group's backend is {backend} "
+            "(gloo stages its collectives on the host, which a CUDA graph cannot capture)")
     if quant.active():
         raise RuntimeError("graph=True does not capture int8 convolutions "
                            "(ops.quant.quantized_convs; ROADMAP.md item 20)")
+
+
+def _shard_seed(seed: int, shard: int) -> int:
+    """The seed data shard ``shard``'s draws of a step take (shard 0 keeps
+    the step's ``seed``)."""
+    return (seed + shard * _RANK_STRIDE) % 2 ** 64
+
+
+def _reduction(model, options, mesh: Mesh) -> Callable:
+    """``reduce(metrics, grads) -> metrics``: a step's data-parallel work
+    after the backward, the same for the eager and the graph step.  In a
+    world of one it returns ``metrics``.  Else the gradients summed (each
+    rank's loss carries 1/size), the metrics and unsynced statistics
+    averaged, in one all-reduce over every rank; a sharded gradient,
+    computed once a TP row, scaled by mp and summed over the data shards,
+    as the sharded statistics are."""
+    size = mesh.world_size
+    if size == 1:
+        return lambda metrics, grads: metrics
+    # with sync-BN the statistics are already the global batch's
+    stats = ([] if options.sync_batch_norm else
+             [t for m in model.modules() if isinstance(m, MaskedBatchNorm)
+              for t in (m.running_mean, m.running_var)])
+    stat_pieces = [local(t) for t in stats if shard_spec(t) is not None]
+    stats = [t for t in stats if shard_spec(t) is None]
+
+    def reduce(metrics, grads):
+        sharded = [local(g) for g in grads if shard_spec(g) is not None]
+        keys = list(metrics)
+        values = torch.stack([metrics[k] for k in keys]) / size
+        if stats:
+            torch._foreach_div_(stats, size)
+        all_reduce_([g for g in grads if shard_spec(g) is None] + [values] + stats)
+        if sharded:
+            torch._foreach_mul_(sharded, mesh.mp)
+        if stat_pieces:
+            torch._foreach_div_(stat_pieces, mesh.dp)
+        if mesh.dp > 1 and sharded + stat_pieces:
+            all_reduce_(sharded + stat_pieces, mesh.data_group)
+        return dict(zip(keys, values.unbind()))
+
+    return reduce
 
 
 def make_train_step(model, options, mesh: Optional[Mesh] = None, compile: bool = False,
@@ -222,20 +277,16 @@ def make_train_step(model, options, mesh: Optional[Mesh] = None, compile: bool =
                               batch["prong_targets"], gamma, event_scale, **loss_kwargs)
 
     if graph:
-        check_graphable(mesh)
+        check_graphable(mesh, next(model.parameters()).device)
     elif steps_per_dispatch != 1:
         raise ValueError("steps_per_dispatch > 1 runs as one CUDA graph: pass graph=True")
     if compile:
         forward_loss = compile_step(forward_loss, shapes)
+    reduce = _reduction(model, options, mesh)
     if graph:
-        return make_graph_train_step(forward_loss, clip, shapes, steps_per_dispatch)
+        return make_graph_train_step(forward_loss, clip, shapes, steps_per_dispatch,
+                                     mesh, reduce)
     size, shard = mesh.world_size, mesh.data_index
-    # with sync-BN the statistics are already the global batch's
-    stats = ([] if size == 1 or options.sync_batch_norm else
-             [t for m in model.modules() if isinstance(m, MaskedBatchNorm)
-              for t in (m.running_mean, m.running_var)])
-    stat_pieces = [local(t) for t in stats if shard_spec(t) is not None]
-    stats = [t for t in stats if shard_spec(t) is None]
 
     def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         net = state.model
@@ -244,7 +295,7 @@ def make_train_step(model, options, mesh: Optional[Mesh] = None, compile: bool =
         device = params[0].device
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=state.generator))
         with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
-            torch.manual_seed((seed + shard * _RANK_STRIDE) % 2 ** 64)
+            torch.manual_seed(_shard_seed(seed, shard))
             with record_function("train_step.forward"):
                 total, metrics = forward_loss(net, batch, state.norm)
             with record_function("train_step.backward"):
@@ -258,30 +309,14 @@ def make_train_step(model, options, mesh: Optional[Mesh] = None, compile: bool =
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             grads = [p.grad for p in params]
-            sharded = [local(g) for g in grads if shard_spec(g) is not None]
-            if size > 1:
-                # the gradients summed (each rank's loss carries 1/size),
-                # the metrics and unsynced statistics averaged; a sharded
-                # gradient, computed once a TP row, scaled by mp and summed
-                # over the data shards, as the sharded statistics are
-                keys = list(metrics)
-                values = torch.stack([metrics[k] for k in keys]) / size
-                if stats:
-                    torch._foreach_div_(stats, size)
-                all_reduce_([g for g in grads if shard_spec(g) is None] + [values] + stats)
-                if sharded:
-                    torch._foreach_mul_(sharded, mesh.mp)
-                if stat_pieces:
-                    torch._foreach_div_(stat_pieces, mesh.dp)
-                if mesh.dp > 1 and sharded + stat_pieces:
-                    all_reduce_(sharded + stat_pieces, mesh.data_group)
-                metrics = dict(zip(keys, values.unbind()))
+            metrics = reduce(metrics, grads)
             norm = global_norm(grads)
             if clip > 0:
                 clip_by_global_norm_(grads, clip, norm)
             lr = state.base_lr * state.schedule(state.step)
             for group in state.optimizer.param_groups:
                 group["lr"] = lr
+            sharded = any(shard_spec(g) is not None for g in grads)
             with _mixed_layouts() if sharded else nullcontext():
                 state.optimizer.step()
         state.step += 1
@@ -314,11 +349,18 @@ def _seeded_graph(device, state: torch.Generator):
         default.graphsafe_set_state(original)
 
 
-def make_graph_train_step(forward_loss, clip: float, shapes: int = 1, steps: int = 1):
+def make_graph_train_step(forward_loss, clip: float, shapes: int, steps: int, mesh: Mesh,
+                          reduce: Callable):
     """The train step as one CUDA graph of ``steps`` K whole steps
     (forward, backward, the gradients' norm, clipping, the graph-safe
     optimizer's update), the counterpart of the JAX
     package's ``lax.scan`` over K stacked batches (``steps_per_dispatch``).
+    In a process group (``mesh``) each step also does the eager step's
+    data-parallel work (``reduce``, from :func:`_reduction`): this rank's
+    data shard draws from its own seed, the loss carries ``1 / world``,
+    and the step's all-reduces, sync-BN's, the TP row's and
+    ``global_norm``'s run inside the graph, on nccl; every rank captures
+    and replays in lockstep (:mod:`..utils.graphs`).
 
     ``step(state, batches) -> metrics``: K > 1 takes K stacked batches
     (every leaf ``[K, ...]``) and returns each metric stacked ``[K]``, as
@@ -342,6 +384,7 @@ def make_graph_train_step(forward_loss, clip: float, shapes: int = 1, steps: int
     capture: each step seeded as the eager step seeds, the rates read
     from a CPU tensor; the tests hold it to JAX there.  On CUDA it never
     runs uncaptured."""
+    size, shard = mesh.world_size, mesh.data_index
     names: List[str] = []
     bound = {"state": None}
 
@@ -350,6 +393,7 @@ def make_graph_train_step(forward_loss, clip: float, shapes: int = 1, steps: int
         net.train()
         params = [p for p in net.parameters() if p.requires_grad]
         grads = [p.grad for p in params]
+        pieces = [local(g) for g in grads]
         rows = []
         for k in range(steps):
             batch = {n: v[k] for n, v in batches.items()}
@@ -357,9 +401,10 @@ def make_graph_train_step(forward_loss, clip: float, shapes: int = 1, steps: int
                 with record_function("train_step.forward"):
                     total, metrics = forward_loss(net, batch, norm)
                 with record_function("train_step.backward"):
-                    torch._foreach_zero_(grads)
-                    total.backward()
+                    torch._foreach_zero_(pieces)
+                    (total / size if size > 1 else total).backward()
             with record_function("train_step.optimizer"):
+                metrics = reduce(metrics, grads)
                 norm_ = global_norm(grads)
                 if clip > 0:
                     clip_by_global_norm_(grads, clip, norm_)
@@ -379,7 +424,7 @@ def make_graph_train_step(forward_loss, clip: float, shapes: int = 1, steps: int
     def put_back():
         """The warm-up's steps leave the state as it was."""
         with torch.no_grad():
-            live = _state_tensors(bound["state"])
+            live = [local(t) for t in _state_tensors(bound["state"])]
             kept = [t.clone() for t in live]
         try:
             yield
@@ -387,7 +432,8 @@ def make_graph_train_step(forward_loss, clip: float, shapes: int = 1, steps: int
             with torch.no_grad():
                 torch._foreach_copy_(live, kept)
 
-    graphs = StepGraphs(graph_body, "train step graph", shapes, steps, put_back)
+    graphs = StepGraphs(graph_body, "train step graph", shapes, steps, put_back,
+                        lockstep=size > 1)
 
     def step(state: TrainState, batches) -> Dict[str, torch.Tensor]:
         if steps > 1:
@@ -404,8 +450,8 @@ def make_graph_train_step(forward_loss, clip: float, shapes: int = 1, steps: int
         state.model.train()
         params = [p for p in state.model.parameters() if p.requires_grad]
         device = params[0].device
-        seeds = [int(torch.randint(0, 2 ** 62, (1,), generator=state.generator))
-                 for _ in range(steps)]
+        seeds = [_shard_seed(int(torch.randint(0, 2 ** 62, (1,), generator=state.generator)),
+                             shard) for _ in range(steps)]
         rates = torch.tensor([state.base_lr * state.schedule(state.step + k)
                               for k in range(steps)], dtype=torch.float32)
         for p in params:       # every gradient allocated: the body zeroes them
@@ -495,7 +541,7 @@ def make_eval_step(model, options, compile: bool = False, shapes: int = 1,
 
     if not graph:
         return step
-    check_graphable()
+    check_graphable(None, next(model.parameters()).device)
     bound = {}
 
     @torch.no_grad()
@@ -506,7 +552,9 @@ def make_eval_step(model, options, compile: bool = False, shapes: int = 1,
         net.eval()
         return evaluate(net, batch, norm, totals)
 
-    graphs = StepGraphs(graph_body, "eval step graph", shapes)
+    # a tensor-parallel model's forward holds the row's collectives
+    graphs = StepGraphs(graph_body, "eval step graph", shapes,
+                        lockstep=default_mesh().world_size > 1)
 
     def graph_step(state: TrainState, batch, totals):
         if bound.setdefault("state", state) is not state:

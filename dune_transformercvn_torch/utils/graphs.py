@@ -25,6 +25,32 @@ host.  :class:`StepGraphs` keeps one graph for each input shape:
 A body draws its random numbers from generator states registered with
 the graph (:func:`generator_states`), which the caller seeds before each
 replay; what a replay reads from the host is what the caller copies in.
+
+**In a process group** (one process a card, ``nccl``; ``lockstep``) a body
+may hold collectives: the train step's all-reduces, sync-BN's, the tensor-
+parallel row's.  A capture records them on nccl's stream, forked from and
+joined to the capturing one, and every replay runs them; a rank's replay
+waits on the card for the same collective of the others'.  So:
+
+* the warm-up runs every collective of the body on every rank before any
+  rank captures: the first collective of each group creates its nccl
+  communicator, which a capture cannot, and the same sizes set up nccl's
+  connections;
+* every rank must capture and replay the same graphs in the same order.
+  The step functions guarantee it by construction: every rank calls them
+  in the same order on batches of the same shape (the batchers lay out
+  every rank's shard of a global batch in the shape the global index list
+  decides, bucketed or static), and the ranks of a tensor-
+  parallel row on the same batch.  A call checks it too: the ranks compare
+  the call's shape key over a ``gloo`` group on the host
+  (``parallel.assert_same_on_every_rank``, one host round trip a call) and
+  raise together where one differs, rather than hang with the collectives
+  of one graph waiting on another's;
+* the capture is ``thread_local``: the calls that would break a global
+  capture come from other threads (the batcher's pinning of host memory,
+  ProcessGroupNCCL's watchdog querying the events of earlier collectives),
+  while nccl's own work (event records and waits between the streams, its
+  kernels) runs on the capturing thread and is legal in a capture.
 """
 
 from __future__ import annotations
@@ -35,6 +61,7 @@ import torch
 
 from ..ops.coo_stem import scatter_patches_cuda
 from ..ops.densify import densify_images_cuda
+from ..parallel.mesh import assert_same_on_every_rank
 
 # the wrappers whose ``launches`` count a kernel's launches
 LAUNCH_COUNTERS = (densify_images_cuda, scatter_patches_cuda)
@@ -87,13 +114,17 @@ class StepGraphs:
     ``states_per_graph`` generator states are registered with each graph
     and passed to the body.  ``around_warmup``, when given, is a context
     manager entered around the warm-up, e.g. one that puts back the state
-    the warm-up steps changed."""
+    the warm-up steps changed.  ``lockstep``: every rank of the default
+    process group makes the same calls (the body holds collectives); each
+    call's shape key is checked across the ranks."""
 
     def __init__(self, body: Callable, name: str, shapes: int = 1,
-                 states_per_graph: int = 0, around_warmup: Optional[Callable] = None):
+                 states_per_graph: int = 0, around_warmup: Optional[Callable] = None,
+                 lockstep: bool = False):
         self.body, self.name, self.shapes = body, name, int(shapes)
         self.states_per_graph = states_per_graph
         self.around_warmup = around_warmup
+        self.lockstep = lockstep
         self.graphs: Dict[tuple, Captured] = {}
         self.pool = None
 
@@ -101,6 +132,8 @@ class StepGraphs:
         """The graph of these inputs' shape on ``device``, captured at its
         first call (and loaded with them then)."""
         key = shape_key(*trees)
+        if self.lockstep:
+            assert_same_on_every_rank(repr(key), f"{self.name}'s batch shape")
         captured = self.graphs.get(key)
         if captured is None:
             if len(self.graphs) >= self.shapes:
@@ -139,7 +172,8 @@ class StepGraphs:
         counters = LAUNCH_COUNTERS
         before = [c.launches for c in counters]
         try:
-            # thread_local: the batcher's threads may pin host memory meanwhile
+            # thread_local: the batcher's threads may pin host memory and
+            # nccl's watchdog query events meanwhile (module docstring)
             with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
                 outputs = self.body(*inputs, states)
         except Exception as error:

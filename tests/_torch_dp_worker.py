@@ -1,7 +1,8 @@
 """One rank of the port's data-parallel tests: a process of a ``gloo``
 group on the CPU, started by ``tests/test_torch_port_parallel.py``,
-``tests/test_torch_port_ddp_parity.py`` and
-``tests/test_torch_port_compile_loop.py``.
+``tests/test_torch_port_ddp_parity.py``,
+``tests/test_torch_port_compile_loop.py`` and
+``tests/test_torch_port_graph_dp.py``.
 
     python _torch_dp_worker.py <mode> <rendezvous file> <world size> <rank> \
         <input> <output>
@@ -26,6 +27,18 @@ builds the port's ``Trainer`` on them, fits, predicts the validation split
 and writes its state, the elements whose gradient stayed above 1e-4 at
 every step, its fit result, predictions and (rank 0) its logged history
 and checkpoint index.
+
+``graph``: the input (``torch.save``) holds ``options`` (a dict), the JAX
+Trainer's initial ``variables``, the run's ``log_dir``, ``fit``'s arguments,
+the global batch indices of 4 explicit ``steps`` and a ``work`` directory.
+This rank fits the port's graph ``Trainer`` (``graph=True``; the option's
+``steps_per_dispatch``) on the JAX weights, as ``trainer`` does (the
+elements whose gradient stayed above 1e-4 read at each optimizer step);
+then, with dropout and pixel noise on and sync-BN, plain and with
+``remat_cnn``, the graph body's 2 calls of 2 steps against 4 eager
+data-parallel steps from the same start (``noisy``: every metric and
+every tensor of both states); then a graph Trainer fit with checkpoints
+and a fresh one resumed at step 2 (``resumed``: both whole states).
 
 Imports nothing of JAX: the port runs here as it does on the card.
 """
@@ -190,6 +203,106 @@ def compiled(inputs, rank, world_size):
     return out
 
 
+def graph_state_tensors(trainer):
+    """Everything a train step changes, by name (this rank's piece of a
+    sharded tensor): the step, the generator, the model's parameters and
+    buffers, the optimizer's count and slots."""
+    from dune_transformercvn_torch.parallel import local
+
+    state, optimizer = trainer.state, trainer.state.optimizer
+    return {"step": torch.tensor(state.step), "generator": state.generator.get_state(),
+            "count": optimizer.count.clone(),
+            **{f"model.{n}": local(t).detach().clone()
+               for n, t in state.model.state_dict().items()},
+            **{f"slot.{i}.{name}": local(t).clone()
+               for i, slots in enumerate(optimizer.state.values())
+               for name, t in slots.items()}}
+
+
+def graph_against_eager(setup, options):
+    """The graph body (2 calls of a 2-step graph) and the eager step on the
+    same 4 global batches from the same start, both with the graph-safe
+    AdamW: the metrics and both states."""
+    from dune_transformercvn_torch.predict import to_device
+    from dune_transformercvn_torch.train import Trainer, make_train_step
+
+    runs = []
+    for graph in (True, False):
+        trainer = Trainer(options(dict(static_batch_shapes=True, steps_per_dispatch=2)),
+                          debug=True, verbose=False, device="cpu", graph=True)
+        batches = [to_device(trainer.train_batcher.build_batch(np.asarray(idx)), "cpu")
+                   for idx in setup["steps"]]
+        if graph:
+            stacked = [{k: torch.stack([b[k] for b in batches[i:i + 2]]) for k in batches[0]}
+                       for i in (0, 2)]
+            metrics = [trainer.train_step(trainer.state, group) for group in stacked]
+            metrics = {k: torch.cat([m[k] for m in metrics]) for k in metrics[0]}
+        else:
+            step = make_train_step(trainer.state.model, trainer.options, trainer.mesh)
+            metrics = [step(trainer.state, b) for b in batches]
+            metrics = {k: torch.stack([m[k].float() for m in metrics]) for k in metrics[0]}
+        runs.append({"metrics": metrics, "state": graph_state_tensors(trainer)})
+    return {"graph": runs[0], "eager": runs[1]}
+
+
+def graph(inputs, rank, world_size):
+    from dune_transformercvn_torch import Options
+    from dune_transformercvn_torch.from_jax import load_jax_variables
+    from dune_transformercvn_torch.train import Trainer
+    from dune_transformercvn_torch.train.checkpoint import to_host
+    from dune_transformercvn_torch.train.logging import read_history
+
+    setup = torch.load(inputs, weights_only=False)
+
+    def options(overrides=None):
+        opts = Options()
+        opts.update_options({**setup["options"], **(overrides or {})})
+        return opts
+
+    ours = Trainer(options(), log_dir=setup["log_dir"], name="run", device="cpu",
+                   log_every_n_steps=1, verbose=True, graph=True)
+    load_jax_variables(ours.state.model, setup["variables"])
+    # where the reduced, clipped gradient stayed above 1e-4 at every step
+    stable = {n: torch.ones_like(p, dtype=torch.bool)
+              for n, p in ours.state.model.named_parameters()}
+    update = ours.state.optimizer.step
+
+    def recorded(*args, **kwargs):
+        for n, p in ours.state.model.named_parameters():
+            stable[n] &= p.grad.abs() > 1e-4
+        return update(*args, **kwargs)
+
+    ours.state.optimizer.step = recorded
+    result = ours.fit(**setup["fit"])
+    out = {
+        "run_dir": ours.run_dir,
+        "global_batch": ours.global_batch,
+        "step": ours.state.step,
+        "count": int(ours.state.optimizer.count),
+        "result": {k: v for k, v in result.items() if np.ndim(v) == 0},
+        "state": {k: v.clone() for k, v in ours.state.model.state_dict().items()},
+        "stable": stable,
+        "generator": ours.state.generator.get_state(),
+    }
+    if ours.run_dir is not None:
+        out["history"] = read_history(ours.run_dir)
+
+    noisy = dict(dropout=0.1, pixel_noise_std=0.05)
+    out["noisy"] = {name: graph_against_eager(setup, lambda o, v=variant: options(
+        {**noisy, **v, **o})) for name, variant in (("plain", {}), ("remat_cnn",
+                                                                    {"remat_cnn": True}))}
+
+    run_dir = os.path.join(setup["work"], "graph_resume")
+    whole = Trainer(options(noisy), run_dir=run_dir, device="cpu", verbose=False, graph=True)
+    whole.fit(max_steps=4, eval_interval=2)
+    resumed = Trainer(options(noisy), debug=True, device="cpu", verbose=False, graph=True)
+    resumed.resume(os.path.join(run_dir, "checkpoints", "step_2"))
+    resumed.fit(max_steps=4, eval_interval=4)
+    out["resumed"] = {"whole": to_host(whole.state.state_dict()),
+                      "resumed": to_host(resumed.state.state_dict())}
+    return out
+
+
 def main():
     mode, rendezvous, world_size, rank, inputs, output = sys.argv[1:7]
     world_size, rank = int(world_size), int(rank)
@@ -200,8 +313,8 @@ def main():
     # rendezvous has a deadline the later, drifted collectives could miss
     dist.all_reduce(torch.zeros(1))
     try:
-        out = {"syncbn": syncbn, "trainer": trainer,
-               "compiled": compiled}[mode](inputs, rank, world_size)
+        out = {"syncbn": syncbn, "trainer": trainer, "compiled": compiled,
+               "graph": graph}[mode](inputs, rank, world_size)
     finally:
         dist.destroy_process_group()
     if mode == "syncbn":

@@ -1,5 +1,6 @@
 """One rank of the port's tensor-parallel tests: a process of a ``gloo``
-group on the CPU, started by ``tests/test_torch_port_tp.py``.
+group on the CPU, started by ``tests/test_torch_port_tp.py`` and
+``tests/test_torch_port_graph_dp.py``.
 
     python _torch_tp_worker.py <mode> <rendezvous file> <world size> <rank> \
         <input> <output>
@@ -30,6 +31,14 @@ network whole and a tensor-parallel copy of it, a train-mode forward and
 a backward of the same cotangents, and writes both logits, the largest
 difference of each gradient (whole; with its largest element) and of the
 running statistics.
+
+``graph`` (4 ranks, dp2 x mp2): the graph ``Trainer`` (``graph=True``,
+the options' ``steps_per_dispatch``) fit on the JAX weights and logged
+(the elements whose whole gradient stayed above 1e-4 read at each
+optimizer step), its whole state; then, with dropout, pixel noise and
+sync-BN on, the graph body's 2 calls of 2 steps against 4 eager steps
+from the same start (each rank's pieces) and a graph Trainer resumed at
+step 2 against the uninterrupted one (``_torch_dp_worker.py``'s).
 
 Imports nothing of JAX: the port runs here as it does on the card.
 """
@@ -347,6 +356,56 @@ def dp(setup, rank, world_size):
     return out
 
 
+def graph(setup, rank, world_size):
+    from _torch_dp_worker import graph_against_eager
+    from dune_transformercvn_torch import Options
+    from dune_transformercvn_torch.from_jax import load_jax_variables
+    from dune_transformercvn_torch.parallel import full_tensors, local
+    from dune_transformercvn_torch.train import Trainer
+    from dune_transformercvn_torch.train.logging import read_history
+
+    def options(overrides=None):
+        opts = Options()
+        opts.update_options({**setup["options"], **(overrides or {})})
+        return opts
+
+    ours = Trainer(options(), log_dir=setup["log_dir"], name="run", device="cpu",
+                   log_every_n_steps=1, verbose=True, graph=True)
+    load_jax_variables(ours.state.model, setup["variables"])
+    named = dict(ours.state.model.named_parameters())
+    stable = {n: torch.ones(p.shape, dtype=torch.bool) for n, p in named.items()}
+    update = ours.state.optimizer.step
+
+    def recorded(*args, **kwargs):
+        for n, g in zip(named, full_tensors([p.grad for p in named.values()])):
+            stable[n] &= g.abs() > 1e-4
+        return update(*args, **kwargs)
+
+    ours.state.optimizer.step = recorded
+    ours.fit(**setup["fit"])
+    out = dict(mesh=(ours.mesh.dp, ours.mesh.mp), step=ours.state.step,
+               state=whole_state(ours), stable=stable)
+    if ours.run_dir is not None:
+        out["history"] = read_history(ours.run_dir)
+    noisy = dict(dropout=0.1, pixel_noise_std=0.05)
+    out["noisy"] = graph_against_eager(setup, lambda o: options({**noisy, **o}))
+    run_dir = os.path.join(setup["work"], "graph_resume")
+    whole = Trainer(options(noisy), run_dir=run_dir, device="cpu", verbose=False, graph=True)
+    whole.fit(max_steps=4, eval_interval=2)
+    resumed = Trainer(options(noisy), debug=True, device="cpu", verbose=False, graph=True)
+
+    def storage(trainer):   # where each moment's piece lives
+        return [local(t).data_ptr() for slots in trainer.state.optimizer.state.values()
+                for t in slots.values()]
+
+    before = storage(resumed)
+    resumed.resume(os.path.join(run_dir, "checkpoints", "step_2"))
+    out["moments_in_place"] = storage(resumed) == before
+    resumed.fit(max_steps=4, eval_interval=4)
+    out["resumed"] = {"whole": whole_state(whole), "resumed": whole_state(resumed)}
+    return out
+
+
 def main():
     mode, rendezvous, world_size, rank, inputs, output = sys.argv[1:7]
     world_size, rank = int(world_size), int(rank)
@@ -356,7 +415,7 @@ def main():
     # the first collective while the ranks are still in step
     dist.all_reduce(torch.zeros(1))
     try:
-        out = {"tp": tp, "dp": dp, "families": families}[mode](
+        out = {"tp": tp, "dp": dp, "families": families, "graph": graph}[mode](
             torch.load(inputs, weights_only=False), rank, world_size)
     finally:
         dist.destroy_process_group()

@@ -32,7 +32,10 @@ the profiler.  The memory recipes and the chains in one dispatch: captured
 K = 2 steps with ``remat_cnn`` and ``remat_embedder`` (dense; coo, whose
 recompute launches K2 again) and with lamb against eager, the compiled
 ``remat_cnn`` step against eager, and the optimizers' float32 bias
-correction on the card against the CPU's.
+correction on the card against the CPU's.  On 2 cards, the data-parallel
+graph step over nccl against the eager data-parallel step, and the graph
+Trainer's fit (validations included) and ``predict_split`` against their
+eager runs, bit for bit.
 """
 
 import json
@@ -769,6 +772,171 @@ def test_tensor_parallel_step_on_the_card(cuda, tmp_path):
     np.testing.assert_allclose(ranks[0]["norm"], norm, rtol=1e-4)
     for name, values in state.items():
         np.testing.assert_allclose(ranks[0]["state"][name], values, atol=1e-5, err_msg=name)
+
+
+GRAPH_DP_RANK = """
+import datetime, json, sys
+import torch, torch.distributed as dist
+sys.path.insert(0, sys.argv[4])
+import test_torch_port_cuda as t
+rank, rendezvous, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.cuda.set_device(rank)
+torch.backends.cudnn.deterministic = True
+dist.init_process_group("nccl", init_method="file://" + rendezvous, world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=300))
+try:
+    result = t.graph_dp_steps("cuda")
+    result["fit"] = t.graph_dp_fit("cuda")
+finally:
+    dist.destroy_process_group()
+json.dump(result, open(out, "w"))
+"""
+
+
+def graph_dp_options(**overrides):
+    """The tiny network of the 2-card tests, 2 data shards of 4 events,
+    sync-BN, dropout and pixel noise on."""
+    options = Options()
+    options.update_options(dict(
+        densenet_structure=[1, 1], densenet_growth_rate=8, initial_pixel_dim=8,
+        pixel_embedding_dim=16, feature_embedding_dim=8, position_embedding_dim=16,
+        hidden_dim=32, num_encoder_layers=1, num_prong_decoder_layers=2,
+        num_attention_heads=2, dropout=0.1, pixel_noise_std=0.02, batch_size=4,
+        compute_dtype="float32", num_dataloader_workers=1, verbose_output=False,
+        num_gpu=2, **overrides))
+    return options
+
+
+def graph_dp_datasets():
+    return InMemoryEvents(32, 1, (48, 40)), InMemoryEvents(8, 2, (48, 40)), None
+
+
+def state_tensors(trainer):
+    """The model's parameters and buffers, the optimizer's slots and count,
+    on the host, by name."""
+    state = trainer.state
+    tensors = {f"model.{n}": t.detach().cpu() for n, t in state.model.state_dict().items()}
+    tensors.update({f"slot.{i}.{k}": t.cpu() for i, slots in
+                    enumerate(state.optimizer.state.values()) for k, t in slots.items()})
+    tensors["count"] = state.optimizer.count.cpu()
+    return tensors
+
+
+def graph_dp_steps(device):
+    """This rank's part of 4 data-parallel steps of the tiny Trainer
+    (sync-BN, dropout and pixel noise on), as 2 calls of a 2-step graph
+    step and as 4 eager steps from the same start, both with the
+    graph-safe AdamW: the tensors (metrics, parameters, buffers, moments,
+    count) that differ, K1's launches a replay, and a digest of the graph
+    run's parameters."""
+    import hashlib
+    import itertools
+
+    from dune_transformercvn_torch.predict import to_device
+    from dune_transformercvn_torch.train import make_train_step
+
+    options = graph_dp_options(static_batch_shapes=True)
+    runs, launches = [], None
+    for graph in (False, True):
+        trainer = Trainer(options, debug=True, datasets=graph_dp_datasets(), device=device,
+                          graph=True)
+        state, model = trainer.state, trainer.state.model
+        batches = [to_device(b, device) for b in
+                   itertools.islice(trainer.train_batcher.epoch(0), 4)]
+        if graph:
+            step = make_train_step(model, options, trainer.mesh, graph=True,
+                                   steps_per_dispatch=2)
+            out = [step(state, {k: torch.stack([a[k], b[k]]) for k in a})
+                   for a, b in (batches[:2], batches[2:])]
+            metrics = {k: torch.cat([m[k] for m in out]).cpu() for k in out[0]}
+            if device == "cuda":
+                (captured,) = step.graphs.graphs.values()
+                launches = captured.launches
+        else:
+            step = make_train_step(model, options, trainer.mesh)
+            out = [step(state, b) for b in batches]
+            metrics = {k: torch.stack([m[k].float() for m in out]).cpu() for k in out[0]}
+        runs.append({**state_tensors(trainer), **{f"metric.{k}": v for k, v in metrics.items()}})
+    eager, graphed = runs
+    digest = hashlib.sha256()
+    for name, tensor in graphed.items():
+        if name.startswith("model."):
+            digest.update(tensor.contiguous().view(torch.uint8).numpy().tobytes())
+    return dict(differ=[n for n in eager if not torch.equal(graphed[n], eager[n])],
+                launches=launches, digest=digest.hexdigest(),
+                steps=int(graphed["count"]))
+
+
+def graph_dp_fit(device):
+    """This rank's ``Trainer(graph=True)`` at K = 2 (sync-BN, dropout and
+    noise on) fit 4 steps with a validation every 2, against the same
+    Trainer with the eager data-parallel train and eval steps in place of
+    its graphs: the names of the state's tensors and of the validation
+    metrics that differ; then the graph Trainer's ``predict_split`` with
+    and without graphs: the arrays that differ."""
+    from dune_transformercvn_torch.predict import to_device
+    from dune_transformercvn_torch.train import make_eval_step, make_train_step
+
+    options = graph_dp_options(steps_per_dispatch=2)
+    runs = []
+    for graph in (True, False):
+        trainer = Trainer(options, debug=True, datasets=graph_dp_datasets(), device=device,
+                          graph=True)
+        if not graph:
+            eager = make_train_step(trainer.state.model, options, trainer.mesh)
+
+            def two_steps(state, batches, eager=eager):
+                batches = to_device(batches, device)
+                out = [eager(state, {k: v[i] for k, v in batches.items()}) for i in range(2)]
+                return {k: torch.stack([o[k] for o in out]) for k in out[0]}
+
+            trainer.train_step = two_steps
+            trainer.eval_step = make_eval_step(trainer.state.model, options)
+        result = trainer.fit(max_steps=4, eval_interval=2)
+        runs.append(dict(state=state_tensors(trainer), val=result, step=trainer.state.step))
+        if graph:
+            got, want = (trainer.predict_split("validation", graph=g) for g in (True, False))
+            differ_predict = [k for k in want if not np.array_equal(got[k], want[k])]
+    graphed, eager = runs
+    return dict(
+        state=[n for n in eager["state"] if not torch.equal(graphed["state"][n],
+                                                            eager["state"][n])],
+        val=[k for k in eager["val"]
+             if not np.array_equal(graphed["val"][k], eager["val"][k], equal_nan=True)],
+        predict=differ_predict, steps=[graphed["step"], eager["step"]])
+
+
+def test_data_parallel_graph_step_over_nccl_is_the_eager_step(cuda, tmp_path):
+    """2 ranks, one card each over nccl (skips below 2 cards), cuDNN
+    deterministic: the tiny Trainer's 2-step graph step, with its
+    all-reduces, sync-BN's and ``global_norm`` captured, against the eager
+    data-parallel step on the same 4 global batches with dropout and noise,
+    bit for bit on each rank; the ranks' parameters equal; K1 twice a step
+    in a replay.  Then ``Trainer(graph=True).fit`` at K = 2 with two
+    validations (the eval graph captured in the group) against the same
+    Trainer with the eager train and eval steps, its state and validation
+    metrics bit for bit, and its ``predict_split(graph=True)`` (each rank
+    replays its shard, the rows gathered) against eager, bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 NVIDIA GPUs, one a rank over nccl")
+    here = str(Path(__file__).resolve().parent)
+    outs = [tmp_path / f"rank{r}.json" for r in range(2)]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(Path(here).parent), os.environ.get("PYTHONPATH", "")]),
+        "LOCAL_WORLD_SIZE": "2"}
+    procs = [subprocess.Popen([sys.executable, "-c", GRAPH_DP_RANK, str(r),
+                               str(tmp_path / "rendezvous"), str(outs[r]), here],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env={**env, "LOCAL_RANK": str(r)}) for r in range(2)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, text in zip(procs, logs):
+        assert p.returncode == 0, text[-4000:]
+    ranks = [json.loads(o.read_text()) for o in outs]
+    for rank in ranks:
+        assert rank["differ"] == [] and rank["steps"] == 4, rank
+        assert rank["launches"] == [4, 0], rank
+        assert rank["fit"] == dict(state=[], val=[], predict=[], steps=[4, 4]), rank["fit"]
+    assert ranks[0]["digest"] == ranks[1]["digest"]
 
 
 @pytest.mark.parametrize("case", ["densify", "densify_s2d", "scatter_f32", "scatter_bf16",

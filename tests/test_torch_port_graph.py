@@ -21,11 +21,14 @@ the CPU, where the same step bodies run without a capture.
   bit for bit to its rate from the group.
 * The eval body (statistics into zeroed buffers, then added) and
   ``predict_split(graph=True)`` against eager, bit for bit.
-* What ``graph=True`` does not take raises: a multi-rank mesh, int8
-  convolutions, K > 1 without a graph, batches not stacked K deep, a state
-  without the graph-safe optimizer, CUDA without a card, a batch shape
-  past the bound.  (Remat and the optax chains:
-  ``tests/test_torch_port_graph_chains.py``.)
+* What ``graph=True`` does not take raises: a multi-rank mesh on CUDA
+  tensors whose backend is not nccl (gloo, or no group), int8 convolutions
+  (a multi-rank mesh's train step too), K > 1 without a graph, batches not
+  stacked K deep, a state without the graph-safe optimizer, CUDA without a
+  card, a batch shape past the bound; a multi-rank mesh over nccl, and on
+  the CPU, does not raise.  (Remat and the optax chains:
+  ``tests/test_torch_port_graph_chains.py``; data- and tensor-parallel
+  graph steps in gloo processes: ``tests/test_torch_port_graph_dp.py``.)
 """
 
 import copy
@@ -219,15 +222,30 @@ def test_graph_eval_and_predict_are_eager(synthetic_file):
         np.testing.assert_array_equal(got[key], value, err_msg=key)
 
 
-def test_what_graph_does_not_take_raises(synthetic_file):
+def test_what_graph_does_not_take_raises(synthetic_file, monkeypatch):
+    from dune_transformercvn_torch.train import step as step_module
+
     (batch,), norm = batch_and_norm(synthetic_file, 1, "dense")
     _, port_cfg = family_config("dense")
     model = TransformerCVN(port_cfg, generator=torch.Generator().manual_seed(5))
     opts = step_options(Options, 0.5, 0.0)
-    with pytest.raises(ValueError, match="one process"):
-        make_train_step(model, opts, Mesh(2, 1, 0), graph=True)
-    with pytest.raises(ValueError, match="one process"):
-        check_graphable(Mesh(1, 2, 1))
+    # a group's train step under int8 convolutions
+    with quant.quantized_convs(model, {n: 1.0 for n in quant._convs(model)}, device="cpu"):
+        with pytest.raises(RuntimeError, match="int8"):
+            make_train_step(model, opts, Mesh(2, 1, 0), graph=True)
+    # several ranks on CUDA tensors need nccl: not gloo (every rank on one
+    # card, its collectives staged on the host), not a mesh without a group
+    monkeypatch.setattr(step_module, "group_backend", lambda: "gloo")
+    with pytest.raises(ValueError, match="nccl.*backend is gloo"):
+        check_graphable(Mesh(2, 1, 0), "cuda")
+    monkeypatch.setattr(step_module, "group_backend", lambda: None)
+    with pytest.raises(ValueError, match="nccl"):
+        check_graphable(Mesh(1, 2, 1), "cuda")
+    # what runs: nccl on the card, and a group's steps on the CPU (gloo)
+    monkeypatch.setattr(step_module, "group_backend", lambda: "nccl")
+    check_graphable(Mesh(1, 2, 1), "cuda")
+    monkeypatch.setattr(step_module, "group_backend", lambda: "gloo")
+    make_train_step(model, opts, Mesh(2, 1, 0), graph=True)
     with pytest.raises(ValueError, match="graph=True"):
         make_train_step(model, opts, steps_per_dispatch=2)
     step = make_train_step(model, opts, graph=True, steps_per_dispatch=2)
