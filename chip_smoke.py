@@ -4,18 +4,18 @@
     python3 chip_smoke.py
 
 Phases, each of which raises on failure, run in the order 1-9, 11-13,
-14, 15, 17's compiled step, 16, 18, 19.  Beside them, in processes of their
+14, 15, 17's compiled step, 16, 18, 20.  Beside them, in processes of their
 own: the slowest of the graphs that phases 15 and 17 load from the
 compile cache compile beside phases 1-12 at a low priority; the rest,
-and phase 14's compiled ranks, compile beside 13; phases 17 (but
-its compiled step) and 10 run one after the other in one process while
+and phase 14's compiled ranks, compile beside 13; phases 10, 17 (but
+its compiled step) and 19 run one after the other in one process while
 phase 13's main process compiles, and 13 times its packages only once
 that process has ended, so no two phases run on the card at once (a
 compile's first call runs its graph there for seconds).  That process
 runs phase 10, whose steps take up to 34 GiB of the card, first, while
-most of the compiles have not reached their first call on the card, and
-17 (up to 20 GiB) after it.  The readings that share the host's cores with compiles are those
-of phases 8-12 (niced compiles), of 17 and 10, and of 13.  The ``[time]``
+most of the compiles have not reached their first call on the card, then
+17 (up to 20 GiB), then 19.  The readings that share the host's cores with compiles are those
+of phases 8-12 (niced compiles), of 10, 17 and 19, and of 13.  The ``[time]``
 lines count from the script's start, imports included.  Phases 1-7, 10, one-hot pixels in
 12 and a step of 14 run the option file's network whole; phases 8, 9,
 11-15 run its widths at a cut depth (``CUT_DEPTH``: one dense block of
@@ -251,7 +251,19 @@ of phases 13 and 15 and the bench, fits its time limit:
    with the cause printed), the ranks' whole states equal, K1 twice a step
    from the replays; per rank ms/step over the last 12 steps, the host's
    part, events/s over the ranks, first call seconds and peak memory.
-19. A JSON line of every ported kernel, then, as the last line,
+19. Sustained training (``sustained_train.run``, the port of
+   ``tools/sustained_train.py``), in the side process after phase 17:
+   ``Trainer.fit`` on the option file at ``CUT_DEPTH``, bf16, batch 16,
+   as 4-step CUDA graphs, 96 steps with a validation every 48, on the
+   twin of ``make_synthetic_file``'s events at seed 11 made in memory
+   (1,000 events).  Every logged loss finite; K1 twice a step and a
+   validation batch, plus the warm-up before each graph's capture; K2
+   never; an ``events_per_second`` window logged in each validation
+   interval, ``val_epoch_AUC`` and the train metrics at each validation;
+   the mean ``train_loss`` logged over the last
+   validation interval below the first's.  Prints the windows, the
+   steady state, the AUC curve and the peak memory.
+20. A JSON line of every ported kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -313,7 +325,7 @@ from dune_transformercvn_torch.train.logging import read_history
 from dune_transformercvn_torch.utils.build import (build, build_host, build_loader,
                                                    host_sources, sources)
 from dune_transformercvn_torch.utils.cache import enable_compile_cache
-from dune_transformercvn_torch import bench
+from dune_transformercvn_torch import bench, sustained_train
 from dune_transformercvn_torch.predict import make_predict_step
 
 SEED = 0
@@ -486,7 +498,7 @@ GRAPH_TOL = 2 ** -7
 # Phase 17: the chains' graph K, replays and steps; the remat_embedder
 # graphs' K and replays; the sdxl graph's chunk and its eager steps and
 # replays (after the first of each); the compiled remat_cnn step's warm-up
-# and timed steps; the time limit of the process phases 17 and 10 run in.
+# and timed steps; the time limit of the process phases 10, 17 and 19 run in.
 CHAIN_K, CHAIN_REPLAYS = 2, 2
 RECIPE_K, RECIPE_REPLAYS = 2, 2
 SDXL_GRAPH_CHUNK, SDXL_GRAPH_STEPS = 16, 3
@@ -509,6 +521,13 @@ PAR_RUNS = {
     "tp": (("eager", 1, False, True), ("graph_k4", PAR_K, True, True)),
 }
 PAR_TIMEOUT_S = 900
+# Phase 19: sustained training through sustained_train.run on the twin of
+# make_synthetic_file's events (seed 11): the option file at CUT_DEPTH, bf16,
+# b16, as K-step CUDA graphs, this many steps and events, a validation every
+# SUSTAINED_EVAL steps, a metric logged every K steps (the end of a dispatch).
+# 1,000 events: 950 to train, 59 steps an epoch, so the option file's one
+# warm-up epoch ends inside the run; 50 to validate, 4 batches.
+SUSTAINED_STEPS, SUSTAINED_EVAL, SUSTAINED_EVENTS, SUSTAINED_K = 96, 48, 1000, 4
 
 
 def log(msg: str = ""):
@@ -3498,6 +3517,61 @@ def check_recipes(smi, compiled=True):
 
 
 # ---------------------------------------------------------------------------
+# phase 19
+# ---------------------------------------------------------------------------
+
+def check_sustained(smi):
+    """Phase 19: ``sustained_train.run`` on the twin's events at
+    ``CUT_DEPTH`` as ``SUSTAINED_K``-step CUDA graphs; returns K1's
+    launches.  Every logged loss finite, K1 twice a step and a validation
+    batch (plus the graphs' warm-ups before their captures), K2 never, a
+    window logged in each validation interval, ``val_epoch_AUC`` and the
+    train metrics at each validation, and the mean loss logged over the
+    last validation interval below the first's."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_sustained_")
+    try:
+        record, counts = counted(lambda: sustained_train.run(
+            steps=SUSTAINED_STEPS, events=SUSTAINED_EVENTS, eval_interval=SUSTAINED_EVAL,
+            batch_size=TRAIN_BATCH, graph=True, steps_per_dispatch=SUSTAINED_K,
+            device="cuda", out=os.path.join(work, "record.json"), options=fit_options(),
+            workdir=work, log_every_n_steps=SUSTAINED_K, verbose=False))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    steps, val_batches = record["steps"], record["validation_batches"]
+    expected = 2 * (steps + val_batches) + record["k1_warmup_launches"]
+    assert steps == SUSTAINED_STEPS, steps
+    assert counts == (expected, 0) and counts[0] == record["k1_launches"], (counts, expected)
+    losses = [(c["step"], c["train_loss"]) for c in record["train_loss_curve"]]
+    assert losses and all(math.isfinite(v) for _, v in losses), losses
+    evals = list(range(SUSTAINED_EVAL, SUSTAINED_STEPS + 1, SUSTAINED_EVAL))
+    assert [c["step"] for c in record["val_auc_curve"]] == evals, record["val_auc_curve"]
+    assert all(math.isfinite(c["val_epoch_AUC"]) for c in record["val_auc_curve"])
+    # a window is logged in each validation interval, and train metrics at
+    # each validation (the window read there is empty, so it logs no rate:
+    # its steps' events count in the window read one dispatch earlier)
+    window_steps = [w["step"] for w in record["window_events_per_second"]]
+    for start, end in zip([0] + evals, evals):
+        assert any(start < s <= end for s in window_steps), (start, end, window_steps)
+    assert set(evals) <= {s for s, _ in losses}, (evals, losses)
+    first = [v for s, v in losses if s <= evals[0]]
+    last = [v for s, v in losses if s > evals[-2]]
+    first_mean, last_mean = statistics.mean(first), statistics.mean(last)
+    assert last_mean < first_mean, (first_mean, last_mean, losses)
+    auc = ", ".join(f"{c['step']}: {c['val_epoch_AUC']:.4f}" for c in record["val_auc_curve"])
+    log(f"[sustained] sustained_train.run, depth {CUT_DEPTH}, bf16, b{TRAIN_BATCH}, "
+        f"{SUSTAINED_K}-step CUDA graphs, {record['events']} twin events: {steps} steps + "
+        f"{len(evals)} validations ({val_batches} batches) in {record['wall_s']:.2f} s; "
+        f"mean train_loss {first_mean:.5f} over steps 1-{evals[0]}, {last_mean:.5f} over "
+        f"{evals[-2] + 1}-{steps}; val_epoch_AUC {auc}; K1 {counts[0]} (of them "
+        f"{record['k1_warmup_launches']} in the warm-ups), K2 {counts[1]}")
+    rates = [round(w["events_per_second"], 2) for w in record["window_events_per_second"]]
+    log(f"[sustained] logged events/s windows {rates}, steady state "
+        f"{record['steady_state_events_per_second']:.2f}; peak memory "
+        f"{record['peak_memory_gib']:.2f} GiB ({smi}; beside phase 13's compiles)")
+    return counts[0]
+
+
+# ---------------------------------------------------------------------------
 # phase 18
 # ---------------------------------------------------------------------------
 
@@ -3713,9 +3787,9 @@ def check_graph_parallel(smi, ranks=None):
 
 
 def side_child(smi, out_path):
-    """Phases 10 and 17 (but its compiled step), one after the other, in a
-    process of its own (``Side``), with phase 1's TF32 switch: logs to its
-    output, writes their K1 and K2 launches to ``out_path``."""
+    """Phases 10, 17 (but its compiled step) and 19, one after the other,
+    in a process of its own (``Side``), with phase 1's TF32 switch: logs to
+    its output, writes their K1 and K2 launches to ``out_path``."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
@@ -3727,13 +3801,17 @@ def side_child(smi, out_path):
     k1 += recipes_k1
     log(f"[time] phase 17 (but its compiled step) took {time.perf_counter() - t0:.1f} s "
         "in the side process")
+    free_memory()
+    t0 = time.perf_counter()
+    k1 += check_sustained(smi)
+    log(f"[time] phase 19 took {time.perf_counter() - t0:.1f} s in the side process")
     with open(out_path, "w") as f:
         json.dump({"k1": k1, "k2": k2}, f)
 
 
 class Side:
-    """``side_child`` started: phases 10 and 17 (but its compiled step) run
-    on the card while phase 13 compiles on the host.  ``wait()`` waits for
+    """``side_child`` started: phases 10, 17 (but its compiled step) and
+    19 run on the card while phase 13 compiles on the host.  ``wait()`` waits for
     the process (once), logs its lines and returns its K1 and K2 launches,
     or raises with its output if it failed."""
 
@@ -3756,7 +3834,7 @@ class Side:
             with open(self.log_path) as f:
                 text = f.read()
             if self.proc.returncode != 0:
-                raise RuntimeError(f"phases 10 and 17 exited {self.proc.returncode}:\n"
+                raise RuntimeError(f"phases 10, 17 and 19 exited {self.proc.returncode}:\n"
                                    f"{text[-8000:]}")
             for line in text.splitlines():
                 if line.startswith("["):
@@ -3827,8 +3905,8 @@ def main():
         trainer_launches += check_remaining_modules(smi)
         done("12")
         # phase 14's compiled TP ranks and the other graphs compile at a
-        # low priority beside phase 13, and phases 10 and 17 run on the
-        # card while phase 13 compiles; phase 13 times its packages once
+        # low priority beside phase 13, and phases 10, 17 and 19 run on
+        # the card while phase 13 compiles; phase 13 times its packages once
         # they are done, and the TP ranks are timed once every graph is in
         # the cache
         compiled_tp = start_compiled_tp(work)
@@ -3845,7 +3923,7 @@ def main():
         side_k1, side_k2 = side.wait()
         trainer_launches += side_k1
         train_launches += side_k2
-        done("10 and 17 (but its compiled step), beside 13,")
+        done("10, 17 (but its compiled step) and 19, beside 13,")
         finish_warming(early, smi, beside=" (started before phase 2, at nice 10)")
         finish_warming(late, smi, beside=" (started with phase 13, at nice 10)")
         trainer_launches += finish_compiled_tp(compiled_tp, smi)

@@ -16,7 +16,9 @@ There is no per-item ``__getitem__`` -> collate pipeline here: batches are
 assembled by :mod:`.batcher`, which slices the CSR banks for a whole batch of
 events at once.
 
-The port's own copy of ``dune_transformercvn_tpu/data/dataset.py``.  Banks
+The port's own copy of ``dune_transformercvn_tpu/data/dataset.py``; it
+also reads a mapping of the file's arrays by dataset name in place of the
+file (``schema.make_synthetic_arrays``), with no ``h5py``.  Banks
 loaded to RAM are gathered by the native C++ engine
 (:func:`..utils.native.native_gather_ranges`), as in the JAX package;
 memory-mapped banks, or ``gather_events(..., native=False)``, take the
@@ -25,7 +27,7 @@ numpy loop, which gives the same arrays.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -36,7 +38,10 @@ LimitIndex = Union[float, Tuple[float, float], Sequence[int], np.ndarray]
 
 
 def _memmap_h5_dataset(path: str, dset) -> np.ndarray:
-    """Memory-map a contiguous HDF5 dataset's raw extent (lazy, zero-copy)."""
+    """Memory-map a contiguous HDF5 dataset's raw extent (lazy, zero-copy);
+    an array in memory is taken as it is."""
+    if isinstance(dset, np.ndarray):
+        return dset
     offset = dset.id.get_offset()
     if offset is None:  # chunked/compressed dataset: fall back to h5py reads
         return dset
@@ -44,17 +49,16 @@ def _memmap_h5_dataset(path: str, dset) -> np.ndarray:
 
 
 class EventDataset:
-    """One split of a TransformerCVN HDF5 file."""
+    """One split of a TransformerCVN HDF5 file, or of a mapping of its
+    arrays by dataset name (``data_file``)."""
 
     def __init__(
         self,
-        data_file: str,
+        data_file: Union[str, Mapping[str, np.ndarray]],
         limit_index: LimitIndex = 1.0,
         event_current_targets: bool = False,
         load_full_dataset: bool = False,
     ):
-        import h5py
-
         self.data_file = data_file
         self.load_full_dataset = load_full_dataset
 
@@ -63,7 +67,12 @@ class EventDataset:
         self.extra_mean: Optional[np.ndarray] = None
         self.extra_std: Optional[np.ndarray] = None
 
-        file = h5py.File(data_file, "r")
+        if isinstance(data_file, Mapping):
+            file = data_file
+        else:
+            import h5py
+
+            file = h5py.File(data_file, "r")
         self._file = file
         total_events = file["features"].shape[0]
 
@@ -71,7 +80,8 @@ class EventDataset:
         if indices.size == 0:
             raise ValueError(
                 f"limit_index {limit_index!r} selects no events out of "
-                f"{total_events} in {data_file} — adjust the split fractions "
+                f"{total_events} in {'the arrays given' if file is data_file else data_file}"
+                " — adjust the split fractions "
                 "(e.g. train_validation_split)"
             )
         self.min_limit = int(indices.min())
@@ -248,22 +258,24 @@ class EventDataset:
         }
 
 
-def create_datasets(options) -> Tuple[EventDataset, EventDataset, Optional[EventDataset]]:
+def create_datasets(options, training_file=None
+                    ) -> Tuple[EventDataset, EventDataset, Optional[EventDataset]]:
     """Train/val/test splits following the reference split rules
-    (trainers/neutrino_base.py:68-86)."""
+    (trainers/neutrino_base.py:68-86).  ``training_file`` (a path, or a
+    mapping of the file's arrays) takes the place of
+    ``options.training_file``."""
     kwargs = dict(
         event_current_targets=options.event_current_targets,
         load_full_dataset=options.load_full_dataset,
     )
+    source = options.training_file if training_file is None else training_file
     if len(options.validation_file) > 0:
-        training = EventDataset(options.training_file, **kwargs)
+        training = EventDataset(source, **kwargs)
         validation = EventDataset(options.validation_file, **kwargs)
     else:
         split = options.dataset_limit * options.train_validation_split
-        training = EventDataset(options.training_file, (0.0, split), **kwargs)
-        validation = EventDataset(
-            options.training_file, (split, options.dataset_limit), **kwargs
-        )
+        training = EventDataset(source, (0.0, split), **kwargs)
+        validation = EventDataset(source, (split, options.dataset_limit), **kwargs)
 
     testing = None
     if len(options.testing_file) > 0:

@@ -1,7 +1,9 @@
 """HDF5 schema of TransformerCVN training files, plus a synthetic generator.
 
 The port's own copy of ``dune_transformercvn_tpu/data/schema.py`` (numpy;
-``h5py`` imported only by :func:`make_synthetic_file`).
+``h5py`` imported only by :func:`make_synthetic_file`), whose generator is
+split here into :func:`make_synthetic_arrays`, the file's arrays in memory,
+and the writer that stores them.
 
 Schema (the reference's README.md:84-99):
 
@@ -29,6 +31,8 @@ reader falls back to the README spelling.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 
@@ -82,8 +86,26 @@ def split_current_targets(event_targets: np.ndarray) -> np.ndarray:
     return np.where(event_targets < 0, -1, out)
 
 
-def make_synthetic_file(
-    path: str,
+def make_synthetic_file(path: str, num_events: int = 128, **kwargs) -> str:
+    """Write a synthetic HDF5 file with the exact training schema: the
+    arrays of :func:`make_synthetic_arrays` (same arguments), one dataset
+    each.
+
+    Pixel images get class-correlated structure (a noisy line whose angle
+    depends on the label) so that a short training run can measurably reduce
+    the loss — this is the integration-test fixture, mirroring the role of the
+    reference's real fdhd_beam_2018prod file.
+    """
+    import h5py
+
+    arrays = make_synthetic_arrays(num_events, **kwargs)
+    with h5py.File(path, "w") as f:
+        for name, value in arrays.items():
+            f.create_dataset(name, data=value)
+    return path
+
+
+def make_synthetic_arrays(
     num_events: int = 128,
     num_features: int = 6,
     num_extra: int = 4,
@@ -93,16 +115,11 @@ def make_synthetic_file(
     seed: int = 0,
     fixed_prongs: int = 0,
     unique_pixels: bool = False,
-) -> str:
-    """Write a synthetic HDF5 file with the exact training schema.
-
-    Pixel images get class-correlated structure (a noisy line whose angle
-    depends on the label) so that a short training run can measurably reduce
-    the loss — this is the integration-test fixture, mirroring the role of the
-    reference's real fdhd_beam_2018prod file.
-    """
-    import h5py
-
+) -> Dict[str, np.ndarray]:
+    """The datasets of :func:`make_synthetic_file`'s file, by name, made in
+    memory from ``seed`` (the same draws in the same order): what
+    ``dataset.EventDataset`` reads from the file, it reads from this
+    mapping too, so a host without ``h5py`` trains on the same events."""
     rng = np.random.default_rng(seed)
 
     num_classes = NUM_EVENT_CLASSES_DETAILED if detailed_targets else NUM_EVENT_CLASSES
@@ -173,29 +190,21 @@ def make_synthetic_file(
             pr_cursor += n_hits
         pr_index[i] = (start, pr_cursor)
 
-    with h5py.File(path, "w") as f:
-        f.create_dataset("event_target", data=event_target)
-        f.create_dataset("prong_target", data=prong_target)
-        f.create_dataset("prong_mask", data=prong_mask)
-        f.create_dataset("features", data=features)
-        f.create_dataset("extra", data=extra)
-        f.create_dataset(
-            "full_pixels_shape",
-            data=np.array([PIXEL_CHANNELS, IMAGE_HEIGHT, IMAGE_WIDTH], np.int64),
-        )
-        f.create_dataset(
-            "event_pixels_shape",
-            data=np.array([1, PIXEL_CHANNELS, IMAGE_HEIGHT, IMAGE_WIDTH], np.int64),
-        )
-        f.create_dataset(
-            "prong_pixels_shape",
-            data=np.array([MAX_PRONGS, PIXEL_CHANNELS, IMAGE_HEIGHT, IMAGE_WIDTH], np.int64),
-        )
-        f.create_dataset("event_pixels_coordinates", data=np.concatenate(ev_coords))
-        f.create_dataset("event_pixels_values", data=np.concatenate(ev_values))
-        f.create_dataset("prong_pixels_coordinates", data=np.concatenate(pr_coords))
-        f.create_dataset("prong_pixels_values", data=np.concatenate(pr_values))
-        f.create_dataset("event_compressed_index", data=ev_index)
-        f.create_dataset("prong_compressed_index", data=pr_index)
-
-    return path
+    return {
+        "event_target": event_target,
+        "prong_target": prong_target,
+        "prong_mask": prong_mask,
+        "features": features,
+        "extra": extra,
+        "full_pixels_shape": np.array([PIXEL_CHANNELS, IMAGE_HEIGHT, IMAGE_WIDTH], np.int64),
+        "event_pixels_shape": np.array(
+            [1, PIXEL_CHANNELS, IMAGE_HEIGHT, IMAGE_WIDTH], np.int64),
+        "prong_pixels_shape": np.array(
+            [MAX_PRONGS, PIXEL_CHANNELS, IMAGE_HEIGHT, IMAGE_WIDTH], np.int64),
+        "event_pixels_coordinates": np.concatenate(ev_coords),
+        "event_pixels_values": np.concatenate(ev_values),
+        "prong_pixels_coordinates": np.concatenate(pr_coords),
+        "prong_pixels_values": np.concatenate(pr_values),
+        "event_compressed_index": ev_index,
+        "prong_compressed_index": pr_index,
+    }

@@ -1,9 +1,13 @@
 """Events made in memory, served through ``EventDataset``'s code without HDF5.
 
-Their statistics follow ``schema.make_synthetic_file``: about 5 prongs per
-event, 160 hits per event image and 53 per prong image, laid along a
-label-dependent line.  ``chip_smoke.py`` and :mod:`..profile_serving` feed
-them to ``predict_split`` on hosts that may lack ``h5py``.
+The twin of ``schema.make_synthetic_file``'s file, event for event, is
+``EventDataset(schema.make_synthetic_arrays(...))`` (``create_datasets``
+splits it as the file); its hits lie along a line that depends on each
+image's label, so a run on it learns.  :class:`InMemoryEvents` follows
+only the file's statistics: about 5 prongs per event, 160 hits per event
+image and 53 per prong image, along a label-dependent line, drawn faster
+(``chip_smoke.py`` and :mod:`..profile_serving` feed them to
+``predict_split`` on hosts that may lack ``h5py``).
 """
 
 from __future__ import annotations

@@ -89,7 +89,10 @@ def read_history(run_dir: str) -> Dict[str, list]:
     """Read back logged scalars as {tag: [(step, value), ...]}.
 
     Prefers TensorBoard event files (the reference Evaluate.ipynb flow),
-    falling back to metrics.jsonl.
+    falling back to metrics.jsonl.  A resumed run's event files are read
+    in the order they were written: their names number them without
+    padding (``...9`` sorts after ``...10``), so each tag's events are
+    put in wall-time order.
     """
     history: Dict[str, list] = {}
     try:
@@ -100,7 +103,8 @@ def read_history(run_dir: str) -> Dict[str, list]:
         acc = EventAccumulator(run_dir, size_guidance={"scalars": 0})
         acc.Reload()
         for tag in acc.Tags().get("scalars", []):
-            history[tag] = [(e.step, e.value) for e in acc.Scalars(tag)]
+            history[tag] = [(e.step, e.value) for e in
+                            sorted(acc.Scalars(tag), key=lambda e: e.wall_time)]
         if history:
             return history
     except Exception:

@@ -273,6 +273,17 @@ class Trainer:
             transform=pinned if pin and self.device.type == "cuda" else None,
         )
 
+    def graph_captures(self):
+        """``(graphs captured, steps a replay)`` for each CUDA-graph step the
+        loop has made: the K-step train graph, the one-step train graph of
+        an epoch's tail and the eval graph (none without ``graph``)."""
+        if not self.graph:
+            return []
+        steps = [(self.train_step, self.steps_per_dispatch), (self.eval_step, 1)]
+        if self._single_train_step not in (None, self.train_step):
+            steps.append((self._single_train_step, 1))
+        return [(len(step.graphs.graphs), k) for step, k in steps]
+
     def _single_step(self):
         if self._single_train_step is None:
             self._single_train_step = make_train_step(

@@ -46,7 +46,7 @@ def check_compiled_ranks(tmp_path, options):
     }
     torch.save(setup, tmp_path / "setup.pt")
     outputs = finish_ranks(start_ranks("compiled", tmp_path / "setup.pt", tmp_path),
-                           timeout=900)
+                           timeout=600)
     ranks = [torch.load(path, weights_only=False) for path in outputs]
     lr = setup["options"]["learning_rate"]
     for rank in ranks:

@@ -298,6 +298,21 @@ def test_checkpoint_round_trip_is_bit_equal(tmp_path):
 # the Trainer
 # ---------------------------------------------------------------------------
 
+def test_read_history_orders_event_files_by_time(tmp_path):
+    """A resumed run's two event files whose names sort the other way
+    round (the writer numbers them unpadded: ``...10`` before ``...9``):
+    the history is in the order the steps were logged."""
+    for steps in ((1, 2, 3), (4, 5, 6)):
+        logger = MetricLogger(str(tmp_path))
+        for step in steps:
+            logger.log_scalars({"train_loss": float(step)}, step)
+        logger.close()
+    first = min(tmp_path.glob("events.out.tfevents.*"), key=os.path.getmtime)
+    first.rename(tmp_path / "events.out.tfevents.9999999999.host.1.9")
+    os.remove(tmp_path / "metrics.jsonl")
+    assert read_history(str(tmp_path))["train_loss"] == [(s, float(s)) for s in range(1, 7)]
+
+
 def test_resume_is_bit_exact(tmp_path):
     """6 steps in one fit against 3 steps, a checkpoint, a fresh Trainer's
     ``resume(step_3)`` mid-epoch and 3 more steps, with dropout and pixel

@@ -17,6 +17,7 @@
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -49,11 +50,19 @@ def start_ranks(mode, inputs, directory, world_size=2):
     return procs, outputs
 
 
+def communicate_all(procs, timeout):
+    """Every process's output, all of them within ``timeout`` seconds in
+    all (not each); past it ``subprocess.TimeoutExpired``."""
+    deadline = time.monotonic() + timeout
+    return [p.communicate(timeout=max(0.1, deadline - time.monotonic()))[0] for p in procs]
+
+
 def finish_ranks(started, timeout=300):
-    """Wait for every rank; any rank's failure fails the test with its output."""
+    """Wait for every rank, ``timeout`` seconds for all of them; any
+    rank's failure fails the test with its output."""
     procs, outputs = started
     try:
-        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+        logs = communicate_all(procs, timeout)
     finally:
         for p in procs:
             p.kill()

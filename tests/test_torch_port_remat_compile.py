@@ -20,8 +20,16 @@
   graph Dynamo and AOTAutograd traced (the checkpoint regions, the chunk
   region, the recompute in the backward) with eager kernels, so that the
   tests stay within their time here (Inductor compiles C++ for a CPU
-  graph, ~40 s each): equal to the eager step bit for bit, and to JAX
-  within ``TOL``.
+  graph, ~40 s each): equal to the eager step bit for bit, and within
+  ``TOL`` of JAX's step: for the dense and coo families, of JAX's step
+  run in float64 (:func:`jax_float64_steps`), for sdxl of its float32
+  step.  The float64 run is JAX's exact function: on AVX-512 hosts JAX's
+  own float32 coo ``remat_cnn`` step is the one far from it (first
+  ``grad_norm`` 10.697811 against 10.6989105488 in float64, 1.03e-4 of
+  it, more than twice its spread over the 23 reorderings of the batch's
+  events, 4.66e-4), while the port's is 10.698912 (1.1e-7 of it).  JAX's
+  first BatchNorm takes ``E[x^2] - E[x]^2`` over sums that cancel, and its
+  float32 sums round more there than the reorderings show.
 * ``embedder_chunk``: the chunk body is one region (``invoke_subgraph``),
   traced once for each bank (event, prong) however many chunks run it,
   as JAX's ``nn.scan`` traces its body once.
@@ -126,6 +134,31 @@ def train_runs(family, batches, start, opts, **kwargs):
     return runs
 
 
+def jax_float64_steps(jax_model, tx, jopts, mesh, jax_state, batches, port_cfg, monkeypatch):
+    """JAX's jitted steps from ``jax_state`` over ``batches`` in float64:
+    ``([metrics of each step], {running statistic name: tensor})`` in the
+    port's names.  x64 on, the compute dtype float64, and ``jnp.float32``
+    read as float64 while the step traces (the JAX package casts to it by
+    name); the weights, the optimizer state and the batches widened."""
+    def wide(a):
+        a = np.asarray(a)
+        return a.astype(np.float64) if a.dtype == np.float32 else a
+
+    with jax.enable_x64(True), monkeypatch.context() as patch:
+        patch.setattr(jnp, "float32", jnp.float64)
+        model = type(jax_model)(dataclasses.replace(jax_model.cfg, compute_dtype="float64"))
+        train = jax_make_train_step(model, tx, jopts, mesh)
+        state = jax.tree_util.tree_map(lambda a: jnp.asarray(wide(a)), jax_state)
+        steps = []
+        for batch in batches:
+            state, metrics = train(state, {k: jnp.asarray(wide(v)) for k, v in batch.items()})
+            steps.append(jax.device_get(metrics))
+        sd = state_dict_from_jax(jax.device_get(
+            {"params": state.params, "batch_stats": state.batch_stats}), port_cfg)
+    assert steps[0]["grad_norm"].dtype == np.float64
+    return steps, {n: t for n, t in sd.items() if "running_" in n}
+
+
 @pytest.mark.parametrize("family,flags,backend", CASES,
                          ids=[f"{f}-{'-'.join(x)}-{b}" for f, x, b in CASES])
 def test_compiled_remat_steps_match_eager_and_jax(synthetic_file, small, monkeypatch,
@@ -164,6 +197,9 @@ def test_compiled_remat_steps_match_eager_and_jax(synthetic_file, small, monkeyp
             return steps, {n: t.numpy() for n, t in sd.items() if "running_" in n}
 
         jax_spread = train_spreads(jax_runs, orders)
+    exact = (jax_float64_steps(jax_model, tx, jopts, mesh, jax_state, batches, port_cfg,
+                               monkeypatch)
+             if backend == "aot_eager" and family in ("dense", "coo") else None)
     for i, batch in enumerate(batches):
         pb = to_device(batch, "cpu")
         got, eager, _ = train(state, pb), eager_train(eager_state, pb), plain_train(
@@ -180,8 +216,9 @@ def test_compiled_remat_steps_match_eager_and_jax(synthetic_file, small, monkeyp
                                      f"step {i}: {key} against JAX")
             else:
                 assert torch.equal(got[key], eager[key]), key
-                np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), **TOL,
-                                           err_msg=f"step {i}: {key} against JAX")
+                np.testing.assert_allclose(
+                    got[key].numpy(), np.asarray(exact[0][i][key] if exact else want[key]),
+                    **TOL, err_msg=f"step {i}: {key} against JAX")
         if backend == "inductor":
             grads_close(grads, eager_grads, network_largest(eager_grads))
         else:
@@ -206,7 +243,8 @@ def test_compiled_remat_steps_match_eager_and_jax(synthetic_file, small, monkeyp
                                            **TOL, err_msg=name)
             else:
                 assert torch.equal(got_sd[name], plain_sd[name]), name
-            np.testing.assert_allclose(got_sd[name].numpy(), want_sd[name].numpy(), **TOL,
+            np.testing.assert_allclose(got_sd[name].numpy(),
+                                       (exact[1] if exact else want_sd)[name].numpy(), **TOL,
                                        err_msg=name)
     if flags.get("embedder_chunk"):
         (gm,) = recorded.graphs

@@ -74,6 +74,7 @@ from dune_transformercvn_torch.models import ModelConfig, TransformerCVN
 from dune_transformercvn_torch.train import Trainer
 from _torch_families import FAMILIES, batches_and_norm, family_configs  # same-dir helpers
 from test_torch_port_loop import TINY, small_synthetic_file, tiny_options
+from test_torch_port_parallel import communicate_all
 from test_torch_port_train import assert_adam_params_close
 
 WORKER = Path(__file__).with_name("_torch_tp_worker.py")
@@ -96,7 +97,7 @@ def start(mode, setup, directory, world_size):
 def finish(started, timeout=400):
     procs, outputs = started
     try:
-        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+        logs = communicate_all(procs, timeout)
     finally:
         for p in procs:
             p.kill()
