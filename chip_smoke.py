@@ -111,8 +111,17 @@ of phases 13 and 15 and the bench, fits its time limit:
    ``predict_split`` at batch 16 (events/s, argmax agreement and the
    largest probability difference against bfloat16), and one quantized
    batch in which every int8 convolution's ``torch._int_mm`` sums are held
-   to the plain float64 route's, int32 equal.  K1 twice a batch on every
-   path; the exported graphs take dense pixel maps and launch no K1.
+   to the plain float64 route's, int32 equal.  Serving in one dispatch:
+   each exported pid rung captured as one CUDA graph
+   (``load_exported(..., graph=True)``) bit-equal to its program on 3
+   events, the meta's ``graph_bucket_ms`` beside ``bucket_ms``, and the
+   option file's full-depth network's pid rungs (P = 4, 20; its
+   ``InferenceGraph`` modules, not exported) timed eager and captured,
+   bit-equal; the int8 ``predict_split`` at batch 16 with ``graph=True``
+   beside the bf16 graphs in turns (events/s), every pass bit-equal to the
+   eager int8 pass, ``_int_mm`` once a quantized conv a replay.  K1 twice a
+   batch (and a capture's warm-up) on every path; the exported graphs take
+   dense pixel maps and launch no K1.
    ``check_serving_variants(smi, export_dir)`` runs it alone.
 12. The modules outside the main path, at the option file's width.  Each
    of the eight optimizers (AdamW and the seven optax chains) steps the
@@ -135,13 +144,16 @@ of phases 13 and 15 and the bench, fits its time limit:
    so that Inductor compiles each package in a fraction of the full
    network's minutes): that network exported as in phase 11 and its ``pid``
    programs at P = 4 and 20 packaged for the card (``aoti.package_run_dir``:
-   each package's compile seconds, its per-event ``aoti_bucket_ms`` beside
-   the eager program's ``bucket_ms``); the C++ loader
-   (``csrc/aoti_loader.cpp``, built with ``build_loader``) run as a
-   subprocess on one real event's pixel maps at ``num_prongs`` 3 and 17: the
-   rung ``export.select_bucket`` picks on those costs, outputs with the
-   eager graph's argmax and within 2^-5 of its probabilities, its load time
-   and time a run.  Inductor's kernels in the package are Inductor's; no
+   each package's compile seconds, its per-event ``aoti_bucket_ms`` and,
+   captured as one CUDA graph, ``aoti_graph_bucket_ms`` beside the eager
+   program's ``bucket_ms``); each package captured
+   (``load_package(..., graph=True)``) bit-equal to the package on 3 events;
+   the C++ loader (``csrc/aoti_loader.cpp``, built with ``build_loader``)
+   run as a subprocess on one real event's pixel maps at ``num_prongs`` 3
+   and 17, without and with ``--graph``: the rung ``export.select_bucket``
+   picks on the costs of that dispatch, outputs with the eager graph's
+   argmax and within 2^-5 of its probabilities, its load time, capture
+   time and time a run.  Inductor's kernels in the package are Inductor's; no
    ported kernel runs.
 14. Tensor-parallel training (DP x TP on DTensor, the partitioned
    bottlenecks, attention heads and feed-forwards): dp1 x mp2 over 2
@@ -310,9 +322,10 @@ from dune_transformercvn_torch.ops.sparse import SparseGrid, sparse_conv
 from dune_transformercvn_torch.ops.densify import (
     densify_images_cuda, densify_images_plain)
 from dune_transformercvn_torch.evaluate import evaluate_run
-from dune_transformercvn_torch.aoti import package_run_dir
-from dune_transformercvn_torch.export import (build_inference_fn, export_model, load_exported,
-                                              select_bucket, with_max_prongs)
+from dune_transformercvn_torch.aoti import load_package, package_run_dir
+from dune_transformercvn_torch.export import (_time_bucket_ms, build_inference_fn, export_model,
+                                              load_exported, select_bucket, with_max_prongs)
+from dune_transformercvn_torch.utils.graphs import EventGraph
 from dune_transformercvn_torch.ops import quant
 from dune_transformercvn_torch.ops.fold import folded_copy
 from dune_transformercvn_torch.predict import predict_split, to_device
@@ -409,6 +422,10 @@ EXPORT_PROB_TOL, EXPORT_HIDDEN_SHARE = 2 ** -6, 2 ** -5
 # Folded against raw probabilities: 2^-5 of the largest (bf16 activations
 # of a folded and an unfolded conv round apart, PERF.md's bf16 bound).
 FOLD_SHARE = 2 ** -5
+# The one-event rungs the option file's full-depth network is timed at,
+# eager and as one CUDA graph (its InferenceGraph modules, not exported:
+# an export at full depth would cost the smoke minutes).
+FULL_DEPTH_RUNGS = (4, 20)
 # Phase 12.  The optimizers (each from the same starting weights): warm-up
 # and timed steps; lamb's and lars's Trainer fit and its checkpoint step.
 OPTIMIZERS = ("adamw", "adam", "sgd", "rmsprop", "adagrad", "lamb", "lars", "lion")
@@ -1627,7 +1644,73 @@ def check_export(model, norm, ds, smi, out_dir):
             f"event of {num_prongs} prongs, max diffs {[f'{d:.3g}' for d in diffs]}")
     log(f"[export] every artifact within its bound (probabilities {EXPORT_PROB_TOL}, "
         f"hidden {EXPORT_HIDDEN_SHARE} of the largest); the worst used {worst:.1%}")
+    check_captured_rungs(paths, meta, model, ds, smi)
     return seconds, meta["bucket_ms"]
+
+
+def captured_equals(graph, eager, events, what):
+    """``graph`` (an ``EventGraph``) against ``eager`` on each of ``events``
+    (pixels, num_prongs), bit for bit: the first captures, the others
+    replay with other events copied in."""
+    for pixels, n in events:
+        got, want = graph(pixels, n), eager(pixels, n)
+        assert len(got) == len(want), what
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (what, int(n), max_diff(g, w))
+    assert len(graph.graphs.graphs) == 1, what
+
+
+def serving_rows(ds, max_prongs, capacity, count):
+    """``count`` events of ``ds`` as one rung of ``capacity`` takes them:
+    (pixels [1+capacity, C, H, W] on the card, 0-d int32 num_prongs)."""
+    events = []
+    for index in range(len(ds)):
+        if len(events) == count:
+            break
+        if int((ds.prong_targets[index] >= 0).sum()) <= capacity:
+            full, n = event_pixel_maps(ds, index, max_prongs)
+            events.append((full[:1 + capacity],
+                           torch.tensor(n, dtype=torch.int32, device=full.device)))
+    return events
+
+
+def check_captured_rungs(paths, meta, model, ds, smi):
+    """Each exported pid rung captured as one CUDA graph
+    (``load_exported(..., graph=True)``) against its program, bit for bit
+    on three real events, and the meta's ``graph_bucket_ms`` beside
+    ``bucket_ms``; then the option file's full-depth network's rungs timed
+    eager and captured (``export._time_bucket_ms``), equal bit for bit."""
+    graph_ms, eager_ms = meta["graph_bucket_ms"], meta["bucket_ms"]
+    max_prongs = model.cfg.max_prongs
+    for key, path in paths.items():
+        if not key.startswith("pid"):
+            continue
+        capacity = int(key.rsplit("_p", 1)[1]) if "_p" in key else max_prongs
+        captured_equals(load_exported(path, graph=True), load_exported(path),
+                        serving_rows(ds, max_prongs, capacity, 3), key)
+    log(f"[export] pid rungs captured as one CUDA graph each (load_exported graph=True), "
+        f"bit-equal to their programs on 3 events; per event: "
+        + ", ".join(f"P={p}: eager {eager_ms[p]:.4f} ms, graph {graph_ms[p]:.4f} ms "
+                    f"({eager_ms[p] / graph_ms[p]:.2f}x)" for p in sorted(graph_ms, key=int))
+        + f" (depth {CUT_DEPTH}; {smi})")
+    full = TransformerCVN(production_config("bfloat16"),
+                          generator=torch.Generator().manual_seed(SEED + 21)).cuda().eval()
+    norm = ds.norm()
+    readings = []
+    for capacity in FULL_DEPTH_RUNGS:
+        module = build_inference_fn(with_max_prongs(full, capacity), "pid", norm)
+        eager = torch.inference_mode()(module)
+        graph = EventGraph(eager, f"full-depth rung {capacity}")
+        events = serving_rows(ds, max_prongs, capacity, 2)
+        captured_equals(graph, eager, events, f"full depth P={capacity}")
+        readings.append((capacity, _time_bucket_ms(eager, *events[0]),
+                         _time_bucket_ms(graph, *events[0])))
+    log("[export] the option file's full-depth pid rungs (InferenceGraph, bf16), eager "
+        "against one CUDA graph (EventGraph), bit-equal on 2 events; per event: "
+        + ", ".join(f"P={p}: eager {e:.4f} ms, graph {g:.4f} ms ({e / g:.2f}x)"
+                    for p, e, g in readings) + f" (export._time_bucket_ms; {smi})")
+    del full
+    free_memory()
 
 
 def timed_predict(model, ds, norm, **kwargs):
@@ -1673,7 +1756,7 @@ def check_int8_route(model, scales, batch, norm):
         shapes.add((tuple(qx.shape), tuple(qw.shape), str(stride), str(padding)))
         return int8_conv(x, weight, bias, act_scale, stride, padding, out_dtype)
 
-    calls = quant.conv_int32_cuda.calls
+    calls = quant.conv_int32_cuda.launches
     quant.int8_conv = checked
     reset_counts()
     try:
@@ -1684,9 +1767,66 @@ def check_int8_route(model, scales, batch, norm):
         quant.int8_conv = int8_conv
     assert read_counts() == (2, 0), read_counts()
     # each conv once in the check and once in the forward
-    assert quant.conv_int32_cuda.calls - calls == 2 * len(scales), (
-        quant.conv_int32_cuda.calls - calls, len(scales))
+    assert quant.conv_int32_cuda.launches - calls == 2 * len(scales), (
+        quant.conv_int32_cuda.launches - calls, len(scales))
     return len(scales), len(shapes), read_counts()[0]
+
+
+def graph_predict(model, ds, norm, scales=None):
+    """``predict_split(graph=True)`` at batch 16, inside the int8 context of
+    ``scales`` when given, with the counts reset before it: (output,
+    events/s, K1 launches, ``_int_mm`` route launches, graphs captured in
+    the pass).  K1 is asserted twice a forward: a batch's replay, and the
+    warm-up before each capture."""
+    def graphs():
+        return sum(len(step.graphs.graphs)
+                   for step in model.__dict__.get("_graph_predict_steps", {}).values())
+
+    before = graphs()
+    mm = quant.conv_int32_cuda.launches
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with (quant.quantized_convs(model, scales) if scales else contextlib.nullcontext()):
+        out = predict_split(model, ds, norm, TRAIN_BATCH, "cuda", graph=True)
+    torch.cuda.synchronize()
+    rate = len(ds) / (time.perf_counter() - t0)
+    captured = graphs() - before
+    counts = read_counts()
+    assert counts == (2 * (math.ceil(len(ds) / TRAIN_BATCH) + captured), 0), (counts, captured)
+    for key in ("event_probabilities", "prong_probabilities"):
+        assert np.isfinite(out[key]).all(), key
+    return out, rate, counts[0], quant.conv_int32_cuda.launches - mm, captured
+
+
+def check_int8_graphs(model, ds, norm, scales, int8_eager):
+    """The int8 ``predict_split`` at batch 16 as CUDA graphs, beside the bf16
+    graphs, in turns after a capturing pass of each: the int8 graphs equal
+    the eager int8 pass bit for bit, and the ``_int_mm`` route launches
+    once a quantized conv a forward (each replay's, and each capture's
+    warm-up).  Returns {int8?: [events/s, events/s]} and K1's launches."""
+    batches = math.ceil(len(ds) / TRAIN_BATCH)
+    launches = 0
+    rates = {True: [], False: []}
+    for quantized in (True, False, True, False, False, True):
+        out, rate, k1, mm, captured = graph_predict(model, ds, norm,
+                                                    scales if quantized else None)
+        launches += k1
+        assert mm == (len(scales) * (batches + captured) if quantized else 0), (mm, captured)
+        if quantized:
+            for key, value in int8_eager.items():
+                np.testing.assert_array_equal(out[key], value, err_msg=key)
+        if len(rates[quantized]) < 2 and not captured:
+            rates[quantized].append(rate)
+        elif captured:
+            log(f"[int8] {'int8' if quantized else 'bf16'} graphs: {captured} shapes captured "
+                f"in the first pass ({rate:.1f} events/s with the captures)")
+    log(f"[int8] graph=True inside the context: every pass bit-equal to the eager int8 "
+        f"pass; _int_mm launched {len(scales)} times a replay (one a quantized conv), K1 "
+        f"twice a forward")
+    model.__dict__.pop("_graph_predict_steps", None)      # the graphs' pools back
+    free_memory()
+    return rates, launches
 
 
 def check_serving_variants(smi, export_dir):
@@ -1755,7 +1895,7 @@ def check_serving_variants(smi, export_dir):
     checked, distinct, k1 = check_int8_route(model, scales, batches[0], norm_t)
     launches += k1
     int8_rates, bf16_rates = [], []
-    calls = quant.conv_int32_cuda.calls
+    calls = quant.conv_int32_cuda.launches
     with quant.quantized_convs(model, scales):
         int8_out, _, k1 = timed_predict(model, ds, norm)      # warm-up
         launches += k1
@@ -1769,8 +1909,10 @@ def check_serving_variants(smi, export_dir):
             bf16_rates.append(rate)
         launches += k1
     num_batches = math.ceil(VARIANT_EVENTS / TRAIN_BATCH)
-    assert quant.conv_int32_cuda.calls - calls == 3 * num_batches * len(scales)
+    assert quant.conv_int32_cuda.launches - calls == 3 * num_batches * len(scales)
     int8_diff = prob_diffs(int8_out, bf16_out)
+    graph_rates, k1 = check_int8_graphs(model, ds, norm, scales, int8_out)
+    launches += k1
     log(f"[int8] {len(scales)} convs calibrated on {CALIBRATION_BATCHES} batches in "
         f"{calibrate_s:.2f} s; one quantized batch: {checked} int8 convolutions ({distinct} "
         f"shapes) with _int_mm sums equal to the plain float64 route's, int32 for int32")
@@ -1779,6 +1921,9 @@ def check_serving_variants(smi, export_dir):
         f"{bf16_rates[1]:.1f} events/s; int8 against bf16: event argmax agreement "
         f"{int8_diff['event'][1]:.4f}, max prob diff {int8_diff['event'][0]:.4g}; prong "
         f"argmax {int8_diff['prong'][1]:.4f}, max diff {int8_diff['prong'][0]:.4g} ({smi})")
+    log(f"[int8] predict_split b{TRAIN_BATCH} as CUDA graphs (graph=True), in turns: int8 "
+        f"{graph_rates[True][0]:.1f}, {graph_rates[True][1]:.1f} events/s; bf16 "
+        f"{graph_rates[False][0]:.1f}, {graph_rates[False][1]:.1f} events/s ({smi})")
     log(f"[serving variants] export {export_s:.2f} s, bucket_ms {bucket_ms}; K1 {launches} "
         f"in phase 11")
     del batches
@@ -2159,21 +2304,35 @@ def check_aoti_serving(smi, served, export_dir, card_free=None):
     log(f"[aoti] C++ loader {os.path.basename(loader)} built in {build_s:.2f} s, beside "
         f"the packages' compile")
 
+    graph_ms = meta["aoti_graph_bucket_ms"]
+    for p in AOTI_RUNGS:
+        key = "pid" if p == model.cfg.max_prongs else f"pid_p{p}"
+        captured_equals(load_package(paths[key], graph=True), load_package(paths[key]),
+                        serving_rows(ds, model.cfg.max_prongs, p, 3), f"package {key}")
+    log("[aoti] packages captured as one CUDA graph each (load_package graph=True), "
+        "bit-equal to the package run uncaptured on 3 events; per event: "
+        + ", ".join(f"P={p}: package {aoti_ms[str(p)]:.4f} ms, graph "
+                    f"{graph_ms[str(p)]:.4f} ms ({aoti_ms[str(p)] / graph_ms[str(p)]:.2f}x)"
+                    for p in AOTI_RUNGS) + f" ({smi})")
+
     index = next(i for i in range(len(ds)) if int((ds.prong_targets[i] >= 0).sum()) <= 3)
     full, real = event_pixel_maps(ds, index, model.cfg.max_prongs)
     pixels_bin = os.path.join(export_dir, "event.bin")
     full.cpu().numpy().tofile(pixels_bin)
-    costs = {int(k): v for k, v in aoti_ms.items()}
-    for n in AOTI_PRONGS:
+    for (n, graph), costs in ((case, {int(k): v for k, v in
+                                      (graph_ms if case[1] else aoti_ms).items()})
+                              for case in itertools.product(AOTI_PRONGS, (False, True))):
         out_bin = os.path.join(export_dir, f"out_{n}.bin")
         proc = subprocess.run(
             [str(loader), os.path.join(export_dir, "transformercvn_pid"), meta_path, pixels_bin,
-             str(n), out_bin, "--device", "cuda", "--repeat", str(AOTI_REPEAT)],
+             str(n), out_bin, "--device", "cuda", "--repeat", str(AOTI_REPEAT),
+             *(["--graph"] if graph else [])],
             capture_output=True, text=True, timeout=AOTI_TIMEOUT_S)
         if proc.returncode != 0:
             raise RuntimeError(f"the loader exited {proc.returncode}:\n{proc.stderr[-4000:]}")
         chosen = int(loader_reading(proc.stderr, "num_prongs").split("bucket ")[1].split()[0])
         assert chosen == select_bucket(AOTI_RUNGS, n, costs) and chosen >= n, (n, chosen, costs)
+        assert ("[graph cost-aware" in proc.stderr) == graph, proc.stderr
         got = read_loader_outputs(out_bin)
         count = torch.tensor(n, dtype=torch.int32, device="cuda")
         with torch.inference_mode():
@@ -2186,10 +2345,11 @@ def check_aoti_serving(smi, served, export_dir, card_free=None):
         assert got[0].argmax() == want[0].argmax(), (got[0], want[0])
         assert (got[1][:n].argmax(-1) == want[1][:n].argmax(-1)).all(), n
         assert max(event_diff, prong_diff) <= FOLD_SHARE, (event_diff, prong_diff)
-        log(f"[aoti] loader, num_prongs {n} (the event has {real}): "
-            f"{loader_reading(proc.stderr, 'num_prongs')}; "
+        log(f"[aoti] loader{' --graph' if graph else ''}, num_prongs {n} (the event has "
+            f"{real}): {loader_reading(proc.stderr, 'num_prongs')}; "
             f"{loader_reading(proc.stderr, 'loaded')}; "
-            f"{loader_reading(proc.stderr, 'first run')}; "
+            + (f"{loader_reading(proc.stderr, 'captured')}; " if graph else "")
+            + f"{loader_reading(proc.stderr, 'first run')}; "
             f"{loader_reading(proc.stderr, 'run:')}; against the eager graph: argmax equal, "
             f"max prob diff event {event_diff:.3g}, prongs {prong_diff:.3g} (bound "
             f"{FOLD_SHARE}; {smi})")

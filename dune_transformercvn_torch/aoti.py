@@ -26,10 +26,20 @@ rung, as ``{prefix}_{variant}[_pP].aoti.pt2`` beside the ``.pt2`` programs
 adds to ``{prefix}_export_meta.json``: ``aoti_prong_buckets``,
 ``aoti_variants``, ``aoti_platform`` and ``aoti_files``, and with ``bench``
 ``aoti_bucket_ms``, each packaged rung's per-event cost of its ``pid``
-package on the same device (``export._time_bucket_ms``).  ``bucket_ms``
-stays what the eager programs measured.  The programs are read back from
-their ``.pt2`` files (``torch.export.load``), which the tests hold to give
-packages whose outputs equal those of the in-memory programs' packages.
+package on the same device (``export._time_bucket_ms``), and on the card
+``aoti_graph_bucket_ms``, the same package captured as one CUDA graph
+(``load_package(..., graph=True)``, the C++ loader's ``--graph``).
+``bucket_ms`` stays what the eager programs measured.  The programs are
+read back from their ``.pt2`` files (``torch.export.load``), which the
+tests hold to give packages whose outputs equal those of the in-memory
+programs' packages.
+
+A package runs its generated kernels on the stream current at its call
+(``run`` with no stream handle takes the current one), so a capture
+records them.  Loaded for a graph it runs single-threaded
+(``run_single_threaded``): the container's default run waits on and
+records CUDA events around each call to share its model instances
+between threads, which a capture cannot hold.
 
 CLI: ``python -m dune_transformercvn_torch.export <run_dir> --aoti`` exports
 and then packages.
@@ -48,6 +58,7 @@ import torch
 
 from .export import VARIANTS, _time_bucket_ms
 from .train.loop import resolve_device
+from .utils.graphs import EventGraph
 
 AOTI_SUFFIX = ".aoti.pt2"
 # no autotuning: every package builds within a smoke run's time
@@ -111,10 +122,16 @@ def package_program(exported, path: str, device, prong_capacity: int | None = No
             exported, package_path=path, inductor_configs=configs)
 
 
-def load_package(path: str):
+def load_package(path: str, graph: bool = False):
     """A callable ``(pixels, num_prongs) -> list of outputs`` over the
-    package at ``path`` (on the device type it was compiled for)."""
-    return torch._inductor.aoti_load_package(path)
+    package at ``path`` (on the device type it was compiled for).
+    ``graph``: on the card the package's run is captured at the first call
+    as one CUDA graph and each call replays it (``utils.graphs.EventGraph``;
+    the outputs returned are copies); on the CPU it runs uncaptured."""
+    if not graph:
+        return torch._inductor.aoti_load_package(path)
+    package = torch._inductor.aoti_load_package(path, run_single_threaded=True)
+    return EventGraph(package, f"{os.path.basename(path)} graph")
 
 
 def package_run_dir(run_dir: str, output_dir: str | None = None, *,
@@ -150,6 +167,7 @@ def package_run_dir(run_dir: str, output_dir: str | None = None, *,
     files: Dict[str, Dict[str, str]] = {v: {} for v in variants}
     compile_s: Dict[str, float] = {}
     aoti_ms: Dict[str, float] = {}
+    graph_ms: Dict[str, float] = {}
     for bucket in buckets:
         suffix = "" if bucket == max_prongs else f"_p{bucket}"
         for variant in variants:
@@ -166,12 +184,17 @@ def package_run_dir(run_dir: str, output_dir: str | None = None, *,
                 pixels = torch.zeros([1 + bucket, *meta["input_shape"][1:]], device=device)
                 n = torch.tensor(min(3, bucket), dtype=torch.int32, device=device)
                 aoti_ms[str(bucket)] = _time_bucket_ms(load_package(path), pixels, n)
+                if device.type == "cuda":
+                    graph_ms[str(bucket)] = _time_bucket_ms(load_package(path, graph=True),
+                                                            pixels, n)
 
     meta.update({"aoti_prong_buckets": buckets, "aoti_variants": list(variants),
                  "aoti_platform": device.type, "aoti_files": files,
                  "aoti_compile_s": compile_s})
     if aoti_ms:
         meta["aoti_bucket_ms"] = aoti_ms
+    if graph_ms:
+        meta["aoti_graph_bucket_ms"] = graph_ms
     with open(meta_path, "w") as f:
         json.dump(meta, f, indent=2)
     return paths

@@ -6,10 +6,15 @@
 // that AOTInductor compiled ahead of time (dune_transformercvn_torch/aoti.py)
 // with torch::inductor::AOTIModelPackageLoader and runs it once an event.
 //
+// With --graph the package's run is captured once into a CUDA graph and
+// every event is one replay of it: one dispatch an event, as the JAX
+// package's loader runs one PJRT Execute of a compiled rung.
+//
 // Build:   dune_transformercvn_torch.utils.build.build_loader() (g++ against
-//          the installed torch's headers and libraries)
+//          the installed torch's headers and libraries; with a CUDA build of
+//          torch, against the CUDA headers too, TCVN_LOADER_CUDA)
 // Run:     aoti_loader <model> <meta.json> <pixels.bin> <num_prongs> <out.bin>
-//              [--device cuda|cpu] [--repeat N]
+//              [--device cuda|cpu] [--repeat N] [--graph] [--dry_run]
 //
 //   model       either an explicit `*.aoti.pt2` package (its prong capacity
 //               is the package's "prong_capacity" metadata), or a variant
@@ -19,8 +24,10 @@
 //               measured "aoti_bucket_ms" when every eligible rung has a
 //               cost, ties to the smaller capacity; else the smallest; an
 //               over-full event takes the largest rung: export.py's
-//               select_bucket) and loads `<prefix>_pP.aoti.pt2` (the full
-//               capacity keeps the unsuffixed name)
+//               select_bucket; with --graph by "aoti_graph_bucket_ms" when
+//               every eligible rung has one, else as without it) and loads
+//               `<prefix>_pP.aoti.pt2` (the full capacity keeps the
+//               unsuffixed name)
 //   meta.json   the `<prefix>_export_meta.json` written by export.py and
 //               extended by aoti.py
 //   pixels.bin  raw float32 [1 + max_prongs, C, H, W] counts (event map
@@ -35,10 +42,19 @@
 //               a package compiled for the other one is an error
 //   --repeat N  run N more times after the first and report the mean time
 //               of one run on stderr (the outputs written are the last run's)
+//   --graph     on the card: allocate the static inputs there, run the
+//               package once on a pool stream to warm it up, capture that
+//               run into a CUDA graph (the package loaded single-threaded,
+//               launching on the capturing stream), then copy the event in
+//               and replay for the first run and each repeat; the outputs
+//               written are the last replay's.  stderr adds the capture's
+//               seconds.  Not on the CPU (exit 2)
+//   --dry_run   read the meta, report the rung the event takes, and exit 0
+//               without loading or running anything (no device needed)
 //
-// Exit 0 on success; 1 when loading or running fails, 2 on bad arguments
-// or inputs, each with a message on stderr.  Nothing is retried on another
-// device.
+// Exit 0 on success; 1 when loading, capturing or running fails, 2 on bad
+// arguments or inputs, each with a message on stderr.  Nothing is retried
+// on another device, and nothing asked to run as a graph runs uncaptured.
 
 #include <chrono>
 #include <cstdint>
@@ -53,8 +69,13 @@
 #include <vector>
 
 #include <ATen/ATen.h>
+#include <c10/core/StreamGuard.h>
 #include <torch/csrc/inductor/aoti_package/model_package_loader.h>
 #include <torch/cuda.h>
+#ifdef TCVN_LOADER_CUDA
+#include <ATen/cuda/CUDAGraph.h>
+#include <c10/cuda/CUDAStream.h>
+#endif
 
 namespace {
 
@@ -98,11 +119,12 @@ std::string ParseString(const std::string& json, const std::string& key_name) {
   return json.substr(q1 + 1, q2 - q1 - 1);
 }
 
-// "aoti_bucket_ms": {"4": 1.55, "20": 5.07}: each packaged rung's measured
-// per-event ms (aoti.py's bench).
-std::map<int64_t, double> ParseBucketCosts(const std::string& json) {
+// "<key_name>": {"4": 1.55, "20": 5.07}: each packaged rung's measured
+// per-event ms (aoti.py's bench: "aoti_bucket_ms", "aoti_graph_bucket_ms").
+std::map<int64_t, double> ParseBucketCosts(const std::string& json,
+                                           const std::string& key_name) {
   std::map<int64_t, double> costs;
-  size_t key = json.find("\"aoti_bucket_ms\"");
+  size_t key = json.find("\"" + key_name + "\"");
   if (key == std::string::npos) return costs;
   size_t open = json.find('{', key);
   size_t close = json.find('}', open);
@@ -153,7 +175,8 @@ int Run(int argc, char** argv) {
   if (argc < 6) {
     std::fprintf(stderr,
                  "usage: %s <model.aoti.pt2 | variant prefix> <meta.json> <pixels.bin> "
-                 "<num_prongs> <out.bin> [--device cuda|cpu] [--repeat N]\n",
+                 "<num_prongs> <out.bin> [--device cuda|cpu] [--repeat N] [--graph] "
+                 "[--dry_run]\n",
                  argv[0]);
     return 2;
   }
@@ -164,12 +187,18 @@ int Run(int argc, char** argv) {
   const std::string out_path = argv[5];
   std::string device_name = "cuda";
   int repeat = 0;
+  bool graph = false;
+  bool dry_run = false;
   for (int i = 6; i < argc; ++i) {
     const std::string arg = argv[i];
     if (arg == "--device" && i + 1 < argc) {
       device_name = argv[++i];
     } else if (arg == "--repeat" && i + 1 < argc) {
       repeat = std::atoi(argv[++i]);
+    } else if (arg == "--graph") {
+      graph = true;
+    } else if (arg == "--dry_run") {
+      dry_run = true;
     } else {
       std::fprintf(stderr, "unknown argument %s\n", arg.c_str());
       return 2;
@@ -179,7 +208,12 @@ int Run(int argc, char** argv) {
     std::fprintf(stderr, "--device must be cuda or cpu, not %s\n", device_name.c_str());
     return 2;
   }
-  if (device_name == "cuda" && !torch::cuda::is_available()) {
+  if (graph && device_name != "cuda") {
+    std::fprintf(stderr, "--graph captures a CUDA graph: it needs --device cuda and a "
+                         "package compiled for the card (a CPU package runs without it)\n");
+    return 2;
+  }
+  if (!dry_run && device_name == "cuda" && !torch::cuda::is_available()) {
     std::fprintf(stderr, "CUDA is not available to this loader; pass --device cpu "
                          "for a package compiled for the CPU\n");
     return 1;
@@ -213,7 +247,6 @@ int Run(int argc, char** argv) {
       std::fprintf(stderr, "no \"aoti_prong_buckets\" in %s\n", meta_path.c_str());
       return 2;
     }
-    const std::map<int64_t, double> costs = ParseBucketCosts(meta);
     int64_t largest = buckets[0];
     std::vector<int64_t> eligible;
     for (int64_t b : buckets) {
@@ -221,9 +254,25 @@ int Run(int argc, char** argv) {
       if (b >= num_prongs) eligible.push_back(b);
     }
     if (eligible.empty()) eligible.push_back(largest);
-    bool cost_aware = !costs.empty();
-    for (int64_t b : eligible)
-      if (costs.find(b) == costs.end()) { cost_aware = false; break; }
+    // the costs of the dispatch this run uses: the captured rungs' with
+    // --graph when every eligible rung has one, else the uncaptured ones'
+    auto covers = [&eligible](const std::map<int64_t, double>& c) {
+      if (c.empty()) return false;
+      for (int64_t b : eligible)
+        if (c.find(b) == c.end()) return false;
+      return true;
+    };
+    std::map<int64_t, double> costs;
+    std::string cost_key = "aoti_bucket_ms";
+    if (graph) {
+      costs = ParseBucketCosts(meta, "aoti_graph_bucket_ms");
+      cost_key = "aoti_graph_bucket_ms";
+    }
+    if (!covers(costs)) {
+      costs = ParseBucketCosts(meta, "aoti_bucket_ms");
+      cost_key = "aoti_bucket_ms";
+    }
+    const bool cost_aware = covers(costs);
     int64_t chosen = eligible[0];
     for (int64_t b : eligible) {
       if (cost_aware ? (costs.at(b) < costs.at(chosen) ||
@@ -235,7 +284,11 @@ int Run(int argc, char** argv) {
                    (chosen == max_prongs ? std::string("") : "_p" + std::to_string(chosen)) +
                    ".aoti.pt2";
     capacity = chosen;
-    if (cost_aware)
+    if (cost_aware && cost_key == "aoti_graph_bucket_ms")
+      std::fprintf(stderr, "num_prongs %d -> bucket %lld [graph cost-aware %.3f ms] (%s)\n",
+                   num_prongs, static_cast<long long>(chosen), costs.at(chosen),
+                   package_path.c_str());
+    else if (cost_aware)
       std::fprintf(stderr, "num_prongs %d -> bucket %lld [cost-aware %.3f ms] (%s)\n",
                    num_prongs, static_cast<long long>(chosen), costs.at(chosen),
                    package_path.c_str());
@@ -244,8 +297,12 @@ int Run(int argc, char** argv) {
                    static_cast<long long>(chosen), package_path.c_str());
   }
 
+  if (dry_run) return 0;
+
   const auto t_load = std::chrono::steady_clock::now();
-  torch::inductor::AOTIModelPackageLoader loader(package_path);
+  // single-threaded for a graph: the default run records and waits on CUDA
+  // events around each call, which a capture cannot hold
+  torch::inductor::AOTIModelPackageLoader loader(package_path, "model", graph);
   if (capacity < 0) {
     const auto metadata = loader.get_metadata();
     const auto found = metadata.find("prong_capacity");
@@ -278,16 +335,68 @@ int Run(int argc, char** argv) {
       at::scalar_tensor(num_prongs, at::TensorOptions().dtype(at::kInt)).to(device)};
 
   // ---- run ---------------------------------------------------------------
-  const auto t_first = std::chrono::steady_clock::now();
-  std::vector<at::Tensor> outputs = loader.run(inputs);
-  if (device.is_cuda()) torch::cuda::synchronize();
-  std::fprintf(stderr, "first run: %.4f ms\n", 1e3 * Seconds(t_first));
-  if (repeat > 0) {
-    const auto t_run = std::chrono::steady_clock::now();
-    for (int i = 0; i < repeat; ++i) outputs = loader.run(inputs);
+  std::vector<at::Tensor> outputs;
+  if (graph) {
+#ifdef TCVN_LOADER_CUDA
+    // static inputs on the card; the warm-up and the capture on a pool
+    // stream (a capture cannot use the default stream), the package told to
+    // launch on it
+    std::vector<at::Tensor> statics = {at::empty_like(inputs[0]),
+                                       at::empty_like(inputs[1])};
+    const c10::cuda::CUDAStream stream = c10::cuda::getStreamFromPool(false, device.index());
+    c10::StreamGuard on_stream(stream.unwrap());
+    void* handle = reinterpret_cast<void*>(stream.stream());
+    for (size_t i = 0; i < statics.size(); ++i) statics[i].copy_(inputs[i]);
+    const auto t_capture = std::chrono::steady_clock::now();
+    loader.run(statics, handle);
+    torch::cuda::synchronize();
+    at::cuda::CUDAGraph cuda_graph;
+    cuda_graph.capture_begin(at::cuda::graph_pool_handle(), cudaStreamCaptureModeThreadLocal);
+    try {
+      outputs = loader.run(statics, handle);
+    } catch (...) {
+      try { cuda_graph.capture_end(); } catch (...) {}
+      throw;
+    }
+    cuda_graph.capture_end();
+    torch::cuda::synchronize();
+    std::fprintf(stderr, "captured in %.3f s (warm-up run and capture)\n",
+                 Seconds(t_capture));
+    // every run, the first too: the event in, one replay
+    auto replay = [&]() {
+      for (size_t i = 0; i < statics.size(); ++i) statics[i].copy_(inputs[i], true);
+      cuda_graph.replay();
+    };
+    const auto t_first = std::chrono::steady_clock::now();
+    replay();
+    torch::cuda::synchronize();
+    std::fprintf(stderr, "first run: %.4f ms (one replay)\n", 1e3 * Seconds(t_first));
+    if (repeat > 0) {
+      const auto t_run = std::chrono::steady_clock::now();
+      for (int i = 0; i < repeat; ++i) replay();
+      torch::cuda::synchronize();
+      std::fprintf(stderr, "run: %.4f ms (mean of %d replays after the first)\n",
+                   1e3 * Seconds(t_run) / repeat, repeat);
+    }
+    for (auto& out : outputs) out = out.clone();
+    torch::cuda::synchronize();
+#else
+    std::fprintf(stderr, "this loader was built without CUDA (a CPU build of torch); "
+                         "--graph needs one built against a CUDA build\n");
+    return 1;
+#endif
+  } else {
+    const auto t_first = std::chrono::steady_clock::now();
+    outputs = loader.run(inputs);
     if (device.is_cuda()) torch::cuda::synchronize();
-    std::fprintf(stderr, "run: %.4f ms (mean of %d after the first)\n",
-                 1e3 * Seconds(t_run) / repeat, repeat);
+    std::fprintf(stderr, "first run: %.4f ms\n", 1e3 * Seconds(t_first));
+    if (repeat > 0) {
+      const auto t_run = std::chrono::steady_clock::now();
+      for (int i = 0; i < repeat; ++i) outputs = loader.run(inputs);
+      if (device.is_cuda()) torch::cuda::synchronize();
+      std::fprintf(stderr, "run: %.4f ms (mean of %d after the first)\n",
+                   1e3 * Seconds(t_run) / repeat, repeat);
+    }
   }
 
   // ---- every output to out.bin -----------------------------------------

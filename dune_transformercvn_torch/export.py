@@ -20,6 +20,14 @@ graph per rung and variant, the same weights in each, so a 3-prong event
 need not pay for 20 prong images.  :func:`load_exported` round-trips an
 artifact.  A program exported on the card runs on the card.
 
+One event is one dispatch there with ``load_exported(path, graph=True)``:
+the program captured once into a CUDA graph (``utils.graphs.EventGraph``),
+each call a copy of the event into its static inputs and one replay, as
+the JAX package runs one PJRT ``Execute`` of a compiled rung an event.
+With ``bench_buckets`` on the card the meta records each rung's captured
+cost, ``graph_bucket_ms``, beside the eager ``bucket_ms``; the serving
+side passes ``select_bucket`` the costs of the dispatch it uses.
+
 CLI::
 
     python -m dune_transformercvn_torch.export <run_dir> [--check]
@@ -46,6 +54,7 @@ from torch import nn
 
 from .models.network import TransformerCVN
 from .train.loop import resolve_device
+from .utils.graphs import EventGraph
 
 VARIANTS = ("pid", "embeddings", "combined")
 
@@ -227,7 +236,9 @@ def export_model(
     it then runs.  ``{prefix}_export_meta.json`` records the calling
     convention with the JAX package's keys.  ``bench_buckets`` times each
     rung's pid graph per event on ``device`` and records ``bucket_ms``, from
-    which the serving side picks the cheapest eligible rung.  ``model``'s
+    which the serving side picks the cheapest eligible rung; on the card
+    also ``graph_bucket_ms``, the program captured as one CUDA graph
+    (``load_exported(..., graph=True)``).  ``model``'s
     parameters must be on ``device``; its training flags are as they were
     when it returns.
     """
@@ -263,6 +274,7 @@ def _export(model, norm, output_dir, prefix, prong_buckets, bench_buckets,
     output_avals: Dict[str, list] = {}
     bucket_files: Dict[str, Dict[str, str]] = {v: {} for v in VARIANTS}
     bucket_ms: Dict[str, float] = {}
+    graph_ms: Dict[str, float] = {}
     for bucket in buckets:
         rung = with_max_prongs(model, bucket)
         example_pixels = torch.zeros((1 + bucket,) + pixel_shape[1:], device=device)
@@ -278,8 +290,11 @@ def _export(model, norm, output_dir, prefix, prong_buckets, bench_buckets,
             paths[variant + suffix] = path
             bucket_files[variant][str(bucket)] = name
             if bench_buckets and variant == "pid":
-                bucket_ms[str(bucket)] = _time_bucket_ms(
-                    _no_grad_call(exported.module()), example_pixels, example_n)
+                program = _no_grad_call(exported.module())
+                bucket_ms[str(bucket)] = _time_bucket_ms(program, example_pixels, example_n)
+                if device.type == "cuda":
+                    graph_ms[str(bucket)] = _time_bucket_ms(
+                        EventGraph(program, f"{name} graph"), example_pixels, example_n)
 
     with open(os.path.join(output_dir, f"{prefix}_export_meta.json"), "w") as f:
         json.dump({
@@ -292,6 +307,7 @@ def _export(model, norm, output_dir, prefix, prong_buckets, bench_buckets,
             "bucket_files": bucket_files,
             **({"bucket_ms": bucket_ms, "bucket_ms_platform": device.type}
                if bucket_ms else {}),
+            **({"graph_bucket_ms": graph_ms} if graph_ms else {}),
             "num_event_classes_folded": 4,
             "num_prong_classes": cfg.num_prong_classes,
             "hidden_dim": cfg.hidden_dim,
@@ -302,11 +318,15 @@ def _export(model, norm, output_dir, prefix, prong_buckets, bench_buckets,
             },
             "calling_convention": (
                 "pick a bucket P >= num_prongs from prong_buckets -- the "
-                "cheapest per bucket_ms when present, else the smallest "
-                "(select_bucket); pad prong maps to P rows ([1+P, C, H, W] "
-                "float32 raw counts on the exporting device), pass the real "
-                "count as a 0-d int32 num_prongs; read the first num_prongs "
-                "output rows"),
+                "cheapest per the costs of the dispatch used when present "
+                "(bucket_ms: the program called eagerly; graph_bucket_ms: "
+                "load_exported(..., graph=True), one CUDA graph replay; "
+                "aoti_bucket_ms / aoti_graph_bucket_ms: the same for the "
+                "AOTInductor packages and the C++ loader without / with "
+                "--graph), else the smallest (select_bucket); pad prong maps "
+                "to P rows ([1+P, C, H, W] float32 raw counts on the "
+                "exporting device), pass the real count as a 0-d int32 "
+                "num_prongs; read the first num_prongs output rows"),
         }, f, indent=2)
     return paths
 
@@ -318,26 +338,33 @@ def _no_grad_call(module):
     return call
 
 
-def load_exported(path: str):
+def load_exported(path: str, graph: bool = False):
     """Round-trip loader: a callable ``(pixels, num_prongs) -> outputs``
-    over the saved program (on the device it was exported on)."""
-    return _no_grad_call(torch.export.load(path).module())
+    over the saved program (on the device it was exported on).  ``graph``:
+    on the card the program is captured at the first call as one CUDA
+    graph and each call replays it (``utils.graphs.EventGraph``; the
+    outputs returned are copies); on the CPU it runs uncaptured."""
+    program = _no_grad_call(torch.export.load(path).module())
+    return EventGraph(program, f"{os.path.basename(path)} graph") if graph else program
 
 
 def export_run_dir(run_dir: str, output_dir: str = None, checkpoint: str = "best",
                    embedder: str = None,
                    prong_buckets: Sequence[int] | None = DEFAULT_PRONG_BUCKETS,
-                   bench_buckets: bool = False, device=None) -> Dict[str, str]:
+                   bench_buckets: bool = False, device=None,
+                   datasets=None) -> Dict[str, str]:
     """The CreateCompiled flow: a port run dir's checkpoint (``best`` or
     ``last``) -> the serving graphs, BatchNorm-folded when the run's
-    ``fold_eval_bn`` is set; into ``<run_dir>/export`` by default."""
+    ``fold_eval_bn`` is set; into ``<run_dir>/export`` by default.
+    ``datasets``: the Trainer's (train, validation, test), whose statistics
+    normalise the features (default: the option file's HDF5 files)."""
     from .config import Options
     from .ops.fold import fold_eval_batchnorm
     from .train import CheckpointManager, Trainer
 
     options = Options.load(os.path.join(run_dir, "options.json"))
     trainer = Trainer(options, embedder=embedder, run_dir=None, debug=True,
-                      verbose=False, device=device)
+                      verbose=False, device=device, datasets=datasets)
     mgr = CheckpointManager(os.path.join(run_dir, "checkpoints"),
                             top_k=options.checkpoint_top_k)
     step = mgr.ranked_best_step() if checkpoint == "best" else None
@@ -397,14 +424,16 @@ def main(argv=None):
                              f"{','.join(map(str, DEFAULT_PRONG_BUCKETS))}")
     parser.add_argument("--bench_buckets", action="store_true",
                         help="time each rung's pid graph on the export device and "
-                             "record per-event bucket_ms in the export meta")
+                             "record per-event bucket_ms in the export meta (on the "
+                             "card also graph_bucket_ms, the program as one CUDA graph)")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="device to export for (default cuda; no fallback)")
     parser.add_argument("--aoti", action="store_true",
                         help="also compile each program into an AOTInductor package "
                              "(<name>.aoti.pt2) for the same device, read back from its "
                              ".pt2 file; with --bench_buckets each rung's pid package "
-                             "is timed too (aoti_bucket_ms in the meta)")
+                             "is timed too (aoti_bucket_ms in the meta; on the card "
+                             "also aoti_graph_bucket_ms, the package as one CUDA graph)")
     args = parser.parse_args(argv)
     embedder = "sparse" if args.sparse else "sdxl" if args.sdxl else args.embedder
     if args.buckets is None:

@@ -6,7 +6,9 @@ Port of ``dune_transformercvn_tpu/ops/quant.py``: standard symmetric PTQ.
   parameters at each call (:func:`quantize_weight`).
 * **Activations**: one symmetric int8 scale per conv input, calibrated by
   running a few batches through the float network and recording each conv
-  input's max |x| (:func:`calibrate_activation_scales`).
+  input's max |x| (:func:`calibrate_activation_scales`).  A context holds
+  each scale as a 0-d float32 tensor on the model's device, made when it is
+  entered: a call reads no host value.
 * **The product**: int8 x int8 with int32 accumulation, dequantized by
   ``s_w * s_x``, plus the bias, cast to the compute dtype
   (:func:`int8_conv`).  Two routes with one contract, chosen by the
@@ -14,12 +16,21 @@ Port of ``dune_transformercvn_tpu/ops/quant.py``: standard symmetric PTQ.
   on cuBLASLt; the JAX package computes the same product with XLA's int8
   convolution, not a Pallas kernel); on the CPU the plain version,
   ``F.conv2d`` in float64 on the integer grid, which is exact and so equal
-  to the int32 result.
+  to the int32 result.  The two are one custom op, ``tcvn::int8_conv``
+  (:func:`int8_conv_op`), so ``torch.compile`` keeps the product in its
+  graph and a CUDA graph records its GEMMs; its launch counter
+  (``conv_int32_cuda.launches``) ticks where the route runs, and
+  ``utils/graphs.py`` takes a capture's ticks back and adds them per replay.
 
 Flax intercepts ``nn.Conv.__call__``; the port calls its convolutions
 functionally, so :func:`quantized_convs` and the calibration set a context
 that the conv helpers consult (:func:`intercept`, from
 ``models/densenet.py::conv_nhwc`` and ``models/sdxl.py::conv``).  The
+context is process-wide state (``_STATE.active``), not a ``ContextVar``:
+Dynamo reads a module attribute and guards on it, so a compiled forward
+traced inside a context quantizes as the eager one does, as JAX's context
+wraps ``model.apply`` inside ``jax.jit``.  The compiled and graph steps
+serve the context they were made in (:func:`current`; ``predict.py``).  The
 quantized set is JAX's: the ``nn.Conv2d`` modules that run through those
 helpers, 2-D, ungrouped (the helpers never dilate).  The sparse families'
 convolutions (``ops/sparse.py``, ``lax.conv`` in JAX), the s2d stem and the
@@ -35,7 +46,6 @@ rather than run in float.
 from __future__ import annotations
 
 import contextlib
-import contextvars
 import weakref
 from typing import Dict, Iterable, Mapping, Optional, Tuple
 
@@ -43,8 +53,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# The interceptor the conv helpers consult: None outside a context.
-_ACTIVE: contextvars.ContextVar = contextvars.ContextVar("int8_convs", default=None)
+
+class _State:
+    """The interceptor the conv helpers consult: None outside a context."""
+    active = None
+
+
+_STATE = _State()
 
 # im2col chunks of at most this many bytes (int8 columns or int32 products)
 IM2COL_CHUNK_BYTES = 1 << 30
@@ -65,9 +80,18 @@ def quantize_weight(weight: torch.Tensor):
     return q.clamp(-127, 127).to(torch.int8), scale
 
 
-def quantize_activation(x: torch.Tensor, act_scale: float) -> torch.Tensor:
-    """``clip(round(x / s_x), -127, 127)`` as int8, in float32."""
-    s_x = torch.tensor(act_scale, dtype=torch.float32, device=x.device)
+def scale_tensor(act_scale, device) -> torch.Tensor:
+    """An activation scale (a float, or a 0-d tensor) as a 0-d float32
+    tensor on ``device``."""
+    if torch.is_tensor(act_scale):
+        return act_scale.to(device=device, dtype=torch.float32)
+    return torch.tensor(act_scale, dtype=torch.float32, device=device)
+
+
+def quantize_activation(x: torch.Tensor, act_scale) -> torch.Tensor:
+    """``clip(round(x / s_x), -127, 127)`` as int8, in float32 (``act_scale``
+    a float or a 0-d float32 tensor on ``x``'s device)."""
+    s_x = scale_tensor(act_scale, x.device)
     return torch.round(x.float() / s_x).clamp(-127, 127).to(torch.int8)
 
 
@@ -118,27 +142,50 @@ def conv_int32_cuda(qx: torch.Tensor, qw: torch.Tensor, stride, padding) -> torc
             a[:m, :k] = cols
         y = torch._int_mm(a, weight_t)
         out[i:i + chunk] = y[:m, :co].reshape(part.shape[0], ho, wo, co)
-    conv_int32_cuda.calls += 1
+    conv_int32_cuda.launches += 1
     return out
 
 
-conv_int32_cuda.calls = 0   # convolutions run by this route (a few GEMMs each)
+conv_int32_cuda.launches = 0   # convolutions run by this route (a few GEMMs each)
+
+
+# The two routes as one op: the plain version for CPU tensors, the _int_mm
+# route for CUDA tensors, and a fake that gives the output's shape.
+@torch.library.custom_op("tcvn::int8_conv", mutates_args=(), device_types="cpu",
+                         schema="(Tensor qx, Tensor qw, int[] stride, int[] padding) -> Tensor")
+def int8_conv_op(qx, qw, stride, padding):
+    """int32 NHWC sums of int8 ``qx`` conv int8 ``qw``: the plain route on
+    the CPU, :func:`conv_int32_cuda` on the card."""
+    return conv_int32_plain(qx, qw, stride, padding)
+
+
+@int8_conv_op.register_kernel("cuda")
+def _int8_conv_cuda(qx, qw, stride, padding):
+    return conv_int32_cuda(qx, qw, stride, padding)
+
+
+@int8_conv_op.register_fake
+def _int8_conv_fake(qx, qw, stride, padding):
+    (sh, sw), (ph, pw) = stride, padding
+    n, h, w, _ = qx.shape
+    co, _, kh, kw = qw.shape
+    return qx.new_empty((n, (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1, co),
+                        dtype=torch.int32)
 
 
 def int8_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
-              act_scale: float, stride=1, padding=0,
+              act_scale, stride=1, padding=0,
               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """int8 x int8 -> int32 convolution of NHWC ``x`` with an OIHW
     ``weight``, dequantized by ``s_w * s_x``, plus ``bias``, in
-    ``out_dtype`` (default ``x``'s).  CPU tensors take the plain route,
-    CUDA tensors the ``_int_mm`` route."""
-    qx = quantize_activation(x, act_scale)
+    ``out_dtype`` (default ``x``'s).  ``act_scale``: a float, or a 0-d
+    float32 tensor on ``x``'s device.  CPU tensors take the plain route,
+    CUDA tensors the ``_int_mm`` route (:func:`int8_conv_op`)."""
+    s_x = scale_tensor(act_scale, x.device)
+    qx = quantize_activation(x, s_x)
     qw, s_w = quantize_weight(weight)
-    if x.device.type == "cpu":
-        acc = conv_int32_plain(qx, qw, stride, padding)
-    else:
-        acc = conv_int32_cuda(qx, qw, stride, padding)
-    y = acc.float() * (s_w * torch.tensor(act_scale, dtype=torch.float32, device=x.device))
+    acc = int8_conv_op(qx, qw, list(_pair(stride)), list(_pair(padding)))
+    y = acc.float() * (s_w * s_x)
     if bias is not None:
         y = y + bias.float()
     return y.to(out_dtype or x.dtype)
@@ -165,7 +212,9 @@ class _Context:
         if not isinstance(weight, nn.Parameter):
             return None
         entry = self.names.get(id(weight))
-        if entry is None or entry[1]() is not weight:
+        # under Dynamo the weight's id is guarded; a dead copy's id is not
+        # checked there
+        if entry is None or (not torch.compiler.is_compiling() and entry[1]() is not weight):
             raise RuntimeError(
                 "a convolution of a model that this int8 context does not know ran "
                 "inside it; quantized_convs(model, ...) quantizes `model`, and a copy "
@@ -176,9 +225,9 @@ class _Context:
 class _Quantize(_Context):
     """Runs each conv with a scale as :func:`int8_conv`."""
 
-    def __init__(self, model: nn.Module, scales: Dict[str, float]):
+    def __init__(self, model: nn.Module, scales: Dict[str, torch.Tensor]):
         super().__init__(model)
-        self.scales = scales   # conv module name -> activation scale
+        self.scales = scales   # conv module name -> 0-d float32 scale on the device
 
     def __call__(self, x, weight, bias, stride, padding, groups, out_dtype):
         name = self.name(weight)
@@ -204,21 +253,36 @@ class _Record(_Context):
         return None
 
 
+def current():
+    """The active context (its interceptor), or None: what a compiled or
+    graph step is keyed on, so that a step made in one context never runs
+    in another."""
+    return _STATE.active
+
+
 def active() -> bool:
     """Whether a quantization or calibration context is active (the conv
-    helpers ask before they lay out an input for :func:`intercept`).  Never
-    while ``torch.compile`` traces: the contexts run eagerly, and the
-    compiled steps refuse to run inside one (``predict.make_predict_step``)."""
-    return not torch.compiler.is_compiling() and _ACTIVE.get() is not None
+    helpers ask before they lay out an input for :func:`intercept`)."""
+    return _STATE.active is not None
+
+
+def check_context(made_in, what: str) -> None:
+    """Raise unless the active context is ``made_in`` (:func:`current` when
+    ``what`` was made): a compiled or captured step of float convs must not
+    run inside an int8 context, nor one of int8 convs outside it."""
+    if _STATE.active is not made_in:
+        raise RuntimeError(
+            f"{what} was made {'outside' if made_in is None else 'inside'} an int8 "
+            "context (ops.quant.quantized_convs) and is called "
+            f"{'outside it' if _STATE.active is None else 'inside another'}; make the "
+            "step where it runs")
 
 
 def intercept(x, weight, bias, stride, padding, groups, out_dtype) -> Optional[torch.Tensor]:
     """Called by the conv helpers with NHWC ``x`` and the conv's weight
     parameter: the int8 result when a :func:`quantized_convs` context
     quantizes this conv, else None (the helper runs its float conv)."""
-    if torch.compiler.is_compiling():
-        return None
-    active = _ACTIVE.get()
+    active = _STATE.active
     if active is None:
         return None
     return active(x, weight, bias, stride, padding, groups, out_dtype)
@@ -229,18 +293,18 @@ def bind(model: nn.Module) -> None:
     convs of ``model``, a copy of the context's model (``ops.fold.folded_copy``
     binds its folded copy), run as the context's convs of the same module
     names.  Outside a context it does nothing."""
-    active = _ACTIVE.get()
+    active = _STATE.active
     if active is not None:
         active.bind(model)
 
 
 @contextlib.contextmanager
 def _active(interceptor):
-    token = _ACTIVE.set(interceptor)
+    previous, _STATE.active = _STATE.active, interceptor
     try:
         yield interceptor
     finally:
-        _ACTIVE.reset(token)
+        _STATE.active = previous
 
 
 def _convs(model: nn.Module) -> Dict[str, nn.Conv2d]:
@@ -258,16 +322,29 @@ def _check_device(model: nn.Module, device) -> torch.device:
     return device
 
 
+# model -> {(its scales, device): the context's interceptor}
+_CONTEXTS: "weakref.WeakKeyDictionary[nn.Module, Dict]" = weakref.WeakKeyDictionary()
+
+
 @contextlib.contextmanager
 def quantized_convs(model: nn.Module, act_scales: Mapping[str, float], device=None):
     """Context: every conv of ``model`` whose module name has a calibrated
     scale > 0 in ``act_scales`` runs as an int8 convolution; the others run
     unchanged.  ``device`` (``None``: the card, which must be there) is
-    where the model lives; its parameters must be there."""
+    where the model lives; its parameters must be there.  The scales go to
+    the device once: entering again with the same model and the same scale
+    values enters the same context (:func:`current`), whose compiled and
+    graph steps are reused."""
     _check_device(model, device)
+    on = next(model.parameters()).device
     scales = {name: float(act_scales[name]) for name in _convs(model)
               if name in act_scales and act_scales[name] > 0}
-    with _active(_Quantize(model, scales)):
+    kept = _CONTEXTS.setdefault(model, {})
+    key = (tuple(sorted(scales.items())), on)
+    if key not in kept:
+        kept[key] = _Quantize(model, {name: scale_tensor(value, on)
+                                      for name, value in scales.items()})
+    with _active(kept[key]):
         yield
 
 

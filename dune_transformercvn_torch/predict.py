@@ -60,6 +60,13 @@ def make_predict_step(model, compile: bool = False, shapes: int = 1,
     same forward runs without a capture.  The graphs read ``model``'s
     parameters where they are, so updates made in place (training,
     ``load_state_dict``) reach the next replay.
+
+    Inside an int8 context (:func:`.ops.quant.quantized_convs`) the step is
+    the quantized forward, eager, compiled (Dynamo traces the context's
+    interception, as ``jax.jit`` traces JAX's) or captured (the ``_int_mm``
+    route's GEMMs in the graph).  A compiled or graph step serves the
+    context it was made in, and raises in any other: its graphs were
+    traced or captured with that context's convolutions.
     """
     num_event = model.cfg.num_event_classes
     model.eval()
@@ -77,13 +84,12 @@ def make_predict_step(model, compile: bool = False, shapes: int = 1,
         graphs = StepGraphs(torch.inference_mode()(lambda batch, norm, states: forward(
             batch, norm)), "predict step graph", shapes)
     device = next(model.parameters()).device
+    context = quant.current()
 
     @torch.inference_mode()
     def step(batch, norm):
-        if (compile or graph) and quant.active():
-            raise RuntimeError("int8 convolutions (ops.quant.quantized_convs) run "
-                               "eagerly: predict with compile=False and graph=False "
-                               "inside the context (ROADMAP.md item 20)")
+        if compile or graph:
+            quant.check_context(context, "this compiled or graph predict step")
         if not graph or device.type != "cuda":
             return forward(batch, norm)
         captured = graphs.get(device, batch, norm)
@@ -91,7 +97,8 @@ def make_predict_step(model, compile: bool = False, shapes: int = 1,
         return captured.replay()
 
     if graph:
-        step.graphs, step.model, step.compile = graphs, model, compile
+        step.graphs, step.model = graphs, model
+        step.key = (compile, context)
     return step
 
 
@@ -99,11 +106,19 @@ def graph_predict_step(model, compile: bool, shapes: int):
     """``make_predict_step(model, compile, shapes, graph=True)``, kept on
     ``model`` so that later calls for it replay the graphs already
     captured, as compiled graphs are kept (each call raises the bound by
-    its ``shapes``, as ``compile_step`` raises the recompile limit)."""
-    step = model.__dict__.get("_graph_predict_step")
-    if step is None or step.model is not model or step.compile != compile:
-        step = make_predict_step(model, compile, shapes, graph=True)
-        model.__dict__["_graph_predict_step"] = step
+    its ``shapes``, as ``compile_step`` raises the recompile limit).  The
+    steps are kept by ``key``, ``(compile, ops.quant.current())``: graphs
+    captured with float convs never replay inside an int8 context, nor int8
+    graphs outside it or in another context.  The steps of one int8 context
+    are kept at a time, beside the float ones."""
+    key = (compile, quant.current())
+    steps = model.__dict__.setdefault("_graph_predict_steps", {})
+    step = steps.get(key)
+    if step is None or step.model is not model:
+        if key[1] is not None:
+            for other in [k for k in steps if k[1] not in (None, key[1])]:
+                del steps[other]
+        step = steps[key] = make_predict_step(model, compile, shapes, graph=True)
     else:
         step.graphs.shapes += shapes
     return step
@@ -148,7 +163,9 @@ def predict_split(
     probabilities to pinned host memory without waiting: a batch's rows
     are read while the next batch runs.  In a group each rank replays its
     own graphs on its shard (the eval-mode forward of whole parameters
-    holds no collective) and the rows are gathered as above.
+    holds no collective) and the rows are gathered as above.  Inside an
+    int8 context (:func:`.ops.quant.quantized_convs`) ``compile`` and
+    ``graph`` predict the quantized network, one dispatch a batch.
     """
     mesh = mesh or default_mesh()
     model = unsharded_copy(model)

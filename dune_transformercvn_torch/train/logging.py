@@ -11,14 +11,28 @@ lr-AdamW/pg1) so the history-reading half of the evaluation harness works
 unchanged.  Scalars always go to ``metrics.jsonl`` in the run dir too, and if
 no TensorBoard backend is importable (a GPU host may lack ``tensorboard``)
 the history reader consumes that.
+
+TensorBoard reads and writes event files through its TensorFlow-free stub
+(``tensorboard.compat.notf``, its "no_tensorflow" mode): the port needs no
+TensorFlow, and importing one where it is installed costs a process ~12 s
+before its first step.  A process that resolved TensorBoard's ``tf`` before
+(through real TensorFlow) keeps it; the event files are the same.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 import time
+import types
 from typing import Dict
+
+
+def _without_tensorflow() -> None:
+    """Mark TensorBoard's TensorFlow-free mode before its ``tf`` resolves."""
+    sys.modules.setdefault("tensorboard.compat.notf",
+                           types.ModuleType("tensorboard.compat.notf"))
 
 
 class MetricLogger:
@@ -31,6 +45,7 @@ class MetricLogger:
             return
         os.makedirs(run_dir, exist_ok=True)
         try:
+            _without_tensorflow()
             from torch.utils.tensorboard import SummaryWriter
 
             self._tb = SummaryWriter(log_dir=run_dir)
@@ -96,6 +111,7 @@ def read_history(run_dir: str) -> Dict[str, list]:
     """
     history: Dict[str, list] = {}
     try:
+        _without_tensorflow()
         from tensorboard.backend.event_processing.event_accumulator import (
             EventAccumulator,
         )

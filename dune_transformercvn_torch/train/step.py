@@ -82,8 +82,8 @@ collectives and ``global_norm``'s, so a replay's K steps are K eager
 data-parallel steps bit for bit, the counterpart of the JAX package's
 ``shard_map`` of its ``lax.scan`` over the data axis.
 :func:`check_graphable` raises for what it does not take: a group whose
-collectives are not nccl's on the card (gloo with CUDA tensors), int8
-convolutions.
+collectives are not nccl's on the card (gloo with CUDA tensors), and int8
+convolutions in a train step (the JAX package quantizes inference only).
 """
 
 from __future__ import annotations
@@ -192,13 +192,16 @@ def _loss_kwargs(options, model) -> Dict:
     )
 
 
-def check_graphable(mesh: Optional[Mesh], device):
+def check_graphable(mesh: Optional[Mesh], device, train: bool = False):
     """What ``graph=True`` does not take raises here (ROADMAP.md item 20): a
     process group of more than one rank on CUDA tensors whose backend is
     not nccl (gloo stages its collectives on the host, which a capture
-    cannot record, and puts several ranks on one card), and int8
-    convolutions (a graph predict step also raises inside their context).
-    On the CPU a group's graph step runs uncaptured, over gloo."""
+    cannot record, and puts several ranks on one card), and, for a
+    ``train`` step, int8 convolutions: the JAX package's int8 context is an
+    inference transform (``ops/quant.py``: post-training quantization, whose
+    rounding has no gradient), which its train step never runs.  The eval
+    and predict steps take it.  On the CPU a group's graph step runs
+    uncaptured, over gloo."""
     mesh = mesh or default_mesh()
     backend = group_backend()
     if mesh.world_size > 1 and torch.device(device).type == "cuda" and backend != "nccl":
@@ -206,9 +209,10 @@ def check_graphable(mesh: Optional[Mesh], device):
             f"graph=True in a process group of {mesh.world_size} ranks captures its "
             f"collectives on nccl, one process a card; this group's backend is {backend} "
             "(gloo stages its collectives on the host, which a CUDA graph cannot capture)")
-    if quant.active():
-        raise RuntimeError("graph=True does not capture int8 convolutions "
-                           "(ops.quant.quantized_convs; ROADMAP.md item 20)")
+    if train and quant.active():
+        raise RuntimeError("a train step does not run int8 convolutions "
+                           "(ops.quant.quantized_convs quantizes for inference, as the "
+                           "JAX package's context does; its rounding has no gradient)")
 
 
 def _shard_seed(seed: int, shard: int) -> int:
@@ -277,7 +281,7 @@ def make_train_step(model, options, mesh: Optional[Mesh] = None, compile: bool =
                               batch["prong_targets"], gamma, event_scale, **loss_kwargs)
 
     if graph:
-        check_graphable(mesh, next(model.parameters()).device)
+        check_graphable(mesh, next(model.parameters()).device, train=True)
     elif steps_per_dispatch != 1:
         raise ValueError("steps_per_dispatch > 1 runs as one CUDA graph: pass graph=True")
     if compile:
@@ -543,6 +547,7 @@ def make_eval_step(model, options, compile: bool = False, shapes: int = 1,
         return step
     check_graphable(None, next(model.parameters()).device)
     bound = {}
+    context = quant.current()
 
     @torch.no_grad()
     def graph_body(batch, norm, totals, states):
@@ -559,6 +564,7 @@ def make_eval_step(model, options, compile: bool = False, shapes: int = 1,
     def graph_step(state: TrainState, batch, totals):
         if bound.setdefault("state", state) is not state:
             raise ValueError("a graph eval step serves the TrainState of its first call")
+        quant.check_context(context, "this graph eval step")
         device = next(state.model.parameters()).device
         state.model.eval()
         if device.type != "cuda":

@@ -117,8 +117,10 @@ def _loader_flags():
     """Compile and link flags of the loader against the installed torch:
     its headers and libraries, its C++ ABI, an rpath to its libraries, and
     with a CUDA build of torch its CUDA libraries, kept with
-    ``--no-as-needed`` (the loader calls none of their symbols, and without
-    them libtorch has no CUDA backend to run a ``cuda`` package on)."""
+    ``--no-as-needed`` (without them libtorch has no CUDA backend to run a
+    ``cuda`` package on), the CUDA toolkit's headers and
+    ``TCVN_LOADER_CUDA``, which compiles ``--graph`` in (its CUDA graph
+    and streams are torch's: it calls no CUDA runtime function itself)."""
     import torch
     from torch.utils import cpp_extension
 
@@ -129,6 +131,8 @@ def _loader_flags():
     link = [*(f"-L{p}" for p in lib_dirs), *(f"-Wl,-rpath,{p}" for p in lib_dirs),
             "-ltorch", "-ltorch_cpu", "-lc10"]
     if torch.version.cuda:
+        compile_flags += ["-DTCVN_LOADER_CUDA",
+                          f"-I{os.path.join(cpp_extension.CUDA_HOME or '/usr/local/cuda', 'include')}"]
         link += ["-Wl,--no-as-needed", "-ltorch_cuda", "-lc10_cuda", "-Wl,--as-needed"]
     return compile_flags, link, torch.__version__
 

@@ -18,9 +18,18 @@ host.  :class:`StepGraphs` keeps one graph for each input shape:
 * a failure inside the capture raises: no step asked for a graph runs
   uncaptured on the card;
 * the launch counters of kernels K1 and K2 (``densify_images_cuda``,
-  ``scatter_patches_cuda``) tick during the capture, which launches
-  nothing; the capture takes its ticks back and every replay adds them
-  again, so the counters count the kernels' real launches.
+  ``scatter_patches_cuda``; a graph's ``launches``) and of the int8
+  convolutions' ``_int_mm`` route (``ops.quant.conv_int32_cuda``; its
+  ``route_launches``) tick during the capture, which launches nothing;
+  the capture takes its ticks back and every replay adds them again, so
+  the counters count the real launches.
+
+:class:`EventGraph` serves one event the way the JAX package serves it,
+one dispatch of one rung's compiled program (``native/pjrt_loader.cc``'s
+``Execute``): it captures a one-event program of ``export.py`` or
+``aoti.py`` (``(pixels [1+P, C, H, W] float32, num_prongs 0-d int32) ->
+outputs``) once, with a memory pool of its own, and every call copies the
+event into the static inputs and replays it.
 
 A body draws its random numbers from generator states registered with
 the graph (:func:`generator_states`), which the caller seeds before each
@@ -61,10 +70,13 @@ import torch
 
 from ..ops.coo_stem import scatter_patches_cuda
 from ..ops.densify import densify_images_cuda
+from ..ops.quant import conv_int32_cuda
 from ..parallel.mesh import assert_same_on_every_rank
 
 # the wrappers whose ``launches`` count a kernel's launches
 LAUNCH_COUNTERS = (densify_images_cuda, scatter_patches_cuda)
+# and the int8 convolutions' route, counted the same way
+ROUTE_COUNTERS = (conv_int32_cuda,)
 
 
 def shape_key(*trees: Dict[str, torch.Tensor]):
@@ -83,12 +95,14 @@ def generator_states(device, count: int) -> List[torch.Generator]:
 
 class Captured:
     """One captured graph: its static ``inputs`` (name -> tensor, per
-    tree), ``outputs``, the generator ``states`` it reads, and the kernel
-    launches a replay makes."""
+    tree), ``outputs``, the generator ``states`` it reads, and the
+    launches a replay makes of K1 and K2 (``launches``) and of the int8
+    route (``route_launches``)."""
 
-    def __init__(self, graph, inputs, outputs, states, launches):
+    def __init__(self, graph, inputs, outputs, states, launches, route_launches):
         self.graph, self.inputs, self.outputs = graph, inputs, outputs
         self.states, self.launches = states, launches
+        self.route_launches = route_launches
 
     def load(self, *trees: Dict[str, torch.Tensor]) -> None:
         """Copy a call's tensors into the static inputs (from pinned host
@@ -100,7 +114,8 @@ class Captured:
 
     def replay(self):
         self.graph.replay()
-        for counter, count in zip(LAUNCH_COUNTERS, self.launches):
+        for counter, count in zip(LAUNCH_COUNTERS + ROUTE_COUNTERS,
+                                  self.launches + self.route_launches):
             counter.launches += count
         return self.outputs
 
@@ -169,7 +184,7 @@ class StepGraphs:
         graph = torch.cuda.CUDAGraph()
         for state in states:
             graph.register_generator_state(state)
-        counters = LAUNCH_COUNTERS
+        counters = LAUNCH_COUNTERS + ROUTE_COUNTERS
         before = [c.launches for c in counters]
         try:
             # thread_local: the batcher's threads may pin host memory and
@@ -181,4 +196,34 @@ class StepGraphs:
         launches = [c.launches - b for c, b in zip(counters, before)]
         for counter, count in zip(counters, before):
             counter.launches = count
-        return Captured(graph, inputs, outputs, states, launches)
+        kernels = len(LAUNCH_COUNTERS)
+        return Captured(graph, inputs, outputs, states, launches[:kernels],
+                        launches[kernels:])
+
+
+class EventGraph:
+    """One rung's one-event program ``fn(pixels, num_prongs) -> outputs``
+    as one CUDA graph.
+
+    The first call on the card allocates the static inputs (the pixel maps'
+    ``[1+P, C, H, W]`` float32 buffer and the 0-d int32 ``num_prongs``) and
+    copies the event into them, warms ``fn`` up on a side stream (lazy
+    cuBLAS/cuDNN handles, a package's first-call loads) and captures it
+    into a graph with a memory pool of its own; every call copies its
+    event in and replays, and returns copies of the graph's static
+    outputs (the next replay overwrites them).  A failure inside the
+    capture raises; an event of another shape raises (one graph a rung).
+    On the CPU ``fn`` runs uncaptured."""
+
+    def __init__(self, fn: Callable, name: str = "one-event graph"):
+        self.fn = fn
+        self.graphs = StepGraphs(lambda event, states: tuple(
+            fn(event["pixels"], event["num_prongs"])), name)
+
+    def __call__(self, pixels: torch.Tensor, num_prongs: torch.Tensor):
+        if pixels.device.type != "cuda":
+            return list(self.fn(pixels, num_prongs))
+        event = {"pixels": pixels, "num_prongs": num_prongs}
+        captured = self.graphs.get(pixels.device, event)
+        captured.load(event)
+        return [out.clone() for out in captured.replay()]

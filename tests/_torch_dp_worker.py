@@ -1,8 +1,7 @@
 """One rank of the port's data-parallel tests: a process of a ``gloo``
 group on the CPU, started by ``tests/test_torch_port_parallel.py``,
-``tests/test_torch_port_ddp_parity.py``,
-``tests/test_torch_port_compile_loop.py`` and
-``tests/test_torch_port_graph_dp.py``.
+``tests/test_torch_port_ddp_parity.py``, ``tests/test_torch_port_tp.py``
+and ``tests/test_torch_port_graph_dp.py``.
 
     python _torch_dp_worker.py <mode> <rendezvous file> <world size> <rank> \
         <input> <output>
@@ -18,7 +17,7 @@ in-memory training and validation events and ``fit``'s arguments; this
 rank fits an eager and a compiled ``Trainer`` (``compile=True``) and
 writes each one's step metrics and gradients, final state and validation
 result (sharded tensors of a tensor-parallel run gathered whole; also
-started by ``tests/test_torch_port_compile_tp.py``), and the eager fit's
+started by ``tests/test_torch_port_tp.py``), and the eager fit's
 spread under a reordering of each data shard's events (``reordered``).
 
 ``trainer``: the input (``torch.save``) holds ``options`` (a dict), the

@@ -5,8 +5,9 @@
 The network is a tiny dense one (DenseNet [1], one encoder layer, hidden
 32, 32x32 images, ``max_prongs`` 4, float32) carrying seeded JAX weights
 (``from_jax``).  ``export_model`` writes the ladder (2, 4);
-``package_run_dir`` packages every variant at the full capacity and ``pid``
-at rung 2 too, for the CPU, with the bench.
+``package_run_dir`` packages ``embeddings`` and ``combined`` at the full
+capacity, then ``pid`` at both rungs with the bench, for the CPU (each
+package once: four compiles).
 
 * Each variant's package equals the eager ``InferenceGraph`` at
   ``num_prongs`` 0, 3 and 4 within ``rtol=1e-4, atol=1e-5``; the package of
@@ -21,6 +22,12 @@ at rung 2 too, for the CPU, with the bench.
 * It picks rungs as ``export.select_bucket`` does with a cost for every
   eligible rung, with one rung lacking a cost, and for an over-full event,
   as its stderr says.
+* With ``--graph`` it picks rungs by the meta's ``aoti_graph_bucket_ms``
+  when every eligible rung has one, else as without it, as
+  ``select_bucket`` does given those costs (``--dry_run``: the rung only,
+  nothing loaded); ``--graph --device cpu`` exits 2, nothing run.
+* ``load_package(..., graph=True)`` on the CPU runs the package uncaptured,
+  bit-equal to ``load_package``'s, and captures nothing.
 * A broken source makes ``build_loader()`` raise with the compiler's
   output; a missing package, a meta for another device, a short pixel file
   and ``--device cuda`` on a host without CUDA exit non-zero.
@@ -114,8 +121,8 @@ def packaged(tmp_path_factory):
     model = load_jax_variables(TransformerCVN(port_cfg), variables).eval()
     out = root / "export"
     export_model(model, NORM, str(out), prong_buckets=RUNGS[:1], device="cpu")
-    paths = aoti.package_run_dir(None, str(out), variants=VARIANTS, prong_buckets=(P,),
-                                 device="cpu")
+    paths = aoti.package_run_dir(None, str(out), variants=("embeddings", "combined"),
+                                 prong_buckets=(P,), device="cpu")
     paths.update(aoti.package_run_dir(None, str(out), variants=("pid",), prong_buckets=RUNGS,
                                       device="cpu", bench=True))
     pixels = raw_pixels(5)
@@ -137,6 +144,7 @@ def run_loader(packaged, model, num_prongs, *extra, meta=None, expect=0):
         assert proc.returncode == 0, proc.stderr[-3000:]
     else:
         assert proc.returncode != 0, proc.stderr[-3000:]
+        assert expect == 1 or proc.returncode == expect, proc.stderr[-3000:]
     return proc, out_bin
 
 
@@ -250,6 +258,62 @@ def test_loader_picks_rungs_as_select_bucket(packaged, case, tmp_path):
                         f"({prefix}{suffix}.aoti.pt2)"), (case, n, line)
         outputs = read_outputs(out_bin)
         assert outputs[1][1].shape == (want, 8)
+
+
+GRAPH_CASES = {
+    # (aoti_bucket_ms, aoti_graph_bucket_ms)
+    "graph costs for every rung": ({"2": 5.0, "4": 1.0}, {"2": 1.0, "4": 3.0}),
+    "graph costs tie": ({"2": 5.0, "4": 1.0}, {"2": 2.0, "4": 2.0}),
+    "a rung without a graph cost": ({"2": 5.0, "4": 1.0}, {"2": 1.0}),
+    "no graph costs": ({"2": 5.0, "4": 1.0}, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graph_loader_picks_rungs_on_graph_costs(packaged, case, tmp_path):
+    """``--graph`` picks by the captured rungs' costs where every eligible
+    rung has one, else by the uncaptured ones', as ``select_bucket`` given
+    those costs; without ``--graph`` the graph costs are not read.  A card
+    package's meta, ``--dry_run``: the choice alone, nothing loaded."""
+    meta = json.loads((packaged["out"] / "transformercvn_export_meta.json").read_text())
+    eager, graph = GRAPH_CASES[case]
+    meta.update(aoti_platform="cuda", aoti_bucket_ms=eager)
+    if graph is not None:
+        meta["aoti_graph_bucket_ms"] = graph
+    path = tmp_path / "meta.json"
+    path.write_text(json.dumps(meta, indent=2))
+    prefix = packaged["out"] / "transformercvn_pid"
+    for n in (0, 1, 2, 3, 4, 7):
+        eligible = [p for p in RUNGS if p >= n] or [max(RUNGS)]
+        use_graph = graph is not None and all(str(p) in graph for p in eligible)
+        for flags, costs, tag in ((("--graph",), graph if use_graph else eager,
+                                   "graph cost-aware" if use_graph else "cost-aware"),
+                                  ((), eager, "cost-aware")):
+            proc, _ = run_loader(packaged, prefix, n, "--dry_run", *flags, meta=path)
+            want = select_bucket(RUNGS, n, {int(k): v for k, v in costs.items()})
+            suffix = "" if want == P else f"_p{want}"
+            assert proc.stderr.splitlines() == [
+                f"num_prongs {n} -> bucket {want} [{tag} {costs[str(want)]:.3f} ms] "
+                f"({prefix}{suffix}.aoti.pt2)"], (case, n, flags, proc.stderr)
+
+
+def test_graph_loader_needs_the_card(packaged):
+    """``--graph`` on the CPU exits 2 with a message and runs nothing."""
+    proc, _ = run_loader(packaged, packaged["paths"]["pid"], 1, "--device", "cpu",
+                         "--graph", expect=2)
+    assert proc.returncode == 2 and "--graph captures a CUDA graph" in proc.stderr
+    assert "loaded" not in proc.stderr and "wrote" not in proc.stdout
+
+
+def test_graph_package_runs_uncaptured_on_the_cpu(packaged):
+    pixels = torch.from_numpy(packaged["pixels"])
+    count = torch.tensor(3, dtype=torch.int32)
+    graph = aoti.load_package(packaged["paths"]["pid"], graph=True)
+    got = graph(pixels, count)
+    want = aoti.load_package(packaged["paths"]["pid"])(pixels, count)
+    assert len(got) == len(want) == 2 and not graph.graphs.graphs
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_broken_source_raises(tmp_path):

@@ -11,7 +11,7 @@ ops that keep kernels K1 and K2 inside the compiled graphs.
   same seeded batches (``synthetic_file`` at 48x40, 4 events, fixed shape)
   with transplanted weights; tiny widths (DenseNet [1], one encoder layer,
   one prong-decoder layer), float32, dropout 0, pixel noise 0.
-  ``tests/test_torch_port_compile_coo.py`` runs the coo family.
+  ``tests/test_torch_port_coo.py`` runs the coo family's.
 * Compiled against eager, and compiled against JAX: probabilities and the
   metric statistics (each score histogram's cumulative counts within 2: a
   probability within rounding of one of the 64 bin edges may cross it)
@@ -33,8 +33,9 @@ ops that keep kernels K1 and K2 inside the compiled graphs.
   shape that comes again compiles nothing; ``Batcher.shape_bound`` covers
   every shape a shuffled batcher lays out, and a shape past the recompile
   limit ``compile_step`` sets raises.
-* What ``compile=True`` does not take raises: int8 convolutions.  (Remat
-  compiles: ``tests/test_torch_port_remat_compile.py``.)
+* A compiled predict step made outside an int8 context raises inside one
+  (int8 steps compile: ``tests/test_torch_port_quant.py``; remat steps:
+  the end of ``tests/test_torch_port_train.py``).
 
 Inductor compiles its C++ with one worker here
 (``compile_threads = 1``), beside the test workers.
@@ -414,9 +415,11 @@ def test_a_shape_past_the_recompile_limit_raises(monkeypatch):
 
 def test_compile_refuses_what_it_does_not_take():
     """A tensor-parallel step is made (it compiles,
-    ``tests/test_torch_port_compile_tp.py``), and so are remat steps
-    (``tests/test_torch_port_remat_compile.py``); a compiled predict step
-    raises inside an int8 context.  Nothing compiles."""
+    ``tests/test_torch_port_tp.py``), and so are remat steps
+    (``tests/test_torch_port_train.py``) and int8 steps
+    (``tests/test_torch_port_quant.py``); a compiled predict step made
+    outside an int8 context raises inside one, before it compiles: its
+    graph would be traced with float convolutions.  Nothing compiles."""
     cfg = small_configs("dense")[1]
     model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(0))
     opts = step_options(Options, 43.0, 0.0)

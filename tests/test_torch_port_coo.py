@@ -8,6 +8,14 @@ hits off the grid (negative too) inside a CSR range and padding rows past
 forward ``rtol=atol=1e-6`` (``tests/test_ops.py``: the same products summed
 in another order), its gradients ``1e-5``, whole networks ``1e-4`` (the
 network tests' bound).
+
+The coo family's compiled steps: predict, eval and two train steps with
+kernel K2's op (``tcvn::coo_stem_scatter``, its plain version on the CPU)
+and its registered gradient inside the compiled graphs, against the same
+steps run eagerly and against the JAX package's jitted steps; the
+network, data and tolerances are ``tests/test_torch_port_compile.py``'s
+(``check_compiled_steps``, imported at call time: that module imports
+this one through ``test_torch_port_train``).
 """
 
 import dataclasses
@@ -444,3 +452,10 @@ def test_coo_logits_equal_dense_logits(coo_data):
         with torch.no_grad():
             for got, want in zip(coo(b, n), dense(b, n)):
                 np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-3, atol=1e-4)
+
+
+def test_compiled_coo_steps_match_eager_and_jax(synthetic_file, monkeypatch):
+    from test_torch_port_compile import check_compiled_steps
+
+    torch._inductor.config.compile_threads = 1
+    check_compiled_steps(synthetic_file, "coo", monkeypatch)

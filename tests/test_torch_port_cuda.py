@@ -35,7 +35,16 @@ recompute launches K2 again) and with lamb against eager, the compiled
 correction on the card against the CPU's.  On 2 cards, the data-parallel
 graph step over nccl against the eager data-parallel step, and the graph
 Trainer's fit (validations included) and ``predict_split`` against their
-eager runs, bit for bit.
+eager runs, bit for bit.  Serving in one dispatch: each exported rung
+captured as one CUDA graph (``load_exported(..., graph=True)``) against its
+program, and each package captured (``load_package(..., graph=True)``)
+against the package, bit for bit, on events other than the one captured;
+the meta's ``graph_bucket_ms`` and ``aoti_graph_bucket_ms``; the C++
+loader's ``--graph`` (rung picked on the graph costs) against the package.
+int8 in one dispatch: ``predict_split(graph=True)`` inside the context
+against the eager int8 pass bit for bit, the ``_int_mm`` route's launches
+counted per replay and K1 twice a batch; the compiled int8 step within
+1e-3 (and the same argmax) of eager int8.
 """
 
 import json
@@ -538,9 +547,9 @@ def test_int_mm_route_equals_plain_route(cuda, shape):
     gen = torch.Generator().manual_seed(sum(shape))
     qx = torch.randint(-127, 128, (n, h, w, cin), generator=gen, dtype=torch.int8)
     qw = torch.randint(-127, 128, (cout, cin, k, k), generator=gen, dtype=torch.int8)
-    before = quant.conv_int32_cuda.calls
+    before = quant.conv_int32_cuda.launches
     got = quant.conv_int32_cuda(qx.to(cuda), qw.to(cuda), stride, padding)
-    assert quant.conv_int32_cuda.calls == before + 1
+    assert quant.conv_int32_cuda.launches == before + 1
     want = quant.conv_int32_plain(qx, qw, stride, padding)
     assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
 
@@ -661,26 +670,93 @@ def test_lamb_step_on_the_card_matches_the_cpu(cuda):
         torch.testing.assert_close(results[1][name], want, rtol=1e-6, atol=1e-7)
 
 
-def test_aoti_package_and_loader_on_the_card(cuda, tmp_path):
-    from dune_transformercvn_torch.aoti import load_package, package_run_dir
-    from dune_transformercvn_torch.export import (build_inference_fn, export_model,
-                                                  select_bucket, with_max_prongs)
-    from dune_transformercvn_torch.utils.build import build_loader
+SERVING_NORM = {"mean": np.zeros(6, np.float32), "std": np.ones(6, np.float32),
+                "extra_mean": np.float32(0.0), "extra_std": np.float32(1.0)}
 
+
+@pytest.fixture(scope="module")
+def card_packages(tmp_path_factory):
+    """The tiny serving model on the card, its programs exported at the
+    ladder (4, 20) with the bench, and their pid packages with theirs."""
+    from dune_transformercvn_torch.aoti import package_run_dir
+    from dune_transformercvn_torch.export import export_model
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs CUDA")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = tiny_serving_model().to(cuda)
-    norm = {"mean": np.zeros(6, np.float32), "std": np.ones(6, np.float32),
-            "extra_mean": np.float32(0.0), "extra_std": np.float32(1.0)}
-    export_model(model, norm, str(tmp_path), prong_buckets=(4,))
-    paths = package_run_dir(None, str(tmp_path), variants=("pid",), device="cuda", bench=True)
-    meta_path = tmp_path / "transformercvn_export_meta.json"
+    out = tmp_path_factory.mktemp("card_packages")
+    model = tiny_serving_model().to("cuda")
+    programs = export_model(model, SERVING_NORM, str(out), prong_buckets=(4,),
+                            bench_buckets=True)
+    packages = package_run_dir(None, str(out), variants=("pid",), device="cuda", bench=True)
+    return model, out, programs, packages
+
+
+def serving_events(count, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [((torch.rand(21, 3, 32, 32, generator=gen) < 0.05) * 200.0) for _ in range(count)]
+
+
+def test_captured_rungs_equal_their_programs(cuda, card_packages):
+    """Each exported rung captured as one CUDA graph against its program,
+    bit for bit, on events other than the one it was captured with; the
+    meta has both rungs' eager and captured costs."""
+    from dune_transformercvn_torch.export import load_exported
+
+    _, out, programs, _ = card_packages
+    meta = json.loads((out / "transformercvn_export_meta.json").read_text())
+    assert sorted(meta["bucket_ms"]) == sorted(meta["graph_bucket_ms"]) == ["20", "4"]
+    assert all(v > 0 for v in meta["graph_bucket_ms"].values())
+    for key in ("pid", "pid_p4", "combined_p4"):
+        capacity = 4 if key.endswith("_p4") else 20
+        eager, graph = load_exported(programs[key]), load_exported(programs[key], graph=True)
+        for i, pixels in enumerate(serving_events(3, 7)):
+            rows = pixels[:1 + capacity].to(cuda)
+            n = torch.tensor(min(3 + i, capacity), dtype=torch.int32, device=cuda)
+            got, want = graph(rows, n), eager(rows, n)
+            assert len(got) == len(want) and len(graph.graphs.graphs) == 1
+            for g, w in zip(got, want):
+                assert g.device.type == "cuda" and torch.equal(g, w), (key, i)
+
+
+def test_captured_package_equals_the_package(cuda, card_packages):
+    """Each pid package captured as one CUDA graph (loaded single-threaded,
+    launching on the capturing stream) against the package run uncaptured,
+    bit for bit, on events other than the captured one."""
+    from dune_transformercvn_torch.aoti import load_package
+
+    _, out, _, packages = card_packages
+    meta = json.loads((out / "transformercvn_export_meta.json").read_text())
+    assert sorted(meta["aoti_graph_bucket_ms"]) == ["20", "4"]
+    for key, capacity in (("pid", 20), ("pid_p4", 4)):
+        package = load_package(packages[key])
+        graph = load_package(packages[key], graph=True)
+        for i, pixels in enumerate(serving_events(3, 8)):
+            rows = pixels[:1 + capacity].to(cuda)
+            n = torch.tensor(min(2 + i, capacity), dtype=torch.int32, device=cuda)
+            got, want = graph(rows, n), package(rows, n)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (key, i)
+        assert len(graph.graphs.graphs) == 1
+
+
+def test_aoti_package_and_loader_on_the_card(cuda, card_packages, tmp_path):
+    from dune_transformercvn_torch.aoti import load_package
+    from dune_transformercvn_torch.export import (build_inference_fn, select_bucket,
+                                                  with_max_prongs)
+    from dune_transformercvn_torch.utils.build import build_loader
+
+    model, out, _, paths = card_packages
+    norm = SERVING_NORM
+    meta_path = out / "transformercvn_export_meta.json"
     meta = json.loads(meta_path.read_text())
     assert meta["aoti_platform"] == "cuda" and sorted(meta["aoti_bucket_ms"]) == ["20", "4"]
     gen = torch.Generator().manual_seed(4)
     pixels = ((torch.rand(21, 3, 32, 32, generator=gen) < 0.05) * 200.0)
     pixels.numpy().tofile(tmp_path / "pixels.bin")
     costs = {int(k): v for k, v in meta["aoti_bucket_ms"].items()}
+    graph_costs = {int(k): v for k, v in meta["aoti_graph_bucket_ms"].items()}
     loader = build_loader()
     for n in (3, 17):
         rung = select_bucket((4, 20), n, costs)
@@ -693,19 +769,38 @@ def test_aoti_package_and_loader_on_the_card(cuda, tmp_path):
             assert g.device.type == "cuda"
             torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
         proc = subprocess.run(
-            [str(loader), str(tmp_path / "transformercvn_pid"), str(meta_path),
+            [str(loader), str(out / "transformercvn_pid"), str(meta_path),
              str(tmp_path / "pixels.bin"), str(n), str(tmp_path / "out.bin")],
             capture_output=True, text=True, timeout=300)
         assert proc.returncode == 0, proc.stderr[-3000:]
         assert f"num_prongs {n} -> bucket {rung} [cost-aware" in proc.stderr
-        with open(tmp_path / "out.bin", "rb") as f:
-            assert struct.unpack("<I", f.read(4)) == (2,)
-            for g in package:
-                (rank,) = struct.unpack("<I", f.read(4))
-                dims = struct.unpack(f"<{rank}q", f.read(8 * rank))
-                assert dims == tuple(g.shape) and struct.unpack("<I", f.read(4)) == (11,)
-                got = np.frombuffer(f.read(4 * g.numel()), "<f4").reshape(dims)
-                np.testing.assert_allclose(got, g.cpu().numpy(), rtol=0.0, atol=1e-6)
+        read_loader_output(tmp_path / "out.bin", package)
+        # --graph: the rung the graph costs pick, its package captured and
+        # replayed; the outputs those of the package run uncaptured
+        graph_rung = select_bucket((4, 20), n, graph_costs)
+        rows = pixels[:1 + graph_rung].to(cuda)
+        package = load_package(paths["pid" if graph_rung == 20 else f"pid_p{graph_rung}"])(
+            rows, count)
+        proc = subprocess.run(
+            [str(loader), str(out / "transformercvn_pid"), str(meta_path),
+             str(tmp_path / "pixels.bin"), str(n), str(tmp_path / "out_graph.bin"),
+             "--graph", "--repeat", "3"], capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert f"num_prongs {n} -> bucket {graph_rung} [graph cost-aware" in proc.stderr
+        assert "captured in" in proc.stderr and "replays after the first" in proc.stderr
+        read_loader_output(tmp_path / "out_graph.bin", package)
+
+
+def read_loader_output(path, package):
+    """The loader's out.bin against the package's outputs (within 1e-6)."""
+    with open(path, "rb") as f:
+        assert struct.unpack("<I", f.read(4)) == (2,)
+        for g in package:
+            (rank,) = struct.unpack("<I", f.read(4))
+            dims = struct.unpack(f"<{rank}q", f.read(8 * rank))
+            assert dims == tuple(g.shape) and struct.unpack("<I", f.read(4)) == (11,)
+            got = np.frombuffer(f.read(4 * g.numel()), "<f4").reshape(dims)
+            np.testing.assert_allclose(got, g.cpu().numpy(), rtol=0.0, atol=1e-6)
 
 
 TP_RANK = """
@@ -1007,6 +1102,62 @@ def test_compiled_steps_on_the_card_match_eager(cuda, embedder):
         metrics.append(make_train_step(model, options, compile=compile)(state, batch))
     for key in ("train_loss", "grad_norm"):
         torch.testing.assert_close(metrics[1][key], metrics[0][key], rtol=1e-4, atol=1e-4)
+
+
+def int8_setup(cuda):
+    """The tiny dense network on the card, its int8 scales calibrated on
+    two of its batches, and the number of convolutions they quantize."""
+    from dune_transformercvn_torch.ops import quant
+
+    cfg, ds, batches, _ = graph_setup(cuda, "dense", 0.0, 0.0)
+    model = TransformerCVN(cfg, generator=torch.Generator().manual_seed(0)).to(cuda).eval()
+    scales = quant.calibrate_activation_scales(model, batches[:2], ds.norm())
+    assert len(scales) == sum(isinstance(m, torch.nn.Conv2d) for m in model.modules())
+    return model, ds, scales
+
+
+def test_int8_graph_predict_equals_eager(cuda):
+    """``predict_split(graph=True)`` inside the int8 context against the
+    eager int8 pass, bit for bit: the ``_int_mm`` route's GEMMs replayed,
+    its counter one a quantized conv a batch (the warm-up's forward, then a
+    replay a batch), K1 twice a batch."""
+    from dune_transformercvn_torch.ops import quant
+    from dune_transformercvn_torch.predict import predict_split
+
+    model, ds, scales = int8_setup(cuda)
+    with quant.quantized_convs(model, scales):
+        want = predict_split(model, ds, ds.norm(), 4, cuda, fixed_shape=True)
+        before = (quant.conv_int32_cuda.launches, k1.densify_images_cuda.launches)
+        got = predict_split(model, ds, ds.norm(), 4, cuda, fixed_shape=True, graph=True)
+        again = predict_split(model, ds, ds.norm(), 4, cuda, fixed_shape=True, graph=True)
+    batches = len(ds) // 4
+    assert quant.conv_int32_cuda.launches - before[0] == len(scales) * (1 + 2 * batches)
+    assert k1.densify_images_cuda.launches - before[1] == 2 * (1 + 2 * batches)
+    floats = predict_split(model, ds, ds.norm(), 4, cuda, fixed_shape=True, graph=True)
+    assert not np.array_equal(floats["event_probabilities"], want["event_probabilities"])
+    for key, value in want.items():
+        np.testing.assert_array_equal(got[key], value, err_msg=key)
+        np.testing.assert_array_equal(again[key], value, err_msg=key)
+
+
+def test_compiled_int8_predict_on_the_card(cuda):
+    """``predict_split(compile=True)`` inside the int8 context against the
+    eager int8 pass: probabilities within 1e-3 and the same argmax (the
+    bound of the CPU tests against JAX); the ``_int_mm`` route launched by
+    the compiled graph once a quantized conv a batch."""
+    from dune_transformercvn_torch.ops import quant
+    from dune_transformercvn_torch.predict import predict_split
+
+    model, ds, scales = int8_setup(cuda)
+    with quant.quantized_convs(model, scales):
+        want = predict_split(model, ds, ds.norm(), 4, cuda, fixed_shape=True)
+        predict_split(model, ds, ds.norm(), 4, cuda, fixed_shape=True, compile=True)
+        before = quant.conv_int32_cuda.launches
+        got = predict_split(model, ds, ds.norm(), 4, cuda, fixed_shape=True, compile=True)
+    assert quant.conv_int32_cuda.launches - before == len(scales) * (len(ds) // 4)
+    for key in ("event_probabilities", "prong_probabilities"):
+        np.testing.assert_allclose(got[key], want[key], atol=1e-3, err_msg=key)
+        np.testing.assert_array_equal(got[key].argmax(-1), want[key].argmax(-1))
 
 
 def graph_setup(cuda, embedder="dense", dropout=0.1, noise=0.01):

@@ -14,7 +14,9 @@
   ladder's 12 cost ~40 s more on a CPU): each loads and equals the eager graph
   of the restored model (atol 1e-6), a rung equals the full graph on its
   first ``num_prongs`` rows, and the meta has JAX's keys, and JAX's values
-  where they do not depend on the model;
+  where they do not depend on the model (no ``graph_bucket_ms`` on the
+  CPU, where ``load_exported(..., graph=True)`` runs the program
+  uncaptured, bit-equal to ``load_exported``'s);
 * the pid artifact round-trips for every other family;
 * without CUDA, ``export_model`` with no device raises; a model on another
   device than the one asked for raises; a model in train mode is in train
@@ -211,6 +213,23 @@ def test_artifacts_round_trip(cli_export):
         for rung, full in zip(outputs[4], outputs[P]):   # the first 3 rows agree
             rows = slice(None) if full.ndim == 1 else slice(0, 3)
             torch.testing.assert_close(rung[rows], full[rows], rtol=0.0, atol=1e-5)
+
+
+def test_graph_loader_runs_uncaptured_on_the_cpu(cli_export):
+    """``load_exported(..., graph=True)`` on the CPU: the program uncaptured,
+    bit-equal to ``load_exported``'s; the CPU meta has no graph costs."""
+    export_dir, _, model, _ = cli_export
+    cfg = model.cfg
+    pixels = torch.from_numpy((np.random.default_rng(6).uniform(
+        size=(1 + P, 3, cfg.image_height, cfg.image_width)) < 0.02).astype(np.float32) * 90)
+    n = torch.tensor(2, dtype=torch.int32)
+    path = str(export_dir / "transformercvn_pid.pt2")
+    graph = load_exported(path, graph=True)
+    for g, w in zip(graph(pixels, n), load_exported(path)(pixels, n)):
+        assert torch.equal(g, w)
+    assert not graph.graphs.graphs
+    meta = json.loads((export_dir / "transformercvn_export_meta.json").read_text())
+    assert "bucket_ms" in meta and "graph_bucket_ms" not in meta
 
 
 def test_meta_matches_jax(cli_export, tmp_path):

@@ -23,12 +23,18 @@ the CPU, where the same step bodies run without a capture.
   ``predict_split(graph=True)`` against eager, bit for bit.
 * What ``graph=True`` does not take raises: a multi-rank mesh on CUDA
   tensors whose backend is not nccl (gloo, or no group), int8 convolutions
-  (a multi-rank mesh's train step too), K > 1 without a graph, batches not
+  in a train step (one rank or a multi-rank mesh; JAX quantizes inference
+  only), a predict or eval graph step inside an int8 context it was not
+  made in (one made inside runs the int8 convolutions), K > 1 without a graph, batches not
   stacked K deep, a state without the graph-safe optimizer, CUDA without a
   card, a batch shape past the bound; a multi-rank mesh over nccl, and on
   the CPU, does not raise.  (Remat and the optax chains:
   ``tests/test_torch_port_graph_chains.py``; data- and tensor-parallel
   graph steps in gloo processes: ``tests/test_torch_port_graph_dp.py``.)
+* The one-event graph (``utils.graphs.EventGraph``) runs its program
+  uncaptured on the CPU; on the card it captures one graph (its own pool)
+  and returns copies of the replay's outputs, and an event of another
+  shape raises.
 """
 
 import copy
@@ -54,7 +60,7 @@ from dune_transformercvn_torch.train import (create_optimizer, create_train_stat
 from dune_transformercvn_torch.train.optimizer import (GraphAdamW, clip_by_global_norm_,
                                                        global_norm)
 from dune_transformercvn_torch.train.step import check_graphable
-from dune_transformercvn_torch.utils.graphs import StepGraphs
+from dune_transformercvn_torch.utils.graphs import EventGraph, StepGraphs
 from test_torch_port_optimizers import (ADAMW_TOL, PARAM_TOL, STEPS_PER_EPOCH as OPT_EPOCH,
                                         assert_params_close, jax_run, network, optimizer_step,
                                         options, port_grads, steps)
@@ -229,10 +235,12 @@ def test_what_graph_does_not_take_raises(synthetic_file, monkeypatch):
     _, port_cfg = family_config("dense")
     model = TransformerCVN(port_cfg, generator=torch.Generator().manual_seed(5))
     opts = step_options(Options, 0.5, 0.0)
-    # a group's train step under int8 convolutions
+    # a train step under int8 convolutions (JAX quantizes inference only)
     with quant.quantized_convs(model, {n: 1.0 for n in quant._convs(model)}, device="cpu"):
         with pytest.raises(RuntimeError, match="int8"):
             make_train_step(model, opts, Mesh(2, 1, 0), graph=True)
+        with pytest.raises(RuntimeError, match="int8"):
+            make_train_step(model, opts, graph=True)
     # several ranks on CUDA tensors need nccl: not gloo (every rank on one
     # card, its collectives staged on the host), not a mesh without a group
     monkeypatch.setattr(step_module, "group_backend", lambda: "gloo")
@@ -254,10 +262,23 @@ def test_what_graph_does_not_take_raises(synthetic_file, monkeypatch):
     with pytest.raises(ValueError, match="graph-safe AdamW"):
         step(create_train_state(model, opts, norm, STEPS_PER_EPOCH),
              stacked([to_device(batch, "cpu")] * 2))
+    # the predict and eval graph steps take int8, each in the context it
+    # was made in: a step of float convs raises inside one
     predict = make_predict_step(model, graph=True)
+    evaluate = make_eval_step(model, opts, graph=True)
+    state = create_train_state(model, opts, norm, STEPS_PER_EPOCH)
     with quant.quantized_convs(model, {n: 1.0 for n in quant._convs(model)}, device="cpu"):
         with pytest.raises(RuntimeError, match="int8"):
             predict(to_device(batch, "cpu"), to_device(norm, "cpu"))
+        with pytest.raises(RuntimeError, match="int8"):
+            evaluate(state, to_device(batch, "cpu"), init_metric_state(4, 8, 64))
+        int8 = make_predict_step(model, graph=True)(to_device(batch, "cpu"),
+                                                    to_device(norm, "cpu"))
+        int8_eval = make_eval_step(model, opts, graph=True)(
+            state, to_device(batch, "cpu"), init_metric_state(4, 8, 64))
+    floats = predict(to_device(batch, "cpu"), to_device(norm, "cpu"))
+    assert not torch.equal(int8[0], floats[0])
+    assert all(torch.isfinite(v).all() for v in int8_eval.values())
 
 
 def test_graphs_need_a_card_and_keep_their_bound(monkeypatch):
@@ -275,6 +296,61 @@ def test_graphs_need_a_card_and_keep_their_bound(monkeypatch):
     graphs.get("cuda", {"x": torch.zeros(4)})
     with pytest.raises(RuntimeError, match="past the 2 graph"):
         graphs.get("cuda", {"x": torch.zeros(5)})
+
+
+class FakeCaptured:
+    """A captured graph's stand-in: ``replay`` writes the static output."""
+
+    def __init__(self, fn, trees):
+        self.inputs = tuple({k: v.clone() for k, v in tree.items()} for tree in trees)
+        self.fn, self.out = fn, None
+
+    def load(self, *trees):
+        for static, tree in zip(self.inputs, trees):
+            for name, value in tree.items():
+                static[name].copy_(value)
+
+    def replay(self):
+        event = self.inputs[0]
+        self.out = [o.clone() for o in self.fn(event["pixels"], event["num_prongs"])]
+        return self.out
+
+
+def test_event_graph_serves_one_rung(monkeypatch):
+    """On the CPU the program runs uncaptured; on the card one graph is
+    captured for the rung, every call loads the event and replays, and the
+    outputs returned are copies of the static ones; another shape raises."""
+    calls = []
+
+    def program(pixels, num_prongs):
+        calls.append(pixels.shape)
+        return pixels.sum((1, 2, 3)) * num_prongs, pixels[0].mean()
+
+    graph = EventGraph(program, "rung 4")
+    pixels, n = torch.rand(5, 3, 4, 4), torch.tensor(3, dtype=torch.int32)
+    got = graph(pixels, n)
+    assert torch.equal(got[0], pixels.sum((1, 2, 3)) * 3) and not graph.graphs.graphs
+    with pytest.raises((RuntimeError, AssertionError), match="CUDA|NVIDIA|compiled"):
+        graph.graphs.get("cuda", {"pixels": pixels, "num_prongs": n})
+    captured = []
+    monkeypatch.setattr(StepGraphs, "_capture", lambda self, device, trees: captured.append(
+        FakeCaptured(program, trees)) or captured[-1])
+    cuda = torch.device("cuda")
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda t: cuda))
+    first = graph(pixels, n)
+    second = graph(pixels * 2, torch.tensor(1, dtype=torch.int32))
+    monkeypatch.undo()
+    assert len(captured) == 1
+    assert torch.equal(second[0], (pixels * 2).sum((1, 2, 3)))
+    assert torch.equal(first[0], pixels.sum((1, 2, 3)) * 3)    # a copy, not overwritten
+    assert all(o is not s for o, s in zip(second, captured[0].out))
+    monkeypatch.setattr(StepGraphs, "_capture", lambda self, device, trees: captured[0])
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda t: cuda))
+    try:
+        with pytest.raises(RuntimeError, match="past the 1 graph"):
+            graph(torch.rand(3, 3, 4, 4), n)
+    finally:
+        monkeypatch.undo()
 
 
 def test_the_predict_graphs_stay_with_their_model(synthetic_file):

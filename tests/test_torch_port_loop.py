@@ -8,6 +8,17 @@ is bit-equal, and 3 steps + checkpoint + resume + 3 steps equal 6 steps
 bit for bit with dropout and pixel noise on.  The ``train`` and
 ``evaluate`` CLIs run end to end on the CPU.  Everything is tiny
 (48x40 images, DenseNet [1, 1]) and on the CPU (``device="cpu"``).
+
+The compiled ``Trainer`` (``compile=True``) at this file's tiny width
+with DenseNet [1] and one prong-decoder layer (``SMALL``): with dropout
+and pixel noise on, a compiled run checkpointed at step 2 and resumed in a
+fresh compiled ``Trainer`` ends equal, bit for bit, to the uninterrupted
+compiled run (compiled dropout draws Inductor's Philox offsets from the
+generator the step seeds from the state); ``train --compile`` and
+``evaluate --compile`` reach the ``Trainer``.  Inductor compiles its C++
+with one worker (``compile_threads = 1``).  The compiled data- and
+tensor-parallel steps: ``tests/test_torch_port_ddp_parity.py`` and
+``tests/test_torch_port_tp.py``.
 """
 
 import json
@@ -36,6 +47,7 @@ from dune_transformercvn_tpu.utils import rundir as jax_rundir
 from dune_transformercvn_torch import Options, evaluation
 from dune_transformercvn_torch.data import InMemoryEvents
 from dune_transformercvn_torch.data.schema import make_synthetic_file
+from dune_transformercvn_torch.evaluate import main as evaluate_main
 from dune_transformercvn_torch.models import ModelConfig, TransformerCVN
 from dune_transformercvn_torch.predict import predict_split
 from dune_transformercvn_torch.train import CheckpointManager, Trainer
@@ -48,6 +60,10 @@ from dune_transformercvn_torch.utils import rundir
 from dune_transformercvn_torch.utils.summary import param_count, summarize_params
 
 torch.set_num_threads(2)
+torch._inductor.config.compile_threads = 1
+
+# the compiled tests' network: DenseNet [1], one prong-decoder layer
+SMALL = dict(densenet_structure=[1], num_prong_decoder_layers=1)
 
 REPO = Path(__file__).resolve().parents[1]
 H, W = 48, 40
@@ -525,3 +541,39 @@ def test_checkpoint_flag_resumes_into_a_new_run(cli_run, monkeypatch):
 def test_xla_only_flags_exit(tmp_path, flag):
     out = run_cli("train", flag, "--device", "cpu", cwd=tmp_path, expect=1)
     assert "no counterpart" in out
+
+
+def compiled_trainer(run_dir, **overrides):
+    datasets = (InMemoryEvents(16, 1, (H, W)), InMemoryEvents(8, 2, (H, W)), None)
+    return Trainer(tiny_options(**SMALL, **overrides), run_dir=str(run_dir), device="cpu",
+                   datasets=datasets, log_every_n_steps=1, compile=True)
+
+
+def test_compiled_trainer_resumes_bit_for_bit(tmp_path):
+    noisy = dict(dropout=0.1, pixel_noise_std=0.05)
+    whole = compiled_trainer(tmp_path / "whole", **noisy)
+    whole.fit(max_steps=4, eval_interval=2)
+    resumed = compiled_trainer(tmp_path / "resumed", **noisy)
+    resumed.resume(str(tmp_path / "whole" / "checkpoints" / "step_2"))
+    assert resumed.state.step == 2
+    resumed.fit(max_steps=4, eval_interval=2)
+    assert_same_state(resumed.state.state_dict(), whole.state.state_dict())
+
+
+def test_the_clis_take_compile(monkeypatch):
+    """``--compile`` reaches the Trainer (the runs are the tests above)."""
+    assert train_parser().parse_args(["--compile"]).compile
+    assert not train_parser().parse_args([]).compile
+    seen = {}
+
+    def evaluate_run(*args, **kwargs):
+        seen.update(kwargs)
+        raise SystemExit(0)
+
+    monkeypatch.setattr("dune_transformercvn_torch.evaluate.evaluate_run", evaluate_run)
+    for argv, want in ((["run", "--compile"], True), (["run"], False)):
+        try:
+            evaluate_main(argv)
+        except SystemExit:
+            pass
+        assert seen.pop("compile") is want

@@ -20,7 +20,19 @@ the integer grid; the card's ``torch._int_mm`` route is held to it in
   through; without CUDA, ``quantized_convs`` with no device raises;
 * folding and int8 compose: ``predict_split(fold_eval_bn=True)`` inside the
   context quantizes the folded copy it makes, bit-equal to quantizing a
-  model folded beforehand, and a copy the context was not told of raises.
+  model folded beforehand, and a copy the context was not told of raises;
+* int8 in one dispatch a batch: ``predict_split`` inside the context with
+  ``compile=True`` (Inductor, one graph: static batch shapes) and with
+  ``graph=True`` (uncaptured on the CPU) against JAX's jitted int8 predict
+  (``quantized_convs`` inside ``jax.jit``, as ``tools/int8_drift.py`` runs
+  it) on the same batches, within the bound of the eager comparison above
+  (atol 1e-3, the same argmax); the compiled against the eager int8 step
+  within the same bound, the graph body equal to it;
+* no stale step: the graph predict step kept on a model is keyed on
+  ``(compile, quant.current())``, so one made with float convs is replaced
+  inside a context and the reverse; a compiled or graph step made in one
+  context raises in another before it runs anything;
+* ``torch.library.opcheck`` on ``tcvn::int8_conv`` with CPU tensors.
 """
 
 import copy
@@ -38,16 +50,20 @@ from dune_transformercvn_tpu.ops.quant import int8_conv as jax_int8_conv
 from dune_transformercvn_tpu.ops.quant import quantize_weight as jax_quantize_weight
 from dune_transformercvn_tpu.ops.quant import quantized_convs as jax_quantized_convs
 from dune_transformercvn_torch.from_jax import load_jax_variables, map_jax_variables
+from dune_transformercvn_torch.data import Batcher
 from dune_transformercvn_torch.models import TransformerCVN
 from dune_transformercvn_torch.models.densenet import conv_nhwc
+from dune_transformercvn_torch.ops import quant
 from dune_transformercvn_torch.ops.quant import (calibrate_activation_scales, int8_conv,
                                                  quantize_weight, quantized_convs)
 from dune_transformercvn_torch.ops.fold import fold_eval_batchnorm
-from dune_transformercvn_torch.predict import predict_split, to_device
+from dune_transformercvn_torch.predict import (graph_predict_step, make_predict_step,
+                                               predict_split, to_device)
 from _torch_families import batches_and_norm, family_configs  # same-dir helpers
 from test_torch_port_network import data, random_variables, tiny_config  # noqa: F401
 
 torch.set_num_threads(2)
+torch._inductor.config.compile_threads = 1
 
 CONV_TOL = dict(rtol=1e-5, atol=1e-5)
 SCALE_TOL = dict(rtol=1e-4, atol=0.0)
@@ -144,16 +160,22 @@ def forward_probs(model, batch, norm):
     return torch.softmax(ev, -1).numpy(), torch.softmax(pr, -1).numpy()
 
 
-def test_quantized_predict_matches_jax(dense):
-    jax_model, variables, model, jb, jn, batch, norm, want, _, names = dense
+def jax_int8_predict(jax_model, scales):
+    """JAX's int8 predict: the context inside ``jax.jit``
+    (``tools/int8_drift.py``)."""
 
     @jax.jit
     def predict_q(v, b, n):
-        with jax_quantized_convs(v["params"], want):
+        with jax_quantized_convs(v["params"], scales):
             ev, pr = jax_model.apply(v, b, n, train=False)
         return jax.nn.softmax(ev, -1), jax.nn.softmax(pr, -1)
 
-    jax_ev, jax_pr = jax.device_get(predict_q(variables, jb, jn))
+    return predict_q
+
+
+def test_quantized_predict_matches_jax(dense):
+    jax_model, variables, model, jb, jn, batch, norm, want, _, names = dense
+    jax_ev, jax_pr = jax.device_get(jax_int8_predict(jax_model, want)(variables, jb, jn))
     with quantized_convs(model, {names[k]: v for k, v in want.items()}, device="cpu"):
         ev, pr = forward_probs(model, batch, norm)
     real = batch["prong_mask"]
@@ -232,3 +254,101 @@ def test_fold_and_int8_compose(dense, data):
     # the int8 route ran on the folded copy
     assert not np.array_equal(out["event_probabilities"],
                               predict(model, True)["event_probabilities"])
+
+
+def assert_int8_close(got, want, what):
+    """Probabilities within 1e-3 and the same argmax (the eager int8
+    comparison's bound, ``test_quantized_predict_matches_jax``)."""
+    for key in ("event_probabilities", "prong_probabilities"):
+        np.testing.assert_allclose(got[key], want[key], atol=1e-3, err_msg=(what, key))
+        np.testing.assert_array_equal(got[key].argmax(-1), want[key].argmax(-1),
+                                      err_msg=(what, key))
+
+
+def jax_predict_split(jax_model, variables, scales, dataset, norm, batch_size):
+    """JAX's jitted int8 predict over the batches ``predict_split`` lays out
+    (static shapes), trimmed and masked as it trims and masks them."""
+    predict_q = jax_int8_predict(jax_model, scales)
+    jn = {k: jnp.asarray(v) for k, v in norm.items()}
+    batcher = Batcher(dataset, batch_size=batch_size, coo_granularity=8192,
+                      drop_last=False, fixed_shape=True)
+    events, prongs, seen = [], [], 0
+    for batch in batcher.epoch(0):
+        ev, pr = jax.device_get(predict_q(variables, {k: jnp.asarray(v) for k, v in
+                                                      batch.items()}, jn))
+        take = min(batch_size, len(dataset) - seen)
+        events.append(ev[:take])
+        prongs.append(pr[:take][batch["prong_targets"][:take] >= 0])
+        seen += take
+    return {"event_probabilities": np.concatenate(events),
+            "prong_probabilities": np.concatenate(prongs)}
+
+
+def test_int8_in_one_dispatch_matches_jax(dense, data):
+    """``predict_split`` inside the int8 context with ``compile=True`` (one
+    Inductor graph, the int8 product ``tcvn::int8_conv`` inside it) and with
+    ``graph=True`` (the graph body, uncaptured on the CPU) against JAX's
+    jitted int8 predict, and against the eager int8 step."""
+    jax_model, variables, model, *_, norm, want, _, names = dense
+    dataset = data[0]
+    scales = {names[k]: v for k, v in want.items()}
+    run = {}
+    with quantized_convs(model, scales, device="cpu"):
+        for mode in ("eager", "compile", "graph"):
+            run[mode] = predict_split(model, dataset, norm, 4, "cpu", fixed_shape=True,
+                                      compile=mode == "compile", graph=mode == "graph")
+    jax_run = jax_predict_split(jax_model, variables, want, dataset, norm, 4)
+    for mode, out in run.items():
+        assert_int8_close(out, jax_run, mode)
+    assert_int8_close(run["compile"], run["eager"], "compiled against eager")
+    for key, value in run["eager"].items():
+        np.testing.assert_array_equal(run["graph"][key], value, err_msg=key)
+    # the int8 route ran: the float predictions differ
+    floats = predict_split(model, dataset, norm, 4, "cpu", fixed_shape=True)
+    assert not np.array_equal(floats["event_probabilities"],
+                              run["eager"]["event_probabilities"])
+
+
+def test_no_step_runs_in_another_context(dense):
+    """The graph predict steps kept on a model are keyed on the context:
+    inside a context a float step is not used, outside it an int8 step is
+    not, nor one context's step in another's (other scales); entering
+    again with the same scales is the same context, whose step is kept; a
+    compiled or graph step made in one context raises in another before it
+    runs (nothing compiles here)."""
+    *_, model, _, _, batch, norm, _, got, _ = dense
+    floats = graph_predict_step(model, False, 1)
+    assert floats.key == (False, None)
+    assert graph_predict_step(model, False, 1) is floats
+    doubled = {k: 2 * v for k, v in got.items()}
+    with quantized_convs(model, got, device="cpu"):
+        context = quant.current()
+        int8 = graph_predict_step(model, False, 1)
+        assert int8 is not floats and int8.key == (False, context)
+        assert graph_predict_step(model, False, 1) is int8
+        with pytest.raises(RuntimeError, match="made outside an int8 context"):
+            floats(to_device(batch, "cpu"), to_device(norm, "cpu"))
+        compiled = make_predict_step(model, compile=True)
+        with quantized_convs(model, doubled, device="cpu"):
+            other = graph_predict_step(model, False, 1)
+            assert other.key == (False, quant.current()) and quant.current() is not context
+            with pytest.raises(RuntimeError, match="inside another"):
+                compiled(to_device(batch, "cpu"), to_device(norm, "cpu"))
+    assert quant.current() is None
+    with pytest.raises(RuntimeError, match="called outside it"):
+        int8(to_device(batch, "cpu"), to_device(norm, "cpu"))
+    assert graph_predict_step(model, False, 1) is floats
+    with quantized_convs(model, dict(got), device="cpu"):
+        assert quant.current() is context
+        # the other context's step went when this one's came back
+        assert graph_predict_step(model, False, 1) is not int8
+
+
+def test_int8_conv_op_passes_opcheck():
+    rng = np.random.default_rng(3)
+    qx = torch.from_numpy(rng.integers(-127, 128, (2, 9, 7, 5)).astype(np.int8))
+    qw = torch.from_numpy(rng.integers(-127, 128, (6, 5, 3, 3)).astype(np.int8))
+    torch.library.opcheck(quant.int8_conv_op, (qx, qw, [2, 1], [1, 0]))
+    out = quant.int8_conv_op(qx, qw, [2, 1], [1, 0])
+    assert out.dtype == torch.int32 and out.shape == (2, 5, 5, 6)
+    assert torch.equal(out, quant.conv_int32_plain(qx, qw, (2, 1), (1, 0)))

@@ -48,6 +48,26 @@ packed q/k/v projection shards too), float32, dropout 0, pixel noise 0.
 * ``steps_per_dispatch`` 2 equals single steps; an mp above the world
   clamps, mp 3 on 4 ranks raises; the pure rules (``mesh_shape``,
   ``channel_sharded``, ``tp_rows_process_local``) match JAX's.
+
+The compiled tensor-parallel step: two ``gloo`` ranks at dp1 x mp2
+(``tests/_torch_dp_worker.py``, mode ``compiled``) each fit an eager and a
+compiled ``Trainer`` (``compile=True``, ``model_parallel=2``) at
+``test_torch_port_loop.SMALL``'s width with 2 attention heads (a head of
+16, so the packed q/k/v is sharded too).  The partitioned layers'
+collectives (the row's sums forward and backward, the gathers of the
+other sharded weights) are traced into the compiled graphs.  Each rank's
+compiled steps against its eager steps (dropout 0, noise 0): metrics,
+running statistics and the validation loss within
+``tests/test_torch_port_compile.py``'s ``TOL`` plus twice the eager fit's
+own spread over the other 23 orders of the batch's 4 events
+(``assert_within_spread``).  Measured on an AVX-512 host (8 cores): the
+validation loss 1.87e-4 from eager (1.07e-4 of it, past ``TOL``'s 1e-4
+alone) against a spread of 2.93e-4, a bound of 7.7e-4; with Inductor's
+``cpp.simdlen`` at 256 bits the compiled loss falls inside ``TOL``, so the
+gap is the order of the float32 sums.  Gradients (whole) by its
+``grads_close`` rule, parameters by ``test_torch_port_train``'s Adam rule;
+the ranks' whole compiled states equal bit for bit
+(``test_torch_port_ddp_parity.check_compiled_ranks``).
 """
 
 import dataclasses
@@ -73,7 +93,8 @@ from dune_transformercvn_torch.from_jax import (jax_channel_axes, map_jax_variab
 from dune_transformercvn_torch.models import ModelConfig, TransformerCVN
 from dune_transformercvn_torch.train import Trainer
 from _torch_families import FAMILIES, batches_and_norm, family_configs  # same-dir helpers
-from test_torch_port_loop import TINY, small_synthetic_file, tiny_options
+from test_torch_port_ddp_parity import check_compiled_ranks
+from test_torch_port_loop import SMALL, TINY, small_synthetic_file, tiny_options
 from test_torch_port_parallel import communicate_all
 from test_torch_port_train import assert_adam_params_close
 
@@ -423,3 +444,8 @@ def test_tp_rows_stay_on_a_host():
     assert not parallel.tp_rows_process_local(8, 4, 2)
     assert not parallel.tp_rows_process_local(6, 2, 3)
     assert parallel.tp_rows_process_local(4, 4, 4)
+
+
+def test_compiled_tensor_parallel_steps_match_eager(tmp_path):
+    check_compiled_ranks(tmp_path, {**TINY, **SMALL, "num_gpu": 2, "model_parallel": 2,
+                                    "num_attention_heads": 2})
